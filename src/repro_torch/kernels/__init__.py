@@ -1,0 +1,6 @@
+"""Hand-written Hopper kernels of the port (counterpart of
+``src/repro/kernels/``): K1 ``panel_qr``, K2 ``wy_apply``, K3
+``stacked_qr`` and K4 ``stacked_apply`` in CUDA C++ under ``csrc/``, each
+beside its plain PyTorch version, routed by ``ops``. Importing this
+package builds nothing; ``build`` compiles the sources at first use.
+"""

@@ -1,0 +1,100 @@
+"""Device resolution, launch counters and the engine report of the port's
+kernels. Counterpart of ``src/repro/kernels/backend.py``.
+
+The JAX package chooses among compiled / interpret / oracle routes and
+reads environment kill switches. The port has one rule instead, applied
+by ``repro_torch.kernels.ops``: a CPU tensor runs the plain PyTorch
+version, a CUDA tensor runs the hand-written CUDA kernel or raises. There
+is no switch that sends a CUDA tensor to the plain version, so a kernel
+result is never silently a plain one; ``probe_report()`` says which engine
+ran each op last, and ``LAUNCHES`` counts the kernel launches.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+ENGINE_CUDA = "cuda"
+ENGINE_PLAIN = "plain"
+
+# The four ops on the windowed sweep's path (K1-K4 of PERF.md).
+OPS = ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply")
+
+# Kernel launches per op; each wrapper adds one where it launches.
+LAUNCHES: Dict[str, int] = {op: 0 for op in OPS}
+# The engine that ran each op's most recent call ("cuda" or "plain").
+_LAST_ENGINE: Dict[str, str] = {}
+
+
+def reset_launches() -> None:
+    """Set every launch counter to 0."""
+    for op in OPS:
+        LAUNCHES[op] = 0
+
+
+def count_launch(op: str) -> None:
+    LAUNCHES[op] += 1
+    _LAST_ENGINE[op] = ENGINE_CUDA
+
+
+def note_plain(op: str) -> None:
+    _LAST_ENGINE[op] = ENGINE_PLAIN
+
+
+def probe_report() -> Dict[str, Dict[str, object]]:
+    """{op: {"engine": "cuda" | "plain" | None, "launches": n}} — the engine
+    of each op's most recent call (None if it has not run)."""
+    return {op: {"engine": _LAST_ENGINE.get(op), "launches": LAUNCHES[op]}
+            for op in OPS}
+
+
+def lanes(x: torch.Tensor, op: str) -> torch.Tensor:
+    """``x`` with a lane axis: a 2-D tensor becomes a batch of one. Checks
+    what every kernel wrapper needs: a CUDA f32 tensor of rank 2 or 3 with
+    unit column stride."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{op}: the kernel takes CUDA tensors, got {x.device}")
+    if x.dtype != torch.float32:
+        raise NotImplementedError(
+            f"{op}: the CUDA kernel is float32 only, got {x.dtype}")
+    if x.dim() not in (2, 3) or x.stride(-1) != 1:
+        raise ValueError(f"{op}: expected a (P, rows, cols) or (rows, cols) "
+                         f"tensor with unit column stride, got shape "
+                         f"{tuple(x.shape)} strides {x.stride()}")
+    return x.unsqueeze(0) if x.dim() == 2 else x
+
+
+def contiguous_lanes(x: torch.Tensor, op: str) -> torch.Tensor:
+    x = lanes(x, op)
+    if not x.is_contiguous():
+        raise ValueError(f"{op}: expected a contiguous tensor, got strides "
+                         f"{x.stride()}")
+    return x
+
+
+def stream_ptr(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """``x`` (a tensor or Python data) on ``device``. A host tensor bound
+    for the GPU goes through pinned memory with a non-blocking copy: a
+    plain ``.to("cuda")`` of pageable memory synchronises the stream, and
+    the sweep moves small per-lane bookkeeping tensors every level."""
+    x = torch.as_tensor(x)
+    if x.device.type != "cpu" or device.type != "cuda":
+        return x.to(device)
+    return x.pin_memory().to(device, non_blocking=True)
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device a numpy entry point puts its tensors on. CUDA is the
+    default; asking for it without a GPU raises rather than falling back to
+    the CPU (pass ``device="cpu"`` to run there on purpose)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "port's plain path on the CPU")
+    return dev

@@ -1,0 +1,91 @@
+"""K3: QR of two stacked upper triangles, and K4: the fused trailing
+combine (port of ``src/repro/kernels/stacked_qr.py``).
+
+``stacked_qr`` and ``stacked_apply`` launch the CUDA kernels of
+``csrc/stacked_qr.cu`` over the lane axis; ``stacked_qr_plain`` and
+``stacked_apply_plain`` are their plain PyTorch versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import backend, build
+from repro_torch.kernels.ref import (  # noqa: F401
+    stacked_apply as stacked_apply_plain,
+    stacked_qr as stacked_qr_plain,
+)
+
+MAX_B = 128
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.cache
+def _qr_kernel():
+    return build.bind("stacked_qr", "stacked_qr_f32",
+                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P])
+
+
+@functools.cache
+def _apply_kernel():
+    return build.bind("stacked_qr", "stacked_apply_f32",
+                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+
+
+def _b(b: int, op: str) -> None:
+    if not 1 <= b <= MAX_B:
+        raise ValueError(f"{op}: needs 1 <= b <= {MAX_B}, got {b}")
+
+
+def stacked_qr(R_top: torch.Tensor, R_bot: torch.Tensor):
+    """(Y2, T, R) of QR([R_top; R_bot]) for contiguous CUDA f32 tensors
+    (P, b, b) or (b, b)."""
+    squeeze = R_top.dim() == 2
+    Rt = backend.contiguous_lanes(R_top, "stacked_qr")
+    Rb = backend.contiguous_lanes(R_bot, "stacked_qr")
+    P, b, b2 = Rt.shape
+    if Rb.shape != Rt.shape or b != b2:
+        raise ValueError(f"stacked_qr: shapes {tuple(R_top.shape)} and "
+                         f"{tuple(R_bot.shape)} are not two (P, b, b)")
+    _b(b, "stacked_qr")
+    Y2, T, R = (torch.empty_like(Rt) for _ in range(3))
+    work = torch.empty(P, 2 * b, b, device=Rt.device, dtype=Rt.dtype)
+    Yw = torch.empty_like(work)
+    err = _qr_kernel()(Rt.data_ptr(), Rb.data_ptr(), Y2.data_ptr(),
+                       T.data_ptr(), R.data_ptr(), work.data_ptr(),
+                       Yw.data_ptr(), P, b, backend.stream_ptr(Rt))
+    build.check(err, "stacked_qr")
+    backend.count_launch("stacked_qr")
+    if squeeze:
+        return Y2[0], T[0], R[0]
+    return Y2, T, R
+
+
+def stacked_apply(Y2: torch.Tensor, T: torch.Tensor, C_top: torch.Tensor,
+                  C_bot: torch.Tensor):
+    """(C_top - W, C_bot - Y2 W, W) with W = T^T (C_top + Y2^T C_bot), for
+    contiguous CUDA f32 tensors: Y2, T (P, b, b); C_top, C_bot (P, b, n);
+    or the same without the lane axis."""
+    squeeze = C_top.dim() == 2
+    Y3 = backend.contiguous_lanes(Y2, "stacked_apply")
+    T3 = backend.contiguous_lanes(T, "stacked_apply")
+    Ct = backend.contiguous_lanes(C_top, "stacked_apply")
+    Cb = backend.contiguous_lanes(C_bot, "stacked_apply")
+    P, b, n = Ct.shape
+    if Y3.shape != (P, b, b) or T3.shape != (P, b, b) or Cb.shape != Ct.shape:
+        raise ValueError("stacked_apply: shapes do not conform: "
+                         f"{[tuple(x.shape) for x in (Y2, T, C_top, C_bot)]}")
+    _b(b, "stacked_apply")
+    ot, ob, W = (torch.empty_like(Ct) for _ in range(3))
+    if n:
+        err = _apply_kernel()(Y3.data_ptr(), T3.data_ptr(), Ct.data_ptr(),
+                              Cb.data_ptr(), ot.data_ptr(), ob.data_ptr(),
+                              W.data_ptr(), P, b, n, backend.stream_ptr(Ct))
+        build.check(err, "stacked_apply")
+        backend.count_launch("stacked_apply")
+    if squeeze:
+        return ot[0], ob[0], W[0]
+    return ot, ob, W

@@ -1,0 +1,50 @@
+"""K2: fused compact-WY application C - Y (T^T (Y^T C)) (port of
+``src/repro/kernels/wy_apply.py``).
+
+``wy_apply`` launches the CUDA kernel of ``csrc/wy_apply.cu`` over the lane
+axis; ``wy_apply_plain`` is its plain PyTorch version.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import backend, build
+from repro_torch.kernels.ref import wy_apply as wy_apply_plain  # noqa: F401
+
+MAX_B = 128
+
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+
+@functools.cache
+def _kernel():
+    return build.bind("wy_apply", "wy_apply_f32",
+                      [_P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _P])
+
+
+def wy_apply(Y: torch.Tensor, T: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """Q^T C for CUDA f32 tensors: Y (P, m, b), T (P, b, b), C (P, m, n), or
+    the same without the lane axis. C may be a strided view (unit column
+    stride), such as the sweep's live window; the result is contiguous."""
+    squeeze = C.dim() == 2
+    Y3 = backend.contiguous_lanes(Y, "wy_apply")
+    T3 = backend.contiguous_lanes(T, "wy_apply")
+    C3 = backend.lanes(C, "wy_apply")
+    P, m, b = Y3.shape
+    n = C3.shape[2]
+    if T3.shape != (P, b, b) or C3.shape[:2] != (P, m):
+        raise ValueError(f"wy_apply: shapes Y {tuple(Y.shape)}, T "
+                         f"{tuple(T.shape)}, C {tuple(C.shape)} do not conform")
+    if not 1 <= b <= MAX_B:
+        raise ValueError(f"wy_apply: needs 1 <= b <= {MAX_B}, got {b}")
+    out = torch.empty(P, m, n, device=C3.device, dtype=C3.dtype)
+    if m and n:
+        err = _kernel()(Y3.data_ptr(), T3.data_ptr(), C3.data_ptr(),
+                        C3.stride(0), C3.stride(1), out.data_ptr(),
+                        P, m, b, n, backend.stream_ptr(C3))
+        build.check(err, "wy_apply")
+        backend.count_launch("wy_apply")
+    return out[0] if squeeze else out
