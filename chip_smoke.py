@@ -6,19 +6,39 @@ Phases, each of which raises on a failed check (the script then exits
 non-zero and prints no result):
 
 1. report and build: the card's name and power limit; every CUDA kernel
-   of the sweep built from ``src/repro_torch/csrc`` (one nvcc per source).
-2. kernels: K1-K4 at the sweep's shapes against their plain PyTorch
-   versions, and timed with CUDA events beside the plain version and one
-   PyTorch call computing the same function; one JSON line per kernel.
+   built from ``src/repro_torch/csrc`` (one nvcc per source, in parallel).
+2. kernels: K1-K6 at the sweep's first-panel shapes against their plain
+   PyTorch versions, timed with CUDA events beside the plain version and
+   one PyTorch call computing the same function (K1-K4) or the stepped
+   kernels doing the same work (K5: K1+K2; K6: the stepped panel); the
+   check that one lane of a P-lane launch equals a launch of it alone
+   (K1-K5); one JSON line per kernel.
 3. sweep: the windowed FT-CAQR sweep of a 32768 x 4096 f32 matrix over
    P = 8 lanes at panel width 128 (32 panels, 3 butterfly levels), with
-   the launch counters at 0 before it; checks that every kernel ran, that
-   R is replicated bitwise, the Gram identity, Q^T A = [R; 0] and a
-   least-squares solve.
-   Then device time by kernel over one more sweep, from torch.profiler.
-4. recovery: the FT trailing update of one panel with lane 3 killed after
+   the launch counters at 0 before it; checks that K1-K4 ran, that R is
+   replicated bitwise, the Gram identity, Q^T A = [R; 0] and a
+   least-squares solve. Then device time by kernel over one more sweep,
+   from torch.profiler.
+4. fused leaf: ``householder.panel_qr_apply`` (K5) on the first panel's
+   window, counters at 0 before it, bit-equal to the stepped leaf.
+5. state machine + fused: the same matrix through ``run_steps`` and,
+   separately, ``run_panel_fused`` over all 32 panels (K6, counters at 0
+   before it; no K1-K4 launch inside), each with ``finalize``: seconds,
+   launches, peak memory; both bit-equal to the sweep's R, factors and
+   bundles, and to each other at every panel boundary.
+6. FT driver: ``ft_caqr_sweep`` on the same matrix with four kills (an
+   early leaf point, a tsqr point and a trailing point of the panel's
+   root lane mid-sweep, the last panel's last trailing point), R, factors
+   and bundles bit-equal to the failure-free sweep, one single-source
+   event per kill, each REBUILD's seconds.
+7. recovery: the FT trailing update of one panel with lane 3 killed after
    level 1 and rebuilt from one buddy, bitwise equal to the clean run.
-5. ragged: an unaligned 32000 x 4000 sweep checked by the Gram identity.
+8. square: a 4096 x 4096 sweep (m_loc = 512, so the tree root walks lanes
+   0-7 and lanes are consumed): fused == stepped at every panel boundary,
+   both equal to ``caqr_factorize``, and a kill of a root lane recovered
+   bitwise.
+9. ragged: an unaligned 32000 x 4000 sweep checked by the Gram identity,
+   and fused == stepped at every panel boundary.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Needs CUDA; imports neither JAX nor the JAX package.
@@ -38,11 +58,14 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import SimComm, caqr_apply_qt, caqr_factorize, ft_tsqr  # noqa: E402
-from repro_torch.core import block_row_layout, recovery  # noqa: E402
+from repro_torch.core import block_row_layout, householder, panel_geometry, recovery  # noqa: E402
 from repro_torch.core.lstsq import caqr_lstsq  # noqa: E402
+from repro_torch.ft import FailureSchedule, ft_caqr_sweep, sweep_point  # noqa: E402
+from repro_torch.ft.online import state as sm  # noqa: E402
 from repro_torch.kernels import backend, build, ops, ref  # noqa: E402
 
 P, M_LOC, N, B = 8, 4096, 4096, 128
+L = P.bit_length() - 1
 PEAK_FP32 = 67e12    # FLOP/s, H100 SXM outside the tensor cores
 PEAK_BYTES = 3.35e12  # B/s, H100 SXM HBM3
 GRAM_TOL = 1e-3       # relative, float64 Gram identity R^T R = A^T A
@@ -58,7 +81,12 @@ KERNELS = {
                    "src/repro/kernels/stacked_qr.py:108"),
     "stacked_apply": ("src/repro_torch/csrc/stacked_qr.cu",
                       "src/repro/kernels/stacked_qr.py:171"),
+    "panel_qr_apply": ("src/repro_torch/csrc/fused_sweep.cu",
+                       "src/repro/kernels/fused_sweep.py:226"),
+    "fused_panel": ("src/repro_torch/csrc/fused_sweep.cu",
+                    "src/repro/kernels/fused_sweep.py:167"),
 }
+STEPPED = ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply")
 
 
 def emit(obj) -> None:
@@ -97,25 +125,36 @@ def max_err(got, want):
     return max(d for d, _ in diffs), max(d / s for d, s in diffs)
 
 
+def as_tuple(x):
+    if isinstance(x, dict):
+        return tuple(x[f] for f in x if f != "tops")
+    return x if isinstance(x, tuple) else (x,)
+
+
+def same_bits(got, want) -> bool:
+    return all(torch.equal(g, w) for g, w in zip(as_tuple(got), as_tuple(want)))
+
+
 def kernel_phase(A: torch.Tensor) -> list:
-    """K1-K4 on the first panel's data of the sweep, against their plain
+    """K1-K6 on the first panel's data of the sweep, against their plain
     versions; returns one record per kernel."""
     rtol, _ = ref.tolerances(torch.float32)
     f = 4.0  # bytes per float
     panel = A[..., :B].contiguous()
     rows = [(i, i ^ 1) for i in range(P)]
     C = A  # panel 0's live window is the whole width
+    comm = SimComm(P)
     cases = {}
     Y, T, R = ops.panel_qr(panel, 0)
+    leaf_flops = 3.0 * M_LOC * B * B - B ** 3 / 3.0
+    apply_flops = 4.0 * M_LOC * B * N + B * B * N
     cases["panel_qr"] = dict(
         run=lambda: ops.panel_qr(panel, 0), plain=lambda: ref.panel_qr(panel, 0),
-        lib=lambda: torch.geqrf(panel),
-        flops=P * (3.0 * M_LOC * B * B - B ** 3 / 3.0),
+        lib=lambda: torch.geqrf(panel), flops=P * leaf_flops,
         nbytes=f * P * (2 * M_LOC * B + 2 * B * B), reps=5)
     cases["wy_apply"] = dict(
         run=lambda: ops.wy_apply(Y, T, C), plain=lambda: ref.wy_apply(Y, T, C),
-        lib=lambda: C - Y @ (T.mT @ (Y.mT @ C)),
-        flops=P * (4.0 * M_LOC * B * N + B * B * N),
+        lib=lambda: C - Y @ (T.mT @ (Y.mT @ C)), flops=P * apply_flops,
         nbytes=f * P * (M_LOC * B + B * B + 2 * M_LOC * N), reps=10)
     R_top = R.contiguous()
     R_bot = R[[j for _, j in rows]].contiguous()
@@ -136,8 +175,33 @@ def kernel_phase(A: torch.Tensor) -> list:
         flops=P * 3.0 * B * B * N, nbytes=f * P * (2 * B * B + 5 * B * N),
         reps=10)
 
+    def k1_k2():
+        Yl, Tl, _ = ops.panel_qr(A[..., :B], 0)
+        return ops.wy_apply(Yl, Tl, A)
+
+    cases["panel_qr_apply"] = dict(
+        run=lambda: ops.panel_qr_apply(A, 0, B),
+        plain=lambda: ref.panel_qr_apply(A, 0, B),
+        stepped=k1_k2, stepped_route="K1+K2 (panel_qr, wy_apply)",
+        flops=P * (leaf_flops + apply_flops),
+        nbytes=f * P * (2 * M_LOC * N + M_LOC * B + 2 * B * B + B * N),
+        reps=3)
+    s0 = sm.initial_sweep_state(comm, A, B)
+    pts = sm.panel_points(s0.geom)
+    cases["fused_panel"] = dict(
+        run=lambda: ops.fused_panel(A, 0, b=B, m_loc_pad=M_LOC, levels=L),
+        plain=lambda: ref.fused_panel(A, 0, b=B, m_loc_pad=M_LOC, levels=L),
+        stepped=lambda: sm.run_steps(comm, s0, pts),
+        stepped_route="the stepped panel (K1, 3 x K3, K2, 3 x K4)",
+        flops=P * (leaf_flops + apply_flops + L * (B ** 3 + 3.0 * B * B * N)),
+        nbytes=f * P * (2 * M_LOC * N + M_LOC * B + (3 + 2 * L) * B * B
+                        + (1 + 3 * L) * B * N),
+        reps=3)
+
     # Determinism: one lane of the P-lane launch equals a launch of it alone.
     k = P - 3
+    check(same_bits(tuple(x[k] for x in (Y, T, R)), ops.panel_qr(panel[k], 0)),
+          "panel_qr: lane bits depend on the launch")
     one = ops.stacked_qr(R_top[k], R_bot[k])
     check(all(torch.equal(a[k], o) for a, o in
               zip(ops.stacked_qr(R_top, R_bot), one)),
@@ -145,24 +209,43 @@ def kernel_phase(A: torch.Tensor) -> list:
     one = ops.wy_apply(Y[k], T[k], C[k])
     check(torch.equal(ops.wy_apply(Y, T, C)[k], one),
           "wy_apply: lane bits depend on the launch")
+    one = ops.stacked_apply(Y2[k], T2[k], Ct[k], Cb[k])
+    check(all(torch.equal(a[k], o) for a, o in
+              zip(ops.stacked_apply(Y2, T2, Ct, Cb), one)),
+          "stacked_apply: lane bits depend on the launch")
+    fused_leaf = ops.panel_qr_apply(A, 0, B)
+    check(same_bits(tuple(x[k] for x in fused_leaf),
+                    ops.panel_qr_apply(A[k], 0, B)),
+          "panel_qr_apply: lane bits depend on the launch")
+    # K5 shares K1's and K2's device code: bit-equal to the two launches.
+    Yk, Tk, Rk = ops.panel_qr(A[..., :B], 0)
+    Ck = ops.wy_apply(Yk, Tk, A)
+    check(same_bits(fused_leaf, (Yk, Tk, Rk, Ck, Ck[:, :B])),
+          "panel_qr_apply differs from panel_qr then wy_apply")
+    del fused_leaf, Yk, Tk, Rk, Ck
 
     records = []
     for name, c in cases.items():
         got, want = c["run"](), c["plain"]()
         torch.cuda.synchronize()
-        err, scaled = max_err(got if isinstance(got, tuple) else (got,),
-                              want if isinstance(want, tuple) else (want,))
+        err, scaled = max_err(as_tuple(got), as_tuple(want))
+        del got, want
         check(scaled <= rtol, f"{name}: scaled error {scaled} over tolerance {rtol}")
         ms = time_ms(c["run"], c["reps"])
-        plain_ms = time_ms(c["plain"], 2 if name == "panel_qr" else c["reps"])
-        lib_ms = time_ms(c["lib"], c["reps"])
+        slow_plain = name in ("panel_qr", "panel_qr_apply", "fused_panel")
+        plain_ms = time_ms(c["plain"], 1 if slow_plain else c["reps"])
         bms, by = bound_ms(c["flops"], c["nbytes"])
         source, replaces = KERNELS[name]
         rec = dict(name=name, route="cuda", source=source, replaces=replaces,
                    launches=0, max_abs_err=err, scaled_err=scaled,
-                   tolerance=rtol, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                   library_ms=lib_ms)
+                   tolerance=rtol, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                   bound_by=by,
+                   library_ms=time_ms(c["lib"], c["reps"]) if "lib" in c else None)
+        if "stepped" in c:
+            # no single PyTorch call computes K5 or K6: the yardstick is the
+            # stepped kernels doing the same work
+            rec["stepped_ms"] = time_ms(c["stepped"], c["reps"])
+            rec["stepped_route"] = c["stepped_route"]
         emit({"kernel": rec})
         records.append(rec)
     return records
@@ -175,8 +258,8 @@ def gram_error(A_flat64: torch.Tensor, R: torch.Tensor) -> float:
 
 
 def sweep_phase(A: torch.Tensor, rng):
-    """The main path, launch counters at 0 before it; returns the launches
-    and the sweep's seconds."""
+    """The slice-1 main path, launch counters at 0 before it; returns the
+    launches, the sweep's seconds and its (R, factors, bundles)."""
     comm = SimComm(P)
     backend.reset_launches()
     torch.cuda.synchronize()
@@ -186,7 +269,7 @@ def sweep_phase(A: torch.Tensor, rng):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(backend.LAUNCHES)
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[op] > 0 for op in STEPPED),
           f"a kernel was not launched by the sweep: {launches}")
     check(bool((res.R == res.R[:1]).all()), "R is not replicated bitwise")
     m = P * M_LOC
@@ -195,25 +278,25 @@ def sweep_phase(A: torch.Tensor, rng):
     R0 = res.R[0]
     gram = gram_error(A64, R0)
     check(gram <= GRAM_TOL, f"Gram identity: {gram} > {GRAM_TOL}")
-    res = res._replace(bundles=None)
     QtA = caqr_apply_qt(A, res.factors, comm).reshape(-1, N)
     rmax = float(R0.abs().max())
     top = float((QtA[:N] - R0).abs().max()) / rmax
     rest = float(QtA[N:].abs().max()) / rmax
+    del QtA
     check(max(top, rest) <= QTA_TOL, f"Q^T A != [R; 0]: {top}, {rest}")
     rhs = block_row_layout(rng.standard_normal((m, 1)).astype(np.float32), P)
-    x = caqr_lstsq(A, rhs, comm, B, result=res).double()
+    x = caqr_lstsq(A, rhs, comm, B, result=res._replace(bundles=None)).double()
     b64 = rhs.reshape(-1, 1).double()
     x_ne = torch.linalg.solve(A64.T @ A64, A64.T @ b64)
     lst = float((x - x_ne).norm() / x_ne.norm())
     check(lst <= LSTSQ_TOL, f"lstsq vs normal equations: {lst}")
-    out = dict(shape=[m, N], P=P, b=B, panels=N // B, levels=P.bit_length() - 1,
+    out = dict(shape=[m, N], P=P, b=B, panels=N // B, levels=L,
                seconds=seconds, gflops=flops / seconds / 1e9,
                launches=launches, gram_rel_err=gram, qta_top_rel_err=top,
                qta_rest_rel=rest, lstsq_rel_err=lst,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     emit({"sweep": out})
-    return launches, seconds
+    return launches, seconds, res
 
 
 def profile_phase(A: torch.Tensor, sweep_seconds: float) -> None:
@@ -229,7 +312,7 @@ def profile_phase(A: torch.Tensor, sweep_seconds: float) -> None:
         caqr_factorize(A, SimComm(P), B, use_scan=False, collect_bundles=True)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = {name: 0.0 for name in KERNELS}
+    by_kernel = {name: 0.0 for name in STEPPED}
     other = 0.0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -237,7 +320,7 @@ def profile_phase(A: torch.Tensor, sweep_seconds: float) -> None:
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        name = next((k for k in KERNELS if e.key.startswith(k + "_kernel")), None)
+        name = next((k for k in STEPPED if e.key.startswith(k + "_kernel")), None)
         if name is None:
             other += us / 1e3
         else:
@@ -246,6 +329,143 @@ def profile_phase(A: torch.Tensor, sweep_seconds: float) -> None:
     emit({"profile": dict(profiled_wall_ms=wall_ms, kernel_ms=by_kernel,
                           other_device_ms=other, device_ms=busy,
                           device_busy_share=busy / (sweep_seconds * 1e3))})
+
+
+def fused_leaf_phase(A: torch.Tensor) -> dict:
+    """K5's path: the fused leaf entry point on the first panel's window,
+    counters at 0 before it; bit-equal to the stepped leaf (K1 then K2)."""
+    comm = SimComm(P)
+    _c0, _t, row_start, _act = panel_geometry(comm, 0, B, M_LOC)
+    backend.reset_launches()
+    wy, C, Cp = householder.panel_qr_apply(A, row_start, B)
+    torch.cuda.synchronize()
+    launches = dict(backend.LAUNCHES)
+    wy1 = householder.householder_qr_masked(A[..., :B], row_start)
+    C1 = householder.apply_qt(wy1.Y, wy1.T, A)
+    same = same_bits((*wy, C, Cp), (*wy1, C1, C1[:, :B]))
+    emit({"fused_leaf": dict(window=list(A.shape), launches=launches,
+                             bitwise_equal_stepped=same)})
+    check(launches["panel_qr_apply"] == 1 and
+          all(launches[op] == 0 for op in STEPPED),
+          f"fused leaf launches: {launches}")
+    check(same, "fused leaf differs from the stepped leaf")
+    return launches
+
+
+def states_equal(a: sm.SweepState, b: sm.SweepState) -> bool:
+    fa, fb = sm.flat_arrays(a), sm.flat_arrays(b)
+    return (a.cursor == b.cursor and fa.keys() == fb.keys()
+            and all(fa[k].dtype == fb[k].dtype and torch.equal(fa[k], fb[k])
+                    for k in fa))
+
+
+def lockstep(A: torch.Tensor) -> int:
+    """Fused and stepped sweeps side by side; checks the states bit for bit
+    at every panel boundary and the finalized outputs; returns the number
+    of boundaries compared."""
+    comm = SimComm(P)
+    s_f = s_s = sm.initial_sweep_state(comm, A, B)
+    pts = sm.panel_points(s_s.geom)
+    n = 0
+    while s_f.cursor is not None:
+        s_f = sm.run_panel_fused(comm, s_f)
+        s_s = sm.run_steps(comm, s_s, pts)
+        check(states_equal(s_f, s_s),
+              f"fused state differs from stepped at boundary {s_s.cursor}")
+        n += 1
+    check(same_bits(flat_result(sm.finalize(comm, s_f)),
+                    flat_result(sm.finalize(comm, s_s))),
+          "fused and stepped finalize differ")
+    return n
+
+
+def flat_result(res) -> tuple:
+    R, factors, bundles = res[:3]
+    return (R, *factors, *bundles)
+
+
+def timed_sweep(A: torch.Tensor, fused: bool):
+    """One state-machine sweep to completion with finalize, counters and
+    peak memory reset before it; returns (result, seconds, launches, GB):
+    the peak is counted above what was allocated before the sweep."""
+    comm = SimComm(P)
+    s = sm.initial_sweep_state(comm, A, B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    backend.reset_launches()
+    t0 = time.perf_counter()
+    if fused:
+        while s.cursor is not None:
+            s = sm.run_panel_fused(comm, s)
+    else:
+        s = sm.run_steps(comm, s)
+    out = sm.finalize(comm, s)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del s
+    return (out, seconds, dict(backend.LAUNCHES),
+            (torch.cuda.max_memory_allocated() - base) / 1e9)
+
+
+def state_machine_phase(A: torch.Tensor, want: tuple) -> dict:
+    """K6's path: the full-width sweep stepped and fused, each alone
+    (seconds, launches, peak memory) and bit-equal to the sweep's
+    outputs, then side by side, equal at every panel boundary."""
+    res_s, sec_s, launch_s, mem_s = timed_sweep(A, fused=False)
+    ok_s = same_bits(flat_result(res_s), want)
+    del res_s
+    res_f, sec_f, launch_f, mem_f = timed_sweep(A, fused=True)
+    ok_f = same_bits(flat_result(res_f), want)
+    del res_f
+    boundaries = lockstep(A)
+    emit({"state_machine": dict(
+        shape=[P * M_LOC, N], stepped_seconds=sec_s, fused_seconds=sec_f,
+        stepped_launches=launch_s, fused_launches=launch_f,
+        stepped_peak_mem_gb_above_live=mem_s,
+        fused_peak_mem_gb_above_live=mem_f,
+        stepped_equals_sweep=ok_s, fused_equals_sweep=ok_f,
+        boundaries_bitwise=boundaries)})
+    check(ok_s, "stepped state machine differs from caqr_factorize")
+    check(ok_f, "fused sweep differs from caqr_factorize")
+    check(launch_f["fused_panel"] == N // B and
+          all(launch_f[op] == 0 for op in STEPPED),
+          f"fused sweep launches: {launch_f}")
+    check(all(launch_s[op] > 0 for op in STEPPED) and
+          launch_s["fused_panel"] == 0, f"stepped launches: {launch_s}")
+    return launch_f
+
+
+def kill_check(A: torch.Tensor, comm, kills: dict, want: tuple) -> dict:
+    """ft_caqr_sweep under ``kills`` ({point: lane}); bit-equal to
+    ``want``, one single-source event per kill."""
+    sched = FailureSchedule(events={pt: [lane] for pt, lane in kills.items()})
+    torch.cuda.synchronize()
+    backend.reset_launches()
+    t0 = time.perf_counter()
+    got = ft_caqr_sweep(A, comm, B, schedule=sched)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    same = same_bits(flat_result(got), want)
+    events = [dict(point=list(e.point), lane=e.lane, reads=e.reads,
+                   rebuild_seconds=e.elapsed_s) for e in got.events]
+    check([(tuple(e["point"]), e["lane"]) for e in events] == list(kills.items()),
+          f"events {events} do not match the kills {kills}")
+    check(all(e["lane"] not in e["reads"].values() for e in events),
+          "a rebuild read from the dead lane")
+    check(same, "the FT sweep with kills differs from the failure-free sweep")
+    return dict(seconds=seconds, events=events, bitwise_equal=same,
+                launches=dict(backend.LAUNCHES))
+
+
+def ft_driver_phase(A: torch.Tensor, want: tuple) -> None:
+    root = 0  # every panel of the tall cell is rooted at lane 0
+    kills = {sweep_point(1, "leaf"): 2,
+             sweep_point(12, "tsqr", 1): 5,
+             sweep_point(16, "trailing", 0): root,
+             sweep_point(N // B - 1, "trailing", L - 1): 7}
+    out = kill_check(A, SimComm(P), kills, want)
+    emit({"ft_driver": dict(shape=[P * M_LOC, N], **out)})
 
 
 def recovery_phase(A: torch.Tensor) -> None:
@@ -264,6 +484,25 @@ def recovery_phase(A: torch.Tensor) -> None:
     check(same, "recovered run differs from the clean run")
 
 
+def square_phase(rng) -> None:
+    """4096 x 4096 over P = 8 (m_loc = 512): the root walks lanes 0-7,
+    consumed lanes and row_start clamping past lane 0 occur."""
+    n = N
+    m_loc = n // P
+    A = block_row_layout(rng.standard_normal((n, n)).astype(np.float32), P)
+    comm = SimComm(P)
+    ref_res = caqr_factorize(A, comm, B, use_scan=False, collect_bundles=True)
+    want = flat_result(ref_res)
+    gram = gram_error(A.reshape(-1, n).double(), ref_res.R[0])
+    check(gram <= GRAM_TOL, f"square Gram identity: {gram} > {GRAM_TOL}")
+    boundaries = lockstep(A)
+    k = 13                     # col0 = 1664: rooted at lane 3
+    root = (k * B) // m_loc
+    out = kill_check(A, comm, {sweep_point(k, "trailing", 1): root}, want)
+    emit({"square": dict(shape=[n, n], m_loc=m_loc, gram_rel_err=gram,
+                         boundaries_bitwise=boundaries, kill=out)})
+
+
 def ragged_phase(rng) -> None:
     m_loc, n = 4000, 4000
     A_np = rng.standard_normal((P * m_loc, n)).astype(np.float32)
@@ -272,8 +511,11 @@ def ragged_phase(rng) -> None:
     torch.cuda.synchronize()
     check(tuple(res.R.shape) == (P, n, n), f"ragged R shape {res.R.shape}")
     gram = gram_error(A.reshape(-1, n).double(), res.R[0])
-    emit({"ragged": dict(m_loc=m_loc, n=n, b=B, gram_rel_err=gram)})
     check(gram <= GRAM_TOL, f"ragged Gram identity: {gram} > {GRAM_TOL}")
+    del res
+    boundaries = lockstep(A)
+    emit({"ragged": dict(m_loc=m_loc, n=n, b=B, gram_rel_err=gram,
+                         fused_boundaries_bitwise=boundaries)})
 
 
 def main() -> int:
@@ -299,11 +541,18 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     A = block_row_layout(rng.standard_normal((P * M_LOC, N)).astype(np.float32), P)
     records = kernel_phase(A)
-    launches, sweep_seconds = sweep_phase(A, rng)
+    launches, sweep_seconds, res = sweep_phase(A, rng)
+    want = flat_result(res)
+    del res
+    profile_phase(A, sweep_seconds)
+    launches.update({"panel_qr_apply": fused_leaf_phase(A)["panel_qr_apply"]})
+    launches.update({"fused_panel": state_machine_phase(A, want)["fused_panel"]})
     for rec in records:
         rec["launches"] = launches[rec["name"]]
-    profile_phase(A, sweep_seconds)
+    ft_driver_phase(A, want)
+    del want
     recovery_phase(A)
+    square_phase(rng)
     ragged_phase(rng)
     print(card, flush=True)
     emit({"kernels": records})

@@ -13,6 +13,7 @@ from repro_torch.core.householder import (
     build_t,
     householder_qr,
     householder_qr_masked,
+    panel_qr_apply,
     q_dense,
     stacked_apply_q,
     stacked_apply_qt,

@@ -9,11 +9,11 @@ at ``row_start + j``, degenerate columns give ``tau = 0``).
 Every function here is batched: arrays may carry any number of leading
 axes (the SimComm lane axis), and ``row_start`` may be a scalar or one
 value per batch entry. The public entry points (``householder_qr_masked``,
-``stacked_qr``, ``apply_qt``, ``stacked_apply_qt``) dispatch through
-``repro_torch.kernels.ops`` — batched calls too, since the lane axis is a
-grid dimension of every port kernel. The ``_``-prefixed pure forms are the
-plain versions the kernels are held against (``kernels/ref.py`` binds
-them).
+``stacked_qr``, ``apply_qt``, ``stacked_apply_qt``, ``panel_qr_apply``)
+dispatch through ``repro_torch.kernels.ops`` — batched calls too, since
+the lane axis is a grid dimension of every port kernel. The
+``_``-prefixed pure forms are the plain versions the kernels are held
+against (``kernels/ref.py`` binds them).
 """
 from __future__ import annotations
 
@@ -170,6 +170,17 @@ def stacked_apply_qt(sq: StackedQR, C_top: torch.Tensor, C_bot: torch.Tensor):
     from repro_torch.kernels import ops
 
     return ops.stacked_apply(sq.Y2, sq.T, C_top, C_bot)
+
+
+def panel_qr_apply(W: torch.Tensor, row_start, b: int):
+    """Fused leaf step: panel QR of ``W[..., :b]`` + Q^T applied to the
+    whole window + C' row extraction, one launch (K5 on a CUDA tensor, the
+    unfused composition of the pure forms on the CPU). Returns
+    ``(wy, C, C_prime)``."""
+    from repro_torch.kernels import ops
+
+    Y, T, R, C, Cp = ops.panel_qr_apply(W, row_start, b)
+    return WY(Y=Y, T=T, R=R), C, Cp
 
 
 def apply_q(Y: torch.Tensor, T: torch.Tensor, C: torch.Tensor) -> torch.Tensor:

@@ -53,12 +53,13 @@ class TrailingLevelStep(NamedTuple):
 
 
 def trailing_combine_level(comm, C_prime, Y2, T, step: int, target,
-                           dead_threshold, paper_semantics: bool = False
-                           ) -> TrailingLevelStep:
+                           dead_threshold, paper_semantics: bool = False,
+                           combine=_combine) -> TrailingLevelStep:
     """One tree level of Algorithm 2: the pair exchanges C', both lanes
     compute W, and each keeps the level's bundle slice. Zeroed (Y2, T) make
     the combine a pass-through; a pair with a dead member (a lane below
-    ``dead_threshold``) passes through per lane."""
+    ``dead_threshold``) passes through per lane. ``combine`` is the pair
+    combine (K4 by default; ``fused_panel_math`` passes the plain version)."""
     P = comm.axis_size()
     idx = comm.axis_index()
     C_buddy = comm.ppermute(C_prime, _xor_perm(P, step))
@@ -66,7 +67,7 @@ def trailing_combine_level(comm, C_prime, Y2, T, step: int, target,
     is_top = ((idx >> step) & 1) == tbit
     C_top = comm.where(is_top, C_prime, C_buddy)
     C_bot = comm.where(is_top, C_buddy, C_prime)
-    new_top, new_bot, W = _combine(Y2, T, C_top, C_bot)
+    new_top, new_bot, W = combine(Y2, T, C_top, C_bot)
     buddy_idx = idx ^ (1 << step)
     pair_live = (idx >= dead_threshold) & (buddy_idx >= dead_threshold)
     if paper_semantics:
@@ -78,21 +79,27 @@ def trailing_combine_level(comm, C_prime, Y2, T, step: int, target,
                              C_buddy=C_buddy, is_top=is_top)
 
 
-def _leaf_apply(comm, factors: DistTSQRFactors, C_local, row_start):
+def _leaf_apply(comm, factors: DistTSQRFactors, C_local, row_start,
+                active=None, skip_consumed: bool = False, apply=apply_qt):
     """Leaf Q^T apply over all lanes (one K2 launch) and the C' block at
     each lane's ``row_start`` (start clamped as ``lax.dynamic_slice``
     clamps). Fully consumed lanes have an all-zero leaf Y, so their apply
-    is the identity; the JAX package's ``skip_consumed`` only changes the
-    work under shard_map and has no counterpart here."""
+    is the identity. ``active`` and ``skip_consumed`` are the JAX
+    package's keywords: there the skip changes only the work under
+    shard_map, and under ``SimComm`` (the port's one layout) they change
+    nothing, so they are accepted and not read. ``apply`` computes Q^T C
+    (K2 by default; ``fused_panel_math`` passes the plain version)."""
     b = comm.local_shape(factors.R)[-1]
-    C2 = apply_qt(factors.leaf_Y, factors.leaf_T, C_local)
+    C2 = apply(factors.leaf_Y, factors.leaf_T, C_local)
     rs = to_device(row_start, C2.device).to(torch.int64)
     return C2, _rows_at(C2, rs.expand(C2.shape[0]), b)
 
 
 def _writeback(comm, C_local, C_prime, row_start, active):
     """Write each active lane's C' back at its (clamped) ``row_start``, in
-    place on ``C_local`` (the fresh output of the leaf apply)."""
+    place on ``C_local``, which must be a tensor the caller owns: the fresh
+    output of the leaf apply here, a fresh concatenation in the state
+    machine's deposit. Returns ``C_local``."""
     m, b = C_local.shape[-2], C_prime.shape[-2]
     rs = to_device(row_start, C_local.device).to(torch.int64)
     rs = rs.expand(C_local.shape[0]).clamp(0, m - b)

@@ -123,12 +123,14 @@ def _stack_levels(xs, like: torch.Tensor) -> torch.Tensor:
     return like.new_zeros((0,) + tuple(like.shape))
 
 
-def ft_tsqr_level(comm, R: torch.Tensor, step: int, target, active_threshold):
+def ft_tsqr_level(comm, R: torch.Tensor, step: int, target, active_threshold,
+                  qr=stacked_qr):
     """One level of the FT butterfly over current R factors: the pair
     exchanges R and both lanes compute the identical stacked QR. Returns
     ``(R_next, Y2, T)`` with the group-activity masking applied (zeroed
     factors are pass-throughs; a group of 2^step lanes is consumed iff its
-    last lane is below ``active_threshold``)."""
+    last lane is below ``active_threshold``). ``qr`` computes the stacked
+    QR (K3 by default; ``fused_panel_math`` passes the plain version)."""
     idx = comm.axis_index()
     P = comm.axis_size()
     R_buddy = comm.ppermute(R, _xor_perm(P, step))
@@ -136,7 +138,7 @@ def ft_tsqr_level(comm, R: torch.Tensor, step: int, target, active_threshold):
     is_top = ((idx >> step) & 1) == tbit
     R_top = comm.where(is_top, R, R_buddy)
     R_bot = comm.where(is_top, R_buddy, R)
-    sq = stacked_qr(R_top, R_bot)
+    sq = qr(R_top, R_bot)
     group = 1 << step
     my_base = idx & ~(group - 1)
     sib_base = (idx ^ group) & ~(group - 1)

@@ -1,0 +1,305 @@
+// K5: the fused per-lane leaf (panel QR + WY apply over the window + C'
+// rows), and K6: the whole-panel megakernel of the FT-CAQR sweep.
+//
+// K5 replaces src/repro/kernels/fused_sweep.py::panel_qr_apply (body
+// panel_qr_apply_math); K6 replaces fused_panel_pallas (body
+// fused_panel_math, the sweep_step bodies of one panel concatenated).
+//
+// One cooperative launch of a persistent grid (as many 512-thread blocks as
+// fit on the card at once), phases separated by grid-wide barriers:
+//   1. leaf: masked panel QR of each lane (K1's body, one block per lane);
+//      inactive (consumed) lanes get zero Y, T, R;
+//   2. (K6 only) L butterfly levels: each lane reads its buddy's R from
+//      global memory, stacks the pair and QRs it (K3's body), or passes
+//      through under the group-activity masks of core/tsqr.py;
+//   3. leaf apply: the window times Q^T over (lane, 32-column) tiles (K2's
+//      body), and each tile copies its columns of the C' rows at the
+//      clamped row_start (zero on inactive lanes);
+//   4. (K6 only) L trailing combines over (lane, 32-column) tiles (K4's
+//      body) with the is_top / pair_live selects of core/trailing.py.
+// K5 is phases 1 and 3 with no lane masks.
+//
+// Fused == stepped, bit for bit: every element is computed by the same
+// device functions as K1-K4 (qr_common.cuh), at the same thread layout.
+// Phases 1-2 run masked_qr at 512 threads, as K1 and K3 do; phases 3-4 run
+// two independent 256-thread tiles per block, each with its own shared
+// memory, so every sum keeps the order it has in K2 and K4. Work that the
+// stepped path computes and then masks away (QR of consumed lanes, stacked
+// QR of dead groups) is skipped; the selected values are the same.
+//
+// What bounds it on the H100: the same as K1-K4 (the leaf's column loop on
+// one block per lane, then FP32 FFMA in the apply). The simple design keeps
+// all intermediates in global memory (L2 at these sizes) and uses one
+// 512-thread block per SM (the leaf tile needs 140 KB of shared memory at
+// m = 4096), so the apply phases run at a third of K2's occupancy.
+#include <cooperative_groups.h>
+
+#include "qr_common.cuh"
+
+namespace cg = cooperative_groups;
+using namespace repro;
+
+static_assert(QR_THREADS == 2 * WY_THREADS && QR_THREADS == 2 * SA_THREADS,
+              "two apply tiles per block");
+static_assert(WY_BN == SA_BN, "phases 3 and 4 share the column tiling");
+
+struct FusedArgs {
+  const float* win;             // window (P, m, w): lane stride w_bs, row stride w_ld
+  long long w_bs, w_ld;
+  const int* rs;                // (P,) row starts
+  const unsigned char* active;  // (P,) lane flags; null = every lane active
+  int P, m, w, b, L, t_lane;
+  float* leaf_Y;    // (P, m, b)
+  float* leaf_T;    // (P, b, b)
+  float* R_leaf;    // (P, b, b)
+  float* R_carry;   // (P, b, b)           K6 only
+  float* level_Y2;  // (L, P, b, b)        K6 only
+  float* level_T;   // (L, P, b, b)        K6 only
+  float* C_local;   // (P, m, w)
+  float* C_prime;   // (P, b, w)
+  float* Ws;        // (L, P, b, w)        K6 only
+  float* Cs_self;   // (L, P, b, w)        K6 only
+  float* Cs_buddy;  // (L, P, b, w)        K6 only
+  float* work;      // scratch (P, m, b)
+  float* stack;     // scratch (P, 2b, b)  K6 only
+  float* Yw;        // scratch (P, 2b, b)  K6 only
+  float* Rtmp;      // scratch (L - 1, P, b, b), K6 only
+  float* sink;      // scratch (b, w): combine outputs a lane does not keep
+};
+
+__device__ inline bool lane_active(const FusedArgs& a, int p) {
+  return a.active == nullptr || a.active[p] != 0;
+}
+
+// Phase 1: the masked leaf QR of every lane.
+__device__ void leaf_phase(const FusedArgs& a, float* smem) {
+  const size_t mb = (size_t)a.m * a.b, bb = (size_t)a.b * a.b;
+  for (int p = blockIdx.x; p < a.P; p += gridDim.x) {
+    float* Y = a.leaf_Y + p * mb;
+    float* T = a.leaf_T + p * bb;
+    float* R = a.R_leaf + p * bb;
+    if (lane_active(a, p)) {
+      panel_qr_lane(a.win + p * a.w_bs, a.w_ld, Y, T, R, a.work + p * mb, a.m,
+                    a.b, a.rs[p], smem);
+    } else {
+      for (size_t e = threadIdx.x; e < mb; e += QR_THREADS) Y[e] = 0.f;
+      for (size_t e = threadIdx.x; e < bb; e += QR_THREADS) T[e] = R[e] = 0.f;
+    }
+  }
+}
+
+// Phase 2, one level: the FT butterfly (core/tsqr.py::ft_tsqr_level).
+__device__ void butterfly_phase(const FusedArgs& a, int lvl, float* smem) {
+  const size_t bb = (size_t)a.b * a.b, lvl_off = (size_t)lvl * a.P * bb;
+  const float* Rin = lvl == 0 ? a.R_leaf : a.Rtmp + (size_t)(lvl - 1) * a.P * bb;
+  float* Rout = lvl == a.L - 1 ? a.R_carry : a.Rtmp + lvl_off;
+  const int group = 1 << lvl, t = a.t_lane;
+  for (int p = blockIdx.x; p < a.P; p += gridDim.x) {
+    const int buddy = p ^ group;
+    const bool is_top = ((p >> lvl) & 1) == ((t >> lvl) & 1);
+    const bool my_dead = (p & ~(group - 1)) + group <= t;
+    const bool sib_dead = (buddy & ~(group - 1)) + group <= t;
+    float* Y2 = a.level_Y2 + lvl_off + p * bb;
+    float* T = a.level_T + lvl_off + p * bb;
+    if (!my_dead && !sib_dead) {
+      stacked_qr_lane(Rin + (is_top ? p : buddy) * bb,
+                      Rin + (is_top ? buddy : p) * bb, Y2, T, Rout + p * bb,
+                      a.stack + 2 * p * bb, a.Yw + 2 * p * bb, a.b, smem);
+    } else {
+      const float* src = Rin + (my_dead ? buddy : p) * bb;
+      for (size_t e = threadIdx.x; e < bb; e += QR_THREADS) {
+        Rout[p * bb + e] = src[e];
+        Y2[e] = T[e] = 0.f;
+      }
+    }
+  }
+}
+
+// Phase 3: C_local = Q_leaf^T window, and the C' rows of every lane.
+__device__ void apply_phase(const FusedArgs& a, float* smem) {
+  const int half = threadIdx.x / WY_THREADS, tid = threadIdx.x % WY_THREADS;
+  float* tsm = smem + half * wy_tile_smem_floats(a.b);
+  const int nb = (a.w + WY_BN - 1) / WY_BN, ntiles = a.P * nb;
+  const size_t mb = (size_t)a.m * a.b, bb = (size_t)a.b * a.b;
+  const size_t mw = (size_t)a.m * a.w, bw = (size_t)a.b * a.w;
+  float* cp_out = a.L > 0 ? a.Cs_self : a.C_prime;  // C' entering level 0
+  // Both halves run the same number of tiles (a half past the end runs an
+  // empty one), so the barriers inside the tile body line up.
+  for (int base = 2 * blockIdx.x; base < ntiles; base += 2 * gridDim.x) {
+    const int it = base + half;
+    const bool valid = it < ntiles;
+    const int p = valid ? it / nb : 0;
+    const int col0 = valid ? (it % nb) * WY_BN : a.w;
+    float* Cl = a.C_local + p * mw;
+    wy_apply_tile<false>(a.leaf_Y + p * mb, a.leaf_T + p * bb, a.win + p * a.w_bs,
+                         a.w_ld, Cl, a.w, a.m, a.b, a.w, col0, tid, tsm);
+    if (valid) {  // the tile's own writes are visible after its last barrier
+      const int r0 = min(max(a.rs[p], 0), a.m - a.b);
+      const bool act = lane_active(a, p);
+      float* dst = cp_out + p * bw;
+      for (int e = tid; e < a.b * WY_BN; e += WY_THREADS) {
+        const int r = e / WY_BN, col = col0 + e % WY_BN;
+        if (col < a.w)
+          dst[(size_t)r * a.w + col] = act ? Cl[(size_t)(r0 + r) * a.w + col] : 0.f;
+      }
+    }
+  }
+}
+
+// Phase 4, one level: the trailing combine
+// (core/trailing.py::trailing_combine_level with dead_threshold = t_lane).
+__device__ void combine_phase(const FusedArgs& a, int lvl, float* smem) {
+  const int half = threadIdx.x / SA_THREADS, tid = threadIdx.x % SA_THREADS;
+  float* tsm = smem + half * sa_tile_smem_floats(a.b);
+  const int nb = (a.w + SA_BN - 1) / SA_BN, ntiles = a.P * nb;
+  const size_t bb = (size_t)a.b * a.b, bw = (size_t)a.b * a.w;
+  const size_t lvl_bw = (size_t)lvl * a.P * bw, lvl_bb = (size_t)lvl * a.P * bb;
+  const float* Cin = a.Cs_self + lvl_bw;
+  float* Cout = lvl == a.L - 1 ? a.C_prime : a.Cs_self + lvl_bw + a.P * bw;
+  const int t = a.t_lane;
+  for (int base = 2 * blockIdx.x; base < ntiles; base += 2 * gridDim.x) {
+    const int it = base + half;
+    const bool valid = it < ntiles;
+    const int p = valid ? it / nb : 0;
+    const int col0 = valid ? (it % nb) * SA_BN : a.w;
+    const int buddy = p ^ (1 << lvl);
+    const bool is_top = ((p >> lvl) & 1) == ((t >> lvl) & 1);
+    const bool live = p >= t && buddy >= t;
+    float* own = Cout + p * bw;
+    float* Wo = a.Ws + lvl_bw + p * bw;
+    // the tile writes all three outputs; what this lane does not keep goes
+    // to the sink, which nothing reads
+    stacked_apply_tile<false>(
+        a.level_Y2 + lvl_bb + p * bb, a.level_T + lvl_bb + p * bb,
+        Cin + (is_top ? p : buddy) * bw, Cin + (is_top ? buddy : p) * bw, a.w,
+        live && is_top ? own : a.sink, live && !is_top ? own : a.sink,
+        live ? Wo : a.sink, a.b, a.w, col0, tid, tsm);
+    if (valid) {
+      float* Cb = a.Cs_buddy + lvl_bw + p * bw;
+      for (int e = tid; e < a.b * SA_BN; e += SA_THREADS) {
+        const size_t r = e / SA_BN;
+        const int col = col0 + e % SA_BN;
+        if (col >= a.w) continue;
+        const size_t i = r * a.w + col;
+        Cb[i] = Cin[buddy * bw + i];
+        if (!live) {
+          own[i] = Cin[p * bw + i];
+          Wo[i] = 0.f;
+        }
+      }
+    }
+    __syncthreads();  // the tile's shared memory is reused by the next one
+  }
+}
+
+__device__ void fused_body(const FusedArgs& a, float* smem) {
+  cg::grid_group grid = cg::this_grid();
+  leaf_phase(a, smem);
+  grid.sync();
+  for (int lvl = 0; lvl < a.L; ++lvl) {
+    butterfly_phase(a, lvl, smem);
+    grid.sync();
+  }
+  apply_phase(a, smem);
+  for (int lvl = 0; lvl < a.L; ++lvl) {
+    grid.sync();
+    combine_phase(a, lvl, smem);
+  }
+}
+
+__global__ void __launch_bounds__(QR_THREADS, 1)
+panel_qr_apply_kernel(FusedArgs a) {
+  extern __shared__ float smem[];
+  fused_body(a, smem);
+}
+
+__global__ void __launch_bounds__(QR_THREADS, 1)
+fused_panel_kernel(FusedArgs a) {
+  extern __shared__ float smem[];
+  fused_body(a, smem);
+}
+
+static size_t fused_smem_bytes(int m, int b) {
+  size_t f = qr_smem_floats(m, b);
+  f = f > qr_smem_floats(2 * b, b) ? f : qr_smem_floats(2 * b, b);
+  f = f > 2 * wy_tile_smem_floats(b) ? f : 2 * wy_tile_smem_floats(b);
+  f = f > 2 * sa_tile_smem_floats(b) ? f : 2 * sa_tile_smem_floats(b);
+  return f * sizeof(float);
+}
+
+extern "C" size_t fused_sweep_smem_bytes(int m, int b) {
+  return fused_smem_bytes(m, b);
+}
+
+// One cooperative launch of `kernel` on a persistent grid: as many blocks as
+// fit on the card at once, but no more than the largest phase has work for.
+static int launch(const void* kernel, FusedArgs& a, void* stream) {
+  const size_t smem = fused_smem_bytes(a.m, a.b);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      QR_THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int tiles = a.P * ((a.w + WY_BN - 1) / WY_BN);
+  int grid = (tiles + 1) / 2 > a.P ? (tiles + 1) / 2 : a.P;
+  if (grid > per_sm * sms) grid = per_sm * sms;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(QR_THREADS), args,
+                                    smem, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// K5. W: P windows (m x w), lane stride w_bs and row stride w_ld in floats,
+// unit column stride; rs: P int32 row starts (device). Y, work: P*m*b;
+// T, R: P*b*b; C: P*m*w; Cp: P*b*w floats, all contiguous.
+extern "C" int panel_qr_apply_f32(const void* W, long long w_bs, long long w_ld,
+                                  const void* rs, void* Y, void* T, void* R,
+                                  void* C, void* Cp, void* work, int P, int m,
+                                  int w, int b, void* stream) {
+  FusedArgs a{};
+  a.win = (const float*)W;
+  a.w_bs = w_bs;
+  a.w_ld = w_ld;
+  a.rs = (const int*)rs;
+  a.active = nullptr;
+  a.P = P, a.m = m, a.w = w, a.b = b, a.L = 0, a.t_lane = 0;
+  a.leaf_Y = (float*)Y, a.leaf_T = (float*)T, a.R_leaf = (float*)R;
+  a.C_local = (float*)C, a.C_prime = (float*)Cp, a.work = (float*)work;
+  return launch((const void*)panel_qr_apply_kernel, a, stream);
+}
+
+// K6. W, rs as for K5; active: P uint8 lane flags (device); L >= 1 levels
+// over P = 2^L lanes rooted at t_lane. Outputs as in FusedArgs, all
+// contiguous; scratch: work P*m*b, stack and Yw P*2b*b, Rtmp (L-1)*P*b*b,
+// sink b*w.
+extern "C" int fused_panel_f32(const void* W, long long w_bs, long long w_ld,
+                               const void* rs, const void* active, int P, int m,
+                               int w, int b, int L, int t_lane, void* leaf_Y,
+                               void* leaf_T, void* R_leaf, void* R_carry,
+                               void* level_Y2, void* level_T, void* C_local,
+                               void* C_prime, void* Ws, void* Cs_self,
+                               void* Cs_buddy, void* work, void* stack, void* Yw,
+                               void* Rtmp, void* sink, void* stream) {
+  FusedArgs a{};
+  a.win = (const float*)W;
+  a.w_bs = w_bs;
+  a.w_ld = w_ld;
+  a.rs = (const int*)rs;
+  a.active = (const unsigned char*)active;
+  a.P = P, a.m = m, a.w = w, a.b = b, a.L = L, a.t_lane = t_lane;
+  a.leaf_Y = (float*)leaf_Y, a.leaf_T = (float*)leaf_T;
+  a.R_leaf = (float*)R_leaf, a.R_carry = (float*)R_carry;
+  a.level_Y2 = (float*)level_Y2, a.level_T = (float*)level_T;
+  a.C_local = (float*)C_local, a.C_prime = (float*)C_prime;
+  a.Ws = (float*)Ws, a.Cs_self = (float*)Cs_self, a.Cs_buddy = (float*)Cs_buddy;
+  a.work = (float*)work, a.stack = (float*)stack, a.Yw = (float*)Yw;
+  a.Rtmp = (float*)Rtmp, a.sink = (float*)sink;
+  return launch((const void*)fused_panel_kernel, a, stream);
+}

@@ -27,13 +27,9 @@ panel_qr_kernel(const float* __restrict__ A, long long a_bs, long long a_ld,
                 float* work, int m, int b) {
   extern __shared__ float smem[];
   const int p = blockIdx.x;
-  const float* Ap = A + p * a_bs;
-  float* Wp = work + (size_t)p * m * b;
-  for (int e = threadIdx.x; e < m * b; e += QR_THREADS)
-    Wp[e] = Ap[(size_t)(e / b) * a_ld + e % b];
-  __syncthreads();
-  masked_qr(Wp, Y + (size_t)p * m * b, T + (size_t)p * b * b,
-            R + (size_t)p * b * b, m, b, rs[p], smem);
+  panel_qr_lane(A + p * a_bs, a_ld, Y + (size_t)p * m * b,
+                T + (size_t)p * b * b, R + (size_t)p * b * b,
+                work + (size_t)p * m * b, m, b, rs[p], smem);
 }
 
 extern "C" size_t panel_qr_smem_bytes(int m, int b) {

@@ -20,6 +20,9 @@
 // inside the block (no split across blocks, no atomics), and reads Y2 and
 // T through the cache. Every output column depends only on its own input
 // column, so the bits do not depend on the block or the launch size.
+//
+// The per-lane and per-tile bodies (stacked_qr_lane, stacked_apply_tile)
+// live in qr_common.cuh, shared with the fused K6.
 #include "qr_common.cuh"
 
 using namespace repro;
@@ -28,19 +31,11 @@ __global__ void __launch_bounds__(QR_THREADS)
 stacked_qr_kernel(const float* __restrict__ Rt, const float* __restrict__ Rb,
                   float* Y2, float* T, float* R, float* work, float* Yw, int b) {
   extern __shared__ float smem[];
-  const int p = blockIdx.x, m = 2 * b;
+  const int p = blockIdx.x;
   const size_t bb = (size_t)b * b;
-  float* Wp = work + (size_t)p * m * b;
-  float* Yp = Yw + (size_t)p * m * b;
-  for (int e = threadIdx.x; e < b * b; e += QR_THREADS) {
-    const bool up = e / b <= e % b;
-    Wp[e] = up ? Rt[p * bb + e] : 0.f;
-    Wp[bb + e] = up ? Rb[p * bb + e] : 0.f;
-  }
-  __syncthreads();
-  masked_qr(Wp, Yp, T + p * bb, R + p * bb, m, b, 0, smem);
-  for (int e = threadIdx.x; e < b * b; e += QR_THREADS)
-    Y2[p * bb + e] = (e / b <= e % b) ? Yp[bb + e] : 0.f;
+  stacked_qr_lane(Rt + p * bb, Rb + p * bb, Y2 + p * bb, T + p * bb, R + p * bb,
+                  work + (size_t)p * 2 * b * b, Yw + (size_t)p * 2 * b * b, b,
+                  smem);
 }
 
 extern "C" size_t stacked_qr_smem_bytes(int b) {
@@ -61,91 +56,23 @@ extern "C" int stacked_qr_f32(const void* Rt, const void* Rb, void* Y2,
   return (int)cudaGetLastError();
 }
 
-constexpr int SA_THREADS = 256;
-constexpr int SA_BN = 32;                      // columns per block
-constexpr int SA_NG = SA_THREADS / SA_BN;      // row groups
-constexpr int SA_MAX_B = 128;
-constexpr int SA_PK = SA_MAX_B / SA_NG;        // rows per thread
-
 __global__ void __launch_bounds__(SA_THREADS)
 stacked_apply_kernel(const float* __restrict__ Y2, const float* __restrict__ T,
                      const float* __restrict__ Ct, const float* __restrict__ Cb,
                      float* ot, float* ob, float* W, int b, int n) {
   extern __shared__ float smem[];
-  float* cb = smem;             // b x SA_BN block of C_bot
-  float* buf = cb + b * SA_BN;  // the inner sum, then W
-  const int p = blockIdx.y, col0 = blockIdx.x * SA_BN;
-  const int tid = threadIdx.x, c = tid % SA_BN, g = tid / SA_BN;
-  const int col = col0 + c;
-  const bool ok = col < n;
+  const int p = blockIdx.y;
   const size_t off = (size_t)p * b * n;
-  const float* Yp = Y2 + (size_t)p * b * b;
-  const float* Tp = T + (size_t)p * b * b;
-
-  for (int e = tid; e < b * SA_BN; e += SA_THREADS) {
-    const int q = e / SA_BN, cc = col0 + e % SA_BN;
-    cb[e] = cc < n ? Cb[off + (size_t)q * n + cc] : 0.f;
-  }
-  __syncthreads();
-
-  float acc[SA_PK];
-  // inner = C_top + Y2^T C_bot
-#pragma unroll
-  for (int k = 0; k < SA_PK; ++k) {
-    const int r = g + k * SA_NG;
-    if (r < b) {
-      float s = 0.f;
-      for (int q = 0; q < b; ++q) s += __ldg(Yp + q * b + r) * cb[q * SA_BN + c];
-      acc[k] = (ok ? Ct[off + (size_t)r * n + col] : 0.f) + s;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < SA_PK; ++k) {
-    const int r = g + k * SA_NG;
-    if (r < b) buf[r * SA_BN + c] = acc[k];
-  }
-  __syncthreads();
-  // W = T^T inner
-#pragma unroll
-  for (int k = 0; k < SA_PK; ++k) {
-    const int r = g + k * SA_NG;
-    if (r < b) {
-      float s = 0.f;
-      for (int q = 0; q < b; ++q) s += __ldg(Tp + q * b + r) * buf[q * SA_BN + c];
-      acc[k] = s;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < SA_PK; ++k) {
-    const int r = g + k * SA_NG;
-    if (r < b) {
-      buf[r * SA_BN + c] = acc[k];
-      if (ok) {
-        const size_t e = off + (size_t)r * n + col;
-        W[e] = acc[k];
-        ot[e] = Ct[e] - acc[k];
-      }
-    }
-  }
-  __syncthreads();
-  // C_bot - Y2 W
-#pragma unroll
-  for (int k = 0; k < SA_PK; ++k) {
-    const int r = g + k * SA_NG;
-    if (r < b) {
-      float s = 0.f;
-      for (int q = 0; q < b; ++q) s += __ldg(Yp + r * b + q) * buf[q * SA_BN + c];
-      if (ok) ob[off + (size_t)r * n + col] = cb[r * SA_BN + c] - s;
-    }
-  }
+  stacked_apply_tile<true>(Y2 + (size_t)p * b * b, T + (size_t)p * b * b,
+                           Ct + off, Cb + off, n, ot + off, ob + off, W + off,
+                           b, n, blockIdx.x * SA_BN, threadIdx.x, smem);
 }
 
 // Y2, T: P (b x b); Ct, Cb, ot, ob, W: P (b x n); all contiguous.
 extern "C" int stacked_apply_f32(const void* Y2, const void* T, const void* Ct,
                                  const void* Cb, void* ot, void* ob, void* W,
                                  int P, int b, int n, void* stream) {
-  const size_t smem = 2 * (size_t)b * SA_BN * sizeof(float);
+  const size_t smem = sa_tile_smem_floats(b) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       stacked_apply_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

@@ -18,8 +18,10 @@ import torch
 ENGINE_CUDA = "cuda"
 ENGINE_PLAIN = "plain"
 
-# The four ops on the windowed sweep's path (K1-K4 of PERF.md).
-OPS = ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply")
+# The ops with a CUDA kernel: the four of the stepped sweep (K1-K4 of
+# PERF.md), the fused leaf (K5) and the whole-panel megakernel (K6).
+OPS = ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply",
+       "panel_qr_apply", "fused_panel")
 
 # Kernel launches per op; each wrapper adds one where it launches.
 LAUNCHES: Dict[str, int] = {op: 0 for op in OPS}

@@ -1,0 +1,219 @@
+"""K5: the fused per-lane leaf, and K6: the whole-panel megakernel (port of
+``src/repro/kernels/fused_sweep.py``).
+
+``fused_panel`` launches the CUDA kernel of ``csrc/fused_sweep.cu`` that
+runs all of panel ``k``'s sweep points (leaf QR, L butterfly levels, the
+leaf apply, L trailing combines) in one cooperative launch over the
+(P, m, w) window; ``fused_panel_math`` is its plain version: the
+``sweep_step`` bodies concatenated over ``SimComm`` with the plain forms
+of ``kernels/ref.py``, minus the panel-(k-1) deposit, which stays outside
+as in the JAX package. Both give exactly the state that ``1 + 2L``
+``sweep_step`` calls give (``ft/online/state.py::run_panel_fused``): the
+plain version because it runs the same program, the kernel because it
+computes every element with the device code of K1-K4.
+
+``panel_qr_apply`` launches K5 (the leaf QR of ``W[..., :b]``, Q^T over
+the whole window and the C' rows at ``row_start``, one launch), and
+``panel_qr_apply_ref`` is its plain version, the unfused composition of
+the pure forms.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import backend, build
+from repro_torch.kernels.panel_qr import MAX_B, SMEM_LIMIT
+from repro_torch.kernels.ref import panel_qr_apply as panel_qr_apply_ref  # noqa: F401
+
+# Kernel-output field order of the fused panel (the SweepState in-flight
+# fields it refills; ``tops`` is computed outside the kernel, see ``_tops``).
+FUSED_FIELDS = (
+    "leaf_Y", "leaf_T", "R_leaf", "R_carry",
+    "level_Y2", "level_T", "C_local", "C_prime",
+    "Ws", "Cs_self", "Cs_buddy",
+)
+
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+
+def fused_panel_math(comm, window: torch.Tensor, k: int, *, b: int,
+                     m_loc_pad: int, levels: int) -> Dict[str, object]:
+    """Panel ``k``'s point sequence (leaf + L tsqr + L trailing) as one
+    program over ``comm`` with the plain forms: the ``sweep_step`` bodies
+    concatenated, minus the deposit. The plain version of K6."""
+    from repro_torch.core.caqr import panel_geometry
+    from repro_torch.core.householder import StackedQR
+    from repro_torch.core.trailing import _leaf_apply, trailing_combine_level
+    from repro_torch.core.tsqr import DistTSQRFactors, ft_tsqr_level
+    from repro_torch.kernels import ref
+
+    col0 = k * b
+    t_lane = col0 // m_loc_pad
+    _c0, _t, row_start, active = panel_geometry(comm, k, b, m_loc_pad)
+
+    # (k, leaf): the window's panel QR, active-masked
+    Y, T, R = ref.lanewise(ref.panel_qr, window[..., :b], row_start=row_start)
+    leaf_Y = comm.where(active, Y, torch.zeros_like(Y))
+    leaf_T = comm.where(active, T, torch.zeros_like(T))
+    R_leaf = comm.where(active, R, torch.zeros_like(R))
+
+    # (k, tsqr, 0..L-1): the butterfly ladder
+    def qr(R_top, R_bot):
+        return StackedQR(*ref.lanewise(ref.stacked_qr, R_top, R_bot))
+
+    carry = R_leaf
+    Y2s, Ts = [], []
+    for lvl in range(levels):
+        carry, Y2, T2 = ft_tsqr_level(comm, carry, lvl, t_lane, t_lane, qr=qr)
+        Y2s.append(Y2)
+        Ts.append(T2)
+    level_Y2 = torch.stack(Y2s)
+    level_T = torch.stack(Ts)
+
+    # (k, trailing, 0) prologue: the leaf apply of the live window
+    dist = DistTSQRFactors(leaf_Y, leaf_T, level_Y2, level_T, R_leaf)
+    C_local, C_prime = _leaf_apply(
+        comm, dist, window, row_start, active=active, skip_consumed=True,
+        apply=lambda Yl, Tl, C: ref.lanewise(ref.wy_apply, Yl, Tl, C))
+    C_prime = comm.where(active, C_prime, torch.zeros_like(C_prime))
+
+    # (k, trailing, 0..L-1): the combine tree
+    def combine(Y2, T2, C_top, C_bot):
+        return ref.lanewise(ref.stacked_apply, Y2, T2, C_top, C_bot)
+
+    Ws, Cs_self, Cs_buddy, tops = [], [], [], []
+    for lvl in range(levels):
+        out = trailing_combine_level(comm, C_prime, level_Y2[lvl], level_T[lvl],
+                                     lvl, t_lane, t_lane, combine=combine)
+        C_prime = out.C_prime
+        Ws.append(out.W)
+        Cs_self.append(out.C_self)
+        Cs_buddy.append(out.C_buddy)
+        tops.append(out.is_top)
+
+    return {
+        "leaf_Y": leaf_Y, "leaf_T": leaf_T,
+        "R_leaf": R_leaf, "R_carry": carry,
+        "level_Y2": level_Y2, "level_T": level_T,
+        "C_local": C_local, "C_prime": C_prime,
+        "Ws": torch.stack(Ws), "Cs_self": torch.stack(Cs_self),
+        "Cs_buddy": torch.stack(Cs_buddy), "tops": tuple(tops),
+    }
+
+
+def _tops(P: int, t_lane: int, levels: int):
+    """The per-level ``is_top`` flags (CPU bool tensors, as
+    ``trailing_combine_level`` makes them): they depend only on the
+    geometry, so the kernel does not emit them."""
+    idx = torch.arange(P, dtype=torch.int32)
+    return tuple(((idx >> lvl) & 1) == ((t_lane >> lvl) & 1)
+                 for lvl in range(levels))
+
+
+@functools.cache
+def _k5():
+    return build.bind("fused_sweep", "panel_qr_apply_f32",
+                      [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _P])
+
+
+@functools.cache
+def _k6():
+    return build.bind("fused_sweep", "fused_panel_f32",
+                      [_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I]
+                      + [_P] * 16 + [_P])
+
+
+@functools.cache
+def _smem():
+    f = build.load("fused_sweep").fused_sweep_smem_bytes
+    f.argtypes, f.restype = [_I, _I], ctypes.c_size_t
+    return f
+
+
+def _check(op: str, m: int, w: int, b: int) -> None:
+    if not 1 <= b <= MAX_B or m < b or w < b or m * max(b, w) >= 2 ** 31:
+        raise ValueError(f"{op}: needs 1 <= b <= {MAX_B} and m, w >= b, got "
+                         f"m={m}, w={w}, b={b}")
+    if _smem()(m, b) > SMEM_LIMIT:
+        raise ValueError(f"{op}: m={m} needs {_smem()(m, b)} bytes of shared "
+                         f"memory, over {SMEM_LIMIT}")
+
+
+def panel_qr_apply(W: torch.Tensor, row_start, b: int):
+    """(Y, T, R, C, C') of the fused leaf (K5) on the CUDA f32 window W,
+    shaped (P, m, w) or (m, w) (a strided view with unit column stride is
+    taken); ``row_start`` is a scalar or one value per lane."""
+    squeeze = W.dim() == 2
+    W3 = backend.lanes(W, "panel_qr_apply")
+    P, m, w = W3.shape
+    _check("panel_qr_apply", m, w, b)
+    dev = W3.device
+    rs = backend.to_device(row_start, dev).to(torch.int32)
+    rs = rs.reshape(-1).expand(P).contiguous()
+    Y = torch.empty(P, m, b, device=dev, dtype=W3.dtype)
+    T = torch.empty(P, b, b, device=dev, dtype=W3.dtype)
+    R = torch.empty_like(T)
+    C = torch.empty(P, m, w, device=dev, dtype=W3.dtype)
+    Cp = torch.empty(P, b, w, device=dev, dtype=W3.dtype)
+    work = torch.empty_like(Y)
+    err = _k5()(W3.data_ptr(), W3.stride(0), W3.stride(1), rs.data_ptr(),
+                Y.data_ptr(), T.data_ptr(), R.data_ptr(), C.data_ptr(),
+                Cp.data_ptr(), work.data_ptr(), P, m, w, b,
+                backend.stream_ptr(W3))
+    build.check(err, "panel_qr_apply")
+    backend.count_launch("panel_qr_apply")
+    out = (Y, T, R, C, Cp)
+    return tuple(x[0] for x in out) if squeeze else out
+
+
+def fused_panel(window: torch.Tensor, k: int, *, b: int, m_loc_pad: int,
+                levels: int) -> Dict[str, object]:
+    """All of panel ``k``'s sweep points in one launch of K6 over the CUDA
+    f32 window (P, m_loc_pad, w) (a strided view with unit column stride,
+    such as ``A[..., k*b:]``). Returns the ``FUSED_FIELDS`` outputs and
+    ``tops``, as ``fused_panel_math`` does."""
+    from repro_torch.core.caqr import panel_geometry
+    from repro_torch.core.comm import SimComm
+
+    W3 = backend.lanes(window, "fused_panel")
+    if window.dim() != 3:
+        raise ValueError("fused_panel: expected a (P, m, w) window")
+    P, m, w = W3.shape
+    L = levels
+    if L < 1 or P != 1 << L or m != m_loc_pad:
+        raise ValueError(f"fused_panel: needs P = 2^levels >= 2 lanes of "
+                         f"m_loc_pad rows, got P={P}, levels={L}, m={m}, "
+                         f"m_loc_pad={m_loc_pad}")
+    _check("fused_panel", m, w, b)
+    dev, dt = W3.device, W3.dtype
+    t_lane = (k * b) // m_loc_pad
+    _c0, _t, row_start, active = panel_geometry(SimComm(P), k, b, m_loc_pad)
+    rs = backend.to_device(row_start, dev).to(torch.int32).contiguous()
+    act = backend.to_device(active, dev).to(torch.uint8).contiguous()
+
+    def empty(*shape):
+        return torch.empty(*shape, device=dev, dtype=dt)
+
+    out = {
+        "leaf_Y": empty(P, m, b), "leaf_T": empty(P, b, b),
+        "R_leaf": empty(P, b, b), "R_carry": empty(P, b, b),
+        "level_Y2": empty(L, P, b, b), "level_T": empty(L, P, b, b),
+        "C_local": empty(P, m, w), "C_prime": empty(P, b, w),
+        "Ws": empty(L, P, b, w), "Cs_self": empty(L, P, b, w),
+        "Cs_buddy": empty(L, P, b, w),
+    }
+    scratch = (empty(P, m, b), empty(P, 2 * b, b), empty(P, 2 * b, b),
+               empty(max(L - 1, 1), P, b, b), empty(b, w))
+    err = _k6()(W3.data_ptr(), W3.stride(0), W3.stride(1), rs.data_ptr(),
+                act.data_ptr(), P, m, w, b, L, t_lane,
+                *(out[f].data_ptr() for f in FUSED_FIELDS),
+                *(s.data_ptr() for s in scratch), backend.stream_ptr(W3))
+    build.check(err, "fused_panel")
+    backend.count_launch("fused_panel")
+    out["tops"] = _tops(P, t_lane, L)
+    return out

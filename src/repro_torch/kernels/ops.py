@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import backend, ref
+from repro_torch.kernels import fused_sweep as _fused
 from repro_torch.kernels import panel_qr as _panel
 from repro_torch.kernels import stacked_qr as _stacked
 from repro_torch.kernels import wy_apply as _wy
@@ -34,42 +35,51 @@ def _plain(op: str, *tensors: torch.Tensor) -> bool:
                      "CPU tensors (plain version) or CUDA tensors (kernel)")
 
 
-def _lanewise(fn, *tensors, **kw):
-    """Run a plain version on contiguous lane-batched copies (a 2-D call is
-    a batch of one), so a lane's bits do not depend on its layout or on
-    how many lanes share the call, as the kernels guarantee on the GPU."""
-    squeeze = tensors[0].dim() == 2
-    args = [t.contiguous().unsqueeze(0) if squeeze else t.contiguous()
-            for t in tensors]
-    out = fn(*args, **kw)
-    if not squeeze:
-        return out
-    return tuple(o[0] for o in out) if isinstance(out, tuple) else out[0]
-
-
 def panel_qr(A: torch.Tensor, row_start=0):
     """(Y, T, R) of the masked Householder panel QR of A (..., m, b)."""
     if _plain("panel_qr", A):
-        return _lanewise(ref.panel_qr, A, row_start=row_start)
+        return ref.lanewise(ref.panel_qr, A, row_start=row_start)
     return _panel.panel_qr(A, row_start)
 
 
 def wy_apply(Y: torch.Tensor, T: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """Fused Q^T C = C - Y (T^T (Y^T C))."""
     if _plain("wy_apply", Y, T, C):
-        return _lanewise(ref.wy_apply, Y, T, C)
+        return ref.lanewise(ref.wy_apply, Y, T, C)
     return _wy.wy_apply(Y, T, C)
 
 
 def stacked_qr(R_top: torch.Tensor, R_bot: torch.Tensor):
     """(Y2, T, R) of the TSQR tree combine."""
     if _plain("stacked_qr", R_top, R_bot):
-        return _lanewise(ref.stacked_qr, R_top, R_bot)
+        return ref.lanewise(ref.stacked_qr, R_top, R_bot)
     return _stacked.stacked_qr(R_top, R_bot)
 
 
 def stacked_apply(Y2, T, C_top, C_bot):
     """Fused trailing combine; returns (C_top_hat, C_bot_hat, W)."""
     if _plain("stacked_apply", Y2, T, C_top, C_bot):
-        return _lanewise(ref.stacked_apply, Y2, T, C_top, C_bot)
+        return ref.lanewise(ref.stacked_apply, Y2, T, C_top, C_bot)
     return _stacked.stacked_apply(Y2, T, C_top, C_bot)
+
+
+def panel_qr_apply(W: torch.Tensor, row_start=0, b=None):
+    """Fused leaf: masked QR of ``W[..., :b]``, Q^T over the whole window
+    and the C' rows at ``row_start``, one launch (K5). Returns
+    (Y, T, R, C, C')."""
+    if b is None:
+        b = W.shape[-1]
+    if _plain("panel_qr_apply", W):
+        return ref.lanewise(ref.panel_qr_apply, W, row_start=row_start, b=b)
+    return _fused.panel_qr_apply(W, row_start, b)
+
+
+def fused_panel(window: torch.Tensor, k: int, *, b: int, m_loc_pad: int,
+                levels: int):
+    """All of panel ``k``'s sweep points over the (P, m, w) window (K6);
+    returns the ``fused_sweep.FUSED_FIELDS`` outputs and ``tops``."""
+    if _plain("fused_panel", window):
+        return ref.fused_panel(window, k, b=b, m_loc_pad=m_loc_pad,
+                               levels=levels)
+    return _fused.fused_panel(window, k, b=b, m_loc_pad=m_loc_pad,
+                              levels=levels)

@@ -1,5 +1,7 @@
-"""The port's CUDA kernels K1-K4 against their plain PyTorch versions on
-the card. Needs an NVIDIA GPU with nvcc; every test skips without one.
+"""The port's CUDA kernels K1-K6 against their plain PyTorch versions on
+the card, and the port's bitwise contracts there (fused == stepped, kill
+== failure-free). Needs an NVIDIA GPU with nvcc; every test skips without
+one.
 
 Imports neither JAX nor the JAX package, so it also runs on a machine
 with the card and no JAX: ``python -m pytest -q tests/test_torch_cuda.py``.
@@ -11,6 +13,8 @@ import pytest
 import torch
 
 from repro_torch.core import SimComm, caqr_factorize, ft_tsqr, recovery
+from repro_torch.ft import FailureSchedule, ft_caqr_sweep, sweep_point
+from repro_torch.ft.online import state as tstate
 from repro_torch.kernels import backend, ops
 from repro_torch.kernels import panel_qr as tpanel
 from repro_torch.kernels import ref as tref
@@ -55,6 +59,8 @@ def test_cuda_panel_qr_matches_plain(rng, cuda, m, b, row_start):
     A = t(rng.standard_normal((3, m, b)).astype(np.float32)).to(cuda)
     got = tpanel.panel_qr(A, row_start)
     close(got, tref.panel_qr(A, row_start))
+    assert all(torch.equal(a[1], o) for a, o in
+               zip(got, tpanel.panel_qr(A[1], row_start)))
 
 
 @pytest.mark.cuda
@@ -81,6 +87,8 @@ def test_cuda_stacked_kernels_match_plain(rng, cuda, b, n):
     Cb = t(rng.standard_normal((4, b, n)).astype(np.float32)).to(cuda)
     got = tstacked.stacked_apply(Y2, T, Ct, Cb)
     close(got, tref.stacked_apply(Y2, T, Ct, Cb))
+    assert all(torch.equal(a[3], o) for a, o in
+               zip(got, tstacked.stacked_apply(Y2[3], T[3], Ct[3], Cb[3])))
 
 
 @pytest.mark.cuda
@@ -97,7 +105,8 @@ def test_cuda_sweep_matches_cpu_and_runs_every_kernel(rng, cuda):
     backend.reset_launches()
     got = caqr_factorize(A.to(cuda), SimComm(P), b, use_scan=False,
                          collect_bundles=True)
-    assert all(v > 0 for v in backend.LAUNCHES.values()), backend.LAUNCHES
+    stepped = ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply")
+    assert all(backend.LAUNCHES[op] > 0 for op in stepped), backend.LAUNCHES
     close(got.R, want.R)
     close(tuple(got.bundles[:3]), tuple(want.bundles[:3]))
     assert bool((got.R == got.R[:1]).all())
@@ -115,3 +124,89 @@ def test_cuda_kill_and_recover_is_bitwise_clean(rng, cuda, level):
     faulty = recovery.run_ft_trailing(C, fac, comm, fail_at_level=level,
                                       failed_lane=3, A_stacked=C)
     assert torch.equal(clean, faulty)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,w,b,row_start", [(37, 45, 5, 2), (64, 200, 8, 60),
+                                             (512, 300, 128, 0)])
+def test_cuda_panel_qr_apply_matches_plain_and_k1_k2(rng, cuda, m, w, b,
+                                                     row_start):
+    """K5 within tolerance of its plain version, and bit-equal to K1 then
+    K2, whose device code it shares."""
+    W = t(rng.standard_normal((3, m, w + 3)).astype(np.float32)).to(cuda)[..., 3:]
+    got = ops.panel_qr_apply(W, row_start, b)
+    close(got, tref.panel_qr_apply(W, row_start, b))
+    Y, T, R = ops.panel_qr(W[..., :b], row_start)
+    C = ops.wy_apply(Y, T, W)
+    r0 = min(max(row_start, 0), m - b)
+    for g, want in zip(got, (Y, T, R, C, C[:, r0:r0 + b])):
+        assert torch.equal(g, want)
+    assert all(torch.equal(a[2], o) for a, o in
+               zip(got, ops.panel_qr_apply(W[2], row_start, b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,m_loc,w,b,k", [(2, 16, 21, 5, 0), (4, 24, 50, 8, 4),
+                                           (8, 32, 70, 8, 9)])
+def test_cuda_fused_panel_matches_plain(rng, cuda, P, m_loc, w, b, k):
+    """K6 within tolerance of fused_panel_math over the plain forms, at
+    small odd shapes, including a panel whose root is past lane 0."""
+    L = P.bit_length() - 1
+    win = t(rng.standard_normal((P, m_loc, w)).astype(np.float32)).to(cuda)
+    got = ops.fused_panel(win, k, b=b, m_loc_pad=m_loc, levels=L)
+    want = tref.fused_panel(win, k, b=b, m_loc_pad=m_loc, levels=L)
+    fields = [f for f in want if f != "tops"]
+    close(tuple(got[f] for f in fields), tuple(want[f] for f in fields))
+    assert all(torch.equal(a, b_) for a, b_ in zip(got["tops"], want["tops"]))
+
+
+def _assert_states_equal(got, want, tag):
+    ga, wa = tstate.flat_arrays(got), tstate.flat_arrays(want)
+    assert ga.keys() == wa.keys(), tag
+    for key in ga:
+        assert ga[key].dtype == wa[key].dtype, (tag, key)
+        assert torch.equal(ga[key].cpu(), wa[key].cpu()), (tag, key)
+    assert got.cursor == want.cursor, tag
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,m_loc,n,b", [(4, 8, 16, 4), (4, 6, 10, 4),
+                                         (4, 4, 40, 4), (8, 32, 256, 16)])
+def test_cuda_fused_equals_stepped_bitwise(rng, cuda, P, m_loc, n, b):
+    """run_panel_fused (one K6 launch a panel) == the panel's sweep_steps
+    (K1-K4), bit for bit at every panel boundary and after finalize."""
+    comm = SimComm(P)
+    A = t(rng.standard_normal((P, m_loc, n)).astype(np.float32)).to(cuda)
+    s_f = s_s = tstate.initial_sweep_state(comm, A, b)
+    pts = tstate.panel_points(s_s.geom)
+    backend.reset_launches()
+    while s_f.cursor is not None:
+        s_f = tstate.run_panel_fused(comm, s_f)
+        s_s = tstate.run_steps(comm, s_s, pts)
+        _assert_states_equal(s_f, s_s, s_s.cursor)
+    assert backend.LAUNCHES["fused_panel"] == s_s.geom.n_panels
+    for g, w in zip(tstate.finalize(comm, s_f), tstate.finalize(comm, s_s)):
+        got = [g] if isinstance(g, torch.Tensor) else list(g)
+        want = [w] if isinstance(w, torch.Tensor) else list(w)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("point,lane", [(sweep_point(1, "tsqr", 1), 0),
+                                        (sweep_point(6, "trailing", 2), 5),
+                                        (sweep_point(9, "leaf"), 3)])
+def test_cuda_ft_kill_recovered_bitwise(rng, cuda, point, lane):
+    """A lane killed in the sweep and rebuilt through one-lane K1/K2/K4
+    launches gives R, factors and bundles bit-equal to the failure-free
+    sweep (P = 8, the root walks lanes 0-3)."""
+    P, m_loc, n, b = 8, 32, 128, 8
+    comm = SimComm(P)
+    A = t(rng.standard_normal((P, m_loc, n)).astype(np.float32)).to(cuda)
+    ref = caqr_factorize(A, comm, b, collect_bundles=True, use_scan=False)
+    got = ft_caqr_sweep(A, comm, b,
+                        schedule=FailureSchedule(events={point: [lane]}))
+    for x, y in zip((got.R, *got.factors, *got.bundles),
+                    (ref.R, *ref.factors, *ref.bundles)):
+        assert torch.equal(x, y)
+    (event,) = got.events
+    assert event.point == point and event.lane == lane
