@@ -12,7 +12,11 @@ non-zero and prints no result):
    one PyTorch call computing the same function (K1-K4) or the stepped
    kernels doing the same work (K5: K1+K2; K6: the stepped panel); the
    check that one lane of a P-lane launch equals a launch of it alone
-   (K1-K5); one JSON line per kernel.
+   (K1-K5); K2 and K4 also at a late panel (w = 512) and on one lane (the
+   REBUILD replay), bit-equal at two column tiles, and timed on the device
+   alone (torch.profiler) beside the events' time, which for a short
+   kernel includes the host's time to issue it; each kernel's registers
+   and spills from its build log; one JSON line per kernel.
 3. sweep: the windowed FT-CAQR sweep of a 32768 x 4096 f32 matrix over
    P = 8 lanes at panel width 128 (32 panels, 3 butterfly levels), with
    the launch counters at 0 before it; checks that K1-K4 ran, that R is
@@ -48,6 +52,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -63,6 +68,8 @@ from repro_torch.core.lstsq import caqr_lstsq  # noqa: E402
 from repro_torch.ft import FailureSchedule, ft_caqr_sweep, sweep_point  # noqa: E402
 from repro_torch.ft.online import state as sm  # noqa: E402
 from repro_torch.kernels import backend, build, ops, ref  # noqa: E402
+from repro_torch.kernels import stacked_qr as tsa  # noqa: E402
+from repro_torch.kernels import wy_apply as twy  # noqa: E402
 
 P, M_LOC, N, B = 8, 4096, 4096, 128
 L = P.bit_length() - 1
@@ -87,6 +94,7 @@ KERNELS = {
                     "src/repro/kernels/fused_sweep.py:167"),
 }
 STEPPED = ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply")
+LATE_W = 512  # a late panel's window width (panel 28 of 32)
 
 
 def emit(obj) -> None:
@@ -109,6 +117,28 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_us(event) -> float:
+    us = getattr(event, "self_device_time_total", None)
+    return event.self_cuda_time_total if us is None else us
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn``: the kernels' own time under
+    torch.profiler over ``reps`` calls. Unlike ``time_ms`` it leaves out
+    the host's time to issue each call, which bounds the eager time of a
+    kernel shorter than about 0.05 ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_device_us(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / reps / 1e3
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -135,6 +165,65 @@ def same_bits(got, want) -> bool:
     return all(torch.equal(g, w) for g, w in zip(as_tuple(got), as_tuple(want)))
 
 
+def wy_cost(P, m, b, n):
+    """(FLOPs, bytes) of K2: Y^T C and Y W at 2mbn each, T^T W1 at b^2 n
+    (T triangular, counted once); Y, T, C read and out written once."""
+    return (P * (4.0 * m * b * n + b * b * n),
+            4.0 * P * (m * b + b * b + 2 * m * n))
+
+
+def sa_cost(P, b, n):
+    """(FLOPs, bytes) of K4: three triangular products at b^2 n each;
+    Y2, T, Ct, Cb read and ot, ob, W written once."""
+    return P * 3.0 * b * b * n, 4.0 * P * (2 * b * b + 5 * b * n)
+
+
+def wy_library(Y, T, C):
+    return C - Y @ (T.mT @ (Y.mT @ C))
+
+
+def sa_library(Y2, T2, Ct, Cb):
+    W = T2.mT @ (Ct + Y2.mT @ Cb)
+    return Ct - W, Cb - Y2 @ W, W
+
+
+def ptxas(source: str, kernel: str) -> dict:
+    """Registers and spill bytes of every instance of ``kernel`` (a
+    ``__global__`` name) in the build log of ``source``."""
+    out = {}
+    for fn, use in build.resource_usage(pathlib.Path(source).stem).items():
+        m = re.match(r"_Z(\d+)", fn)  # the name's length, then the name
+        end = m.end() + int(m.group(1)) if m else 0
+        if m and fn[m.end():end] == kernel:
+            # template arguments: Li128E (int 128), Lb1E (true)
+            tmpl = re.match(r"I((?:L[ib]\d+E)+)E", fn[end:])
+            args = [v if t == "i" else ("false", "true")[int(v)]
+                    for t, v in re.findall(r"L([ib])(\d+)E",
+                                           tmpl.group(1) if tmpl else "")]
+            out[kernel + (f"<{', '.join(args)}>" if args else "")] = use
+    return out
+
+
+def shape_record(op: str, args: tuple, cost: tuple, lib, reps: int) -> dict:
+    """One kernel at other shapes than the first panel's: time, bound,
+    library time and error against the plain version."""
+    run = getattr(ops, op)
+    got, want = as_tuple(run(*args)), as_tuple(getattr(ref, op)(*args))
+    err, scaled = max_err(got, want)
+    del got, want
+    check(scaled <= ref.tolerances(torch.float32)[0],
+          f"{op}: scaled error {scaled} at {[tuple(a.shape) for a in args]}")
+    bms, by = bound_ms(*cost)
+    C = args[2]
+    P = C.shape[0] if C.dim() == 3 else 1
+    return dict(shapes=[list(a.shape) for a in args], bn=backend.tile_bn(
+        P, C.shape[-1], torch.cuda.get_device_properties(0).multi_processor_count),
+        max_abs_err=err, scaled_err=scaled, ms=time_ms(lambda: run(*args), reps),
+        device_ms=device_ms(lambda: run(*args), reps),
+        bound_ms=bms, bound_by=by, library_ms=time_ms(lambda: lib(*args), reps),
+        library_device_ms=device_ms(lambda: lib(*args), reps))
+
+
 def kernel_phase(A: torch.Tensor) -> list:
     """K1-K6 on the first panel's data of the sweep, against their plain
     versions; returns one record per kernel."""
@@ -152,10 +241,10 @@ def kernel_phase(A: torch.Tensor) -> list:
         run=lambda: ops.panel_qr(panel, 0), plain=lambda: ref.panel_qr(panel, 0),
         lib=lambda: torch.geqrf(panel), flops=P * leaf_flops,
         nbytes=f * P * (2 * M_LOC * B + 2 * B * B), reps=5)
+    flops, nbytes = wy_cost(P, M_LOC, B, N)
     cases["wy_apply"] = dict(
         run=lambda: ops.wy_apply(Y, T, C), plain=lambda: ref.wy_apply(Y, T, C),
-        lib=lambda: C - Y @ (T.mT @ (Y.mT @ C)), flops=P * apply_flops,
-        nbytes=f * P * (M_LOC * B + B * B + 2 * M_LOC * N), reps=10)
+        lib=lambda: wy_library(Y, T, C), flops=flops, nbytes=nbytes, reps=10)
     R_top = R.contiguous()
     R_bot = R[[j for _, j in rows]].contiguous()
     Y2, T2, _ = ops.stacked_qr(R_top, R_bot)
@@ -167,12 +256,11 @@ def kernel_phase(A: torch.Tensor) -> list:
         flops=P * float(B ** 3), nbytes=f * P * 5 * B * B, reps=10)
     Ct = ops.wy_apply(Y, T, C)[:, :B].contiguous()
     Cb = Ct[[j for _, j in rows]].contiguous()
+    flops, nbytes = sa_cost(P, B, N)
     cases["stacked_apply"] = dict(
         run=lambda: ops.stacked_apply(Y2, T2, Ct, Cb),
         plain=lambda: ref.stacked_apply(Y2, T2, Ct, Cb),
-        lib=lambda: (lambda W: (Ct - W, Cb - Y2 @ W, W))(
-            T2.mT @ (Ct + Y2.mT @ Cb)),
-        flops=P * 3.0 * B * B * N, nbytes=f * P * (2 * B * B + 5 * B * N),
+        lib=lambda: sa_library(Y2, T2, Ct, Cb), flops=flops, nbytes=nbytes,
         reps=10)
 
     def k1_k2():
@@ -223,6 +311,30 @@ def kernel_phase(A: torch.Tensor) -> list:
     check(same_bits(fused_leaf, (Yk, Tk, Rk, Ck, Ck[:, :B])),
           "panel_qr_apply differs from panel_qr then wy_apply")
     del fused_leaf, Yk, Tk, Rk, Ck
+    # K2 and K4: the column tile does not change the bits.
+    bn_bitwise = {
+        "wy_apply": same_bits(twy.wy_apply(Y, T, C, bn=32),
+                              twy.wy_apply(Y, T, C, bn=128)),
+        "stacked_apply": same_bits(tsa.stacked_apply(Y2, T2, Ct, Cb, bn=32),
+                                   tsa.stacked_apply(Y2, T2, Ct, Cb, bn=128)),
+    }
+    check(all(bn_bitwise.values()), f"column tiles change the bits: {bn_bitwise}")
+    # K2 and K4 at a late panel's window and on one lane (a REBUILD replay)
+    late = N - LATE_W
+    Ctl, Cbl = Ct[..., :LATE_W].contiguous(), Cb[..., :LATE_W].contiguous()
+    other_shapes = {
+        "wy_apply": {
+            "late_panel": shape_record("wy_apply", (Y, T, A[..., late:]),
+                                       wy_cost(P, M_LOC, B, LATE_W), wy_library, 20),
+            "one_lane": shape_record("wy_apply", (Y[k], T[k], A[k]),
+                                     wy_cost(1, M_LOC, B, N), wy_library, 20)},
+        "stacked_apply": {
+            "late_panel": shape_record("stacked_apply", (Y2, T2, Ctl, Cbl),
+                                       sa_cost(P, B, LATE_W), sa_library, 50),
+            "one_lane": shape_record("stacked_apply", (Y2[k], T2[k], Ct[k], Cb[k]),
+                                     sa_cost(1, B, N), sa_library, 50)},
+    }
+    del Ctl, Cbl
 
     records = []
     for name, c in cases.items():
@@ -246,6 +358,14 @@ def kernel_phase(A: torch.Tensor) -> list:
             # stepped kernels doing the same work
             rec["stepped_ms"] = time_ms(c["stepped"], c["reps"])
             rec["stepped_route"] = c["stepped_route"]
+        if name in other_shapes:
+            rec["device_ms"] = device_ms(c["run"], c["reps"])
+            rec["library_device_ms"] = device_ms(c["lib"], c["reps"])
+            rec["bn"] = backend.tile_bn(
+                P, N, torch.cuda.get_device_properties(0).multi_processor_count)
+            rec["bn_bitwise"] = bn_bitwise[name]
+            rec.update(other_shapes[name])
+        rec["ptxas"] = ptxas(source, name + "_kernel")
         emit({"kernel": rec})
         records.append(rec)
     return records
@@ -317,10 +437,9 @@ def profile_phase(A: torch.Tensor, sweep_seconds: float) -> None:
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        name = next((k for k in STEPPED if e.key.startswith(k + "_kernel")), None)
+        us = _device_us(e)
+        key = e.key.removeprefix("void ")  # templated kernels carry it
+        name = next((k for k in STEPPED if key.startswith(k + "_kernel")), None)
         if name is None:
             other += us / 1e3
         else:

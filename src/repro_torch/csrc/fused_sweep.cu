@@ -12,36 +12,42 @@
 //   2. (K6 only) L butterfly levels: each lane reads its buddy's R from
 //      global memory, stacks the pair and QRs it (K3's body), or passes
 //      through under the group-activity masks of core/tsqr.py;
-//   3. leaf apply: the window times Q^T over (lane, 32-column) tiles (K2's
+//   3. leaf apply: the window times Q^T over (lane, BN-column) tiles (K2's
 //      body), and each tile copies its columns of the C' rows at the
 //      clamped row_start (zero on inactive lanes);
-//   4. (K6 only) L trailing combines over (lane, 32-column) tiles (K4's
+//   4. (K6 only) L trailing combines over (lane, BN-column) tiles (K4's
 //      body) with the is_top / pair_live selects of core/trailing.py.
 // K5 is phases 1 and 3 with no lane masks.
 //
 // Fused == stepped, bit for bit: every element is computed by the same
-// device functions as K1-K4 (qr_common.cuh), at the same thread layout.
-// Phases 1-2 run masked_qr at 512 threads, as K1 and K3 do; phases 3-4 run
-// two independent 256-thread tiles per block, each with its own shared
-// memory, so every sum keeps the order it has in K2 and K4. Work that the
-// stepped path computes and then masks away (QR of consumed lanes, stacked
-// QR of dead groups) is skipped; the selected values are the same.
+// device functions as K1-K4 (qr_common.cuh) in the same order. Phases 1-2
+// run masked_qr at 512 threads, as K1 and K3 do, whose sums depend on the
+// thread layout. Phases 3-4 run two independent 256-thread tiles per block
+// (each with its own shared memory and its own named barrier) through the
+// register-tiled body of K2 and K4, whose every output element is one
+// sequential fmaf chain in index order: what keeps the bits there is that
+// order, not the layout, so the tile width BN may differ from the stepped
+// launch's. Work that the stepped path computes and then masks away (QR of
+// consumed lanes, stacked QR of dead groups) is skipped; the selected
+// values are the same.
 //
 // What bounds it on the H100: the same as K1-K4 (the leaf's column loop on
-// one block per lane, then FP32 FFMA in the apply). The simple design keeps
-// all intermediates in global memory (L2 at these sizes) and uses one
+// one block per lane, then FP32 FFMA in the apply). The design keeps all
+// intermediates in global memory (L2 at these sizes) and uses one
 // 512-thread block per SM (the leaf tile needs 140 KB of shared memory at
-// m = 4096), so the apply phases run at a third of K2's occupancy.
+// m = 4096, two BN = 128 tiles 224 KB), so each SM runs two apply tiles at
+// a time, as the stepped K2 and K4 do at BN = 128.
 #include <cooperative_groups.h>
+
+#include <cstdint>
+#include <initializer_list>
 
 #include "qr_common.cuh"
 
 namespace cg = cooperative_groups;
 using namespace repro;
 
-static_assert(QR_THREADS == 2 * WY_THREADS && QR_THREADS == 2 * SA_THREADS,
-              "two apply tiles per block");
-static_assert(WY_BN == SA_BN, "phases 3 and 4 share the column tiling");
+static_assert(QR_THREADS == 2 * TILE_THREADS, "two apply tiles per block");
 
 struct FusedArgs {
   const float* win;             // window (P, m, w): lane stride w_bs, row stride w_ld
@@ -49,6 +55,8 @@ struct FusedArgs {
   const int* rs;                // (P,) row starts
   const unsigned char* active;  // (P,) lane flags; null = every lane active
   int P, m, w, b, L, t_lane;
+  int bn;     // column tile of phases 3-4: 32, 64 or 128
+  bool vec;   // 16-byte accesses allowed in phases 3-4
   float* leaf_Y;    // (P, m, b)
   float* leaf_T;    // (P, b, b)
   float* R_leaf;    // (P, b, b)
@@ -115,53 +123,48 @@ __device__ void butterfly_phase(const FusedArgs& a, int lvl, float* smem) {
   }
 }
 
-// Phase 3: C_local = Q_leaf^T window, and the C' rows of every lane.
+// Phase 3: C_local = Q_leaf^T window, and the C' rows of every lane. The
+// two halves of a block take tiles on their own (named barriers 1 and 2).
+template <int BN, bool VEC>
 __device__ void apply_phase(const FusedArgs& a, float* smem) {
-  const int half = threadIdx.x / WY_THREADS, tid = threadIdx.x % WY_THREADS;
-  float* tsm = smem + half * wy_tile_smem_floats(a.b);
-  const int nb = (a.w + WY_BN - 1) / WY_BN, ntiles = a.P * nb;
+  const int half = threadIdx.x / TILE_THREADS, tid = threadIdx.x % TILE_THREADS;
+  float* tsm = smem + half * tile_smem_floats(BN);
+  const int nb = (a.w + BN - 1) / BN, ntiles = a.P * nb;
   const size_t mb = (size_t)a.m * a.b, bb = (size_t)a.b * a.b;
   const size_t mw = (size_t)a.m * a.w, bw = (size_t)a.b * a.w;
   float* cp_out = a.L > 0 ? a.Cs_self : a.C_prime;  // C' entering level 0
-  // Both halves run the same number of tiles (a half past the end runs an
-  // empty one), so the barriers inside the tile body line up.
-  for (int base = 2 * blockIdx.x; base < ntiles; base += 2 * gridDim.x) {
-    const int it = base + half;
-    const bool valid = it < ntiles;
-    const int p = valid ? it / nb : 0;
-    const int col0 = valid ? (it % nb) * WY_BN : a.w;
+  for (int it = 2 * blockIdx.x + half; it < ntiles; it += 2 * gridDim.x) {
+    const int p = it / nb, col0 = (it % nb) * BN;
     float* Cl = a.C_local + p * mw;
-    wy_apply_tile<false>(a.leaf_Y + p * mb, a.leaf_T + p * bb, a.win + p * a.w_bs,
-                         a.w_ld, Cl, a.w, a.m, a.b, a.w, col0, tid, tsm);
-    if (valid) {  // the tile's own writes are visible after its last barrier
-      const int r0 = min(max(a.rs[p], 0), a.m - a.b);
-      const bool act = lane_active(a, p);
-      float* dst = cp_out + p * bw;
-      for (int e = tid; e < a.b * WY_BN; e += WY_THREADS) {
-        const int r = e / WY_BN, col = col0 + e % WY_BN;
-        if (col < a.w)
-          dst[(size_t)r * a.w + col] = act ? Cl[(size_t)(r0 + r) * a.w + col] : 0.f;
-      }
+    wy_apply_tile<BN, VEC>(a.leaf_Y + p * mb, a.leaf_T + p * bb,
+                           a.win + p * a.w_bs, a.w_ld, Cl, a.w, a.m, a.b, a.w,
+                           col0, tid, 1 + half, tsm);
+    // the tile's writes are visible to its threads after its last barrier
+    const int r0 = min(max(a.rs[p], 0), a.m - a.b);
+    const bool act = lane_active(a, p);
+    float* dst = cp_out + p * bw;
+    for (int e = tid; e < a.b * BN; e += TILE_THREADS) {
+      const int r = e / BN, col = col0 + e % BN;
+      if (col < a.w)
+        dst[(size_t)r * a.w + col] = act ? Cl[(size_t)(r0 + r) * a.w + col] : 0.f;
     }
   }
 }
 
 // Phase 4, one level: the trailing combine
 // (core/trailing.py::trailing_combine_level with dead_threshold = t_lane).
+template <int BN, bool VEC>
 __device__ void combine_phase(const FusedArgs& a, int lvl, float* smem) {
-  const int half = threadIdx.x / SA_THREADS, tid = threadIdx.x % SA_THREADS;
-  float* tsm = smem + half * sa_tile_smem_floats(a.b);
-  const int nb = (a.w + SA_BN - 1) / SA_BN, ntiles = a.P * nb;
+  const int half = threadIdx.x / TILE_THREADS, tid = threadIdx.x % TILE_THREADS;
+  float* tsm = smem + half * tile_smem_floats(BN);
+  const int nb = (a.w + BN - 1) / BN, ntiles = a.P * nb;
   const size_t bb = (size_t)a.b * a.b, bw = (size_t)a.b * a.w;
   const size_t lvl_bw = (size_t)lvl * a.P * bw, lvl_bb = (size_t)lvl * a.P * bb;
   const float* Cin = a.Cs_self + lvl_bw;
   float* Cout = lvl == a.L - 1 ? a.C_prime : a.Cs_self + lvl_bw + a.P * bw;
   const int t = a.t_lane;
-  for (int base = 2 * blockIdx.x; base < ntiles; base += 2 * gridDim.x) {
-    const int it = base + half;
-    const bool valid = it < ntiles;
-    const int p = valid ? it / nb : 0;
-    const int col0 = valid ? (it % nb) * SA_BN : a.w;
+  for (int it = 2 * blockIdx.x + half; it < ntiles; it += 2 * gridDim.x) {
+    const int p = it / nb, col0 = (it % nb) * BN;
     const int buddy = p ^ (1 << lvl);
     const bool is_top = ((p >> lvl) & 1) == ((t >> lvl) & 1);
     const bool live = p >= t && buddy >= t;
@@ -169,26 +172,36 @@ __device__ void combine_phase(const FusedArgs& a, int lvl, float* smem) {
     float* Wo = a.Ws + lvl_bw + p * bw;
     // the tile writes all three outputs; what this lane does not keep goes
     // to the sink, which nothing reads
-    stacked_apply_tile<false>(
+    stacked_apply_tile<BN, VEC>(
         a.level_Y2 + lvl_bb + p * bb, a.level_T + lvl_bb + p * bb,
         Cin + (is_top ? p : buddy) * bw, Cin + (is_top ? buddy : p) * bw, a.w,
         live && is_top ? own : a.sink, live && !is_top ? own : a.sink,
-        live ? Wo : a.sink, a.b, a.w, col0, tid, tsm);
-    if (valid) {
-      float* Cb = a.Cs_buddy + lvl_bw + p * bw;
-      for (int e = tid; e < a.b * SA_BN; e += SA_THREADS) {
-        const size_t r = e / SA_BN;
-        const int col = col0 + e % SA_BN;
-        if (col >= a.w) continue;
-        const size_t i = r * a.w + col;
-        Cb[i] = Cin[buddy * bw + i];
-        if (!live) {
-          own[i] = Cin[p * bw + i];
-          Wo[i] = 0.f;
-        }
+        live ? Wo : a.sink, a.b, a.w, col0, tid, 1 + half, tsm);
+    float* Cb = a.Cs_buddy + lvl_bw + p * bw;
+    for (int e = tid; e < a.b * BN; e += TILE_THREADS) {
+      const size_t r = e / BN;
+      const int col = col0 + e % BN;
+      if (col >= a.w) continue;
+      const size_t i = r * a.w + col;
+      Cb[i] = Cin[buddy * bw + i];
+      if (!live) {
+        own[i] = Cin[p * bw + i];
+        Wo[i] = 0.f;
       }
     }
-    __syncthreads();  // the tile's shared memory is reused by the next one
+  }
+}
+
+// Phases 3 and 4 at column tile BN, with 16-byte accesses or without.
+template <int BN>
+__device__ void tile_phases(const FusedArgs& a, float* smem) {
+  cg::grid_group grid = cg::this_grid();
+  if (a.vec) apply_phase<BN, true>(a, smem);
+  else apply_phase<BN, false>(a, smem);
+  for (int lvl = 0; lvl < a.L; ++lvl) {
+    grid.sync();
+    if (a.vec) combine_phase<BN, true>(a, lvl, smem);
+    else combine_phase<BN, false>(a, lvl, smem);
   }
 }
 
@@ -200,41 +213,51 @@ __device__ void fused_body(const FusedArgs& a, float* smem) {
     butterfly_phase(a, lvl, smem);
     grid.sync();
   }
-  apply_phase(a, smem);
-  for (int lvl = 0; lvl < a.L; ++lvl) {
-    grid.sync();
-    combine_phase(a, lvl, smem);
+  switch (a.bn) {
+    case 32: tile_phases<32>(a, smem); break;
+    case 64: tile_phases<64>(a, smem); break;
+    default: tile_phases<128>(a, smem); break;
   }
 }
 
 __global__ void __launch_bounds__(QR_THREADS, 1)
 panel_qr_apply_kernel(FusedArgs a) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   fused_body(a, smem);
 }
 
 __global__ void __launch_bounds__(QR_THREADS, 1)
 fused_panel_kernel(FusedArgs a) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   fused_body(a, smem);
 }
 
-static size_t fused_smem_bytes(int m, int b) {
+static size_t fused_smem_bytes(int m, int b, int bn) {
   size_t f = qr_smem_floats(m, b);
   f = f > qr_smem_floats(2 * b, b) ? f : qr_smem_floats(2 * b, b);
-  f = f > 2 * wy_tile_smem_floats(b) ? f : 2 * wy_tile_smem_floats(b);
-  f = f > 2 * sa_tile_smem_floats(b) ? f : 2 * sa_tile_smem_floats(b);
+  const size_t tiles = 2 * (size_t)tile_smem_floats(bn);
+  f = f > tiles ? f : tiles;
   return f * sizeof(float);
 }
 
-extern "C" size_t fused_sweep_smem_bytes(int m, int b) {
-  return fused_smem_bytes(m, b);
+extern "C" size_t fused_sweep_smem_bytes(int m, int b, int bn) {
+  return fused_smem_bytes(m, b, bn);
+}
+
+static bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if ((uintptr_t)p % 16 != 0) return false;
+  return true;
 }
 
 // One cooperative launch of `kernel` on a persistent grid: as many blocks as
 // fit on the card at once, but no more than the largest phase has work for.
 static int launch(const void* kernel, FusedArgs& a, void* stream) {
-  const size_t smem = fused_smem_bytes(a.m, a.b);
+  if (a.bn != 32 && a.bn != 64 && a.bn != 128) return (int)cudaErrorInvalidValue;
+  a.vec = aligned16({a.win, a.leaf_Y, a.leaf_T, a.C_local, a.C_prime,
+                     a.level_Y2, a.level_T, a.Ws, a.Cs_self, a.sink}) &&
+          a.b % 4 == 0 && a.w % 4 == 0 && a.w_bs % 4 == 0 && a.w_ld % 4 == 0;
+  const size_t smem = fused_smem_bytes(a.m, a.b, a.bn);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -246,7 +269,7 @@ static int launch(const void* kernel, FusedArgs& a, void* stream) {
                                                       QR_THREADS, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int tiles = a.P * ((a.w + WY_BN - 1) / WY_BN);
+  const int tiles = a.P * ((a.w + a.bn - 1) / a.bn);
   int grid = (tiles + 1) / 2 > a.P ? (tiles + 1) / 2 : a.P;
   if (grid > per_sm * sms) grid = per_sm * sms;
   void* args[] = {&a};
@@ -258,18 +281,19 @@ static int launch(const void* kernel, FusedArgs& a, void* stream) {
 
 // K5. W: P windows (m x w), lane stride w_bs and row stride w_ld in floats,
 // unit column stride; rs: P int32 row starts (device). Y, work: P*m*b;
-// T, R: P*b*b; C: P*m*w; Cp: P*b*w floats, all contiguous.
+// T, R: P*b*b; C: P*m*w; Cp: P*b*w floats, all contiguous. bn: the column
+// tile of the apply phase, 32, 64 or 128.
 extern "C" int panel_qr_apply_f32(const void* W, long long w_bs, long long w_ld,
                                   const void* rs, void* Y, void* T, void* R,
                                   void* C, void* Cp, void* work, int P, int m,
-                                  int w, int b, void* stream) {
+                                  int w, int b, int bn, void* stream) {
   FusedArgs a{};
   a.win = (const float*)W;
   a.w_bs = w_bs;
   a.w_ld = w_ld;
   a.rs = (const int*)rs;
   a.active = nullptr;
-  a.P = P, a.m = m, a.w = w, a.b = b, a.L = 0, a.t_lane = 0;
+  a.P = P, a.m = m, a.w = w, a.b = b, a.L = 0, a.t_lane = 0, a.bn = bn;
   a.leaf_Y = (float*)Y, a.leaf_T = (float*)T, a.R_leaf = (float*)R;
   a.C_local = (float*)C, a.C_prime = (float*)Cp, a.work = (float*)work;
   return launch((const void*)panel_qr_apply_kernel, a, stream);
@@ -278,10 +302,11 @@ extern "C" int panel_qr_apply_f32(const void* W, long long w_bs, long long w_ld,
 // K6. W, rs as for K5; active: P uint8 lane flags (device); L >= 1 levels
 // over P = 2^L lanes rooted at t_lane. Outputs as in FusedArgs, all
 // contiguous; scratch: work P*m*b, stack and Yw P*2b*b, Rtmp (L-1)*P*b*b,
-// sink b*w.
+// sink b*w. bn: the column tile of phases 3-4, 32, 64 or 128.
 extern "C" int fused_panel_f32(const void* W, long long w_bs, long long w_ld,
                                const void* rs, const void* active, int P, int m,
-                               int w, int b, int L, int t_lane, void* leaf_Y,
+                               int w, int b, int L, int t_lane, int bn,
+                               void* leaf_Y,
                                void* leaf_T, void* R_leaf, void* R_carry,
                                void* level_Y2, void* level_T, void* C_local,
                                void* C_prime, void* Ws, void* Cs_self,
@@ -293,7 +318,7 @@ extern "C" int fused_panel_f32(const void* W, long long w_bs, long long w_ld,
   a.w_ld = w_ld;
   a.rs = (const int*)rs;
   a.active = (const unsigned char*)active;
-  a.P = P, a.m = m, a.w = w, a.b = b, a.L = L, a.t_lane = t_lane;
+  a.P = P, a.m = m, a.w = w, a.b = b, a.L = L, a.t_lane = t_lane, a.bn = bn;
   a.leaf_Y = (float*)leaf_Y, a.leaf_T = (float*)leaf_T;
   a.R_leaf = (float*)R_leaf, a.R_carry = (float*)R_carry;
   a.level_Y2 = (float*)level_Y2, a.level_T = (float*)level_T;

@@ -13,16 +13,24 @@
 // K4 replaces src/repro/kernels/stacked_qr.py::stacked_apply (body
 // stacked_apply_math):
 //     W = T^T (C_top + Y2^T C_bot); C_top - W; C_bot - Y2 W.
-// Bound on the H100: about 6 b^2 n FP32 operations against 5 b n floats
-// moved, so at b = 128 FP32 FFMA throughput. Simple design: grid (column
-// blocks of 32, lanes); each block keeps its C_bot block and the
-// intermediate in shared memory, reduces over rows in a fixed order
-// inside the block (no split across blocks, no atomics), and reads Y2 and
-// T through the cache. Every output column depends only on its own input
-// column, so the bits do not depend on the block or the launch size.
+// Bound on the H100: 3 b^2 n FP32 operations (the triangles counted once)
+// against 5 b n floats moved; at b = 128 the card's FFMA rate and its
+// memory rate give about the same least time. The design: grid (column
+// tiles of BN, lanes), one 256-thread block per tile running apply_engine
+// (qr_common.cuh), which K4 shares with K2 because it is K2's chain with
+// Y = Y2 over b rows: Y2, T and C_bot come in slices of 16 to 64 rows
+// through a cp.async double buffer, the intermediate and then W stay in
+// shared memory, each thread keeps 8 x 8 outputs in registers (at BN =
+// 128) fed by float4 reads, and the slices that meet only the zero
+// triangle of Y2 or T are skipped (about half the FMAs). Each output element is one sequential fmaf
+// chain in index order (the Y2^T C_bot sum first, then C_top added), so
+// the bits do not depend on BN, the block or the launch size, and equal
+// those of the kernel's first, one-FMA-per-load version.
 //
 // The per-lane and per-tile bodies (stacked_qr_lane, stacked_apply_tile)
 // live in qr_common.cuh, shared with the fused K6.
+#include <cstdint>
+
 #include "qr_common.cuh"
 
 using namespace repro;
@@ -30,7 +38,7 @@ using namespace repro;
 __global__ void __launch_bounds__(QR_THREADS)
 stacked_qr_kernel(const float* __restrict__ Rt, const float* __restrict__ Rb,
                   float* Y2, float* T, float* R, float* work, float* Yw, int b) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int p = blockIdx.x;
   const size_t bb = (size_t)b * b;
   stacked_qr_lane(Rt + p * bb, Rb + p * bb, Y2 + p * bb, T + p * bb, R + p * bb,
@@ -56,30 +64,60 @@ extern "C" int stacked_qr_f32(const void* Rt, const void* Rb, void* Y2,
   return (int)cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(SA_THREADS)
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(TILE_THREADS, 2)
 stacked_apply_kernel(const float* __restrict__ Y2, const float* __restrict__ T,
                      const float* __restrict__ Ct, const float* __restrict__ Cb,
                      float* ot, float* ob, float* W, int b, int n) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int p = blockIdx.y;
   const size_t off = (size_t)p * b * n;
-  stacked_apply_tile<true>(Y2 + (size_t)p * b * b, T + (size_t)p * b * b,
-                           Ct + off, Cb + off, n, ot + off, ob + off, W + off,
-                           b, n, blockIdx.x * SA_BN, threadIdx.x, smem);
+  stacked_apply_tile<BN, VEC>(Y2 + (size_t)p * b * b, T + (size_t)p * b * b,
+                              Ct + off, Cb + off, n, ot + off, ob + off,
+                              W + off, b, n, blockIdx.x * BN, threadIdx.x, 0,
+                              smem);
 }
 
-// Y2, T: P (b x b); Ct, Cb, ot, ob, W: P (b x n); all contiguous.
+template <int BN, bool VEC>
+static int launch_apply(const float* Y2, const float* T, const float* Ct,
+                        const float* Cb, float* ot, float* ob, float* W, int P,
+                        int b, int n, cudaStream_t stream) {
+  const int smem = tile_smem_floats(BN) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      stacked_apply_kernel<BN, VEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((n + BN - 1) / BN, P);
+  stacked_apply_kernel<BN, VEC><<<grid, TILE_THREADS, smem, stream>>>(
+      Y2, T, Ct, Cb, ot, ob, W, b, n);
+  return (int)cudaGetLastError();
+}
+
+template <int BN>
+static int launch_apply_tile(const float* Y2, const float* T, const float* Ct,
+                        const float* Cb, float* ot, float* ob, float* W, int P,
+                        int b, int n, bool vec, cudaStream_t stream) {
+  return vec ? launch_apply<BN, true>(Y2, T, Ct, Cb, ot, ob, W, P, b, n, stream)
+             : launch_apply<BN, false>(Y2, T, Ct, Cb, ot, ob, W, P, b, n, stream);
+}
+
+// Y2, T: P (b x b) upper triangular; Ct, Cb, ot, ob, W: P (b x n); all
+// contiguous. bn: the column tile, 32, 64 or 128.
 extern "C" int stacked_apply_f32(const void* Y2, const void* T, const void* Ct,
                                  const void* Cb, void* ot, void* ob, void* W,
-                                 int P, int b, int n, void* stream) {
-  const size_t smem = sa_tile_smem_floats(b) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      stacked_apply_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + SA_BN - 1) / SA_BN, P);
-  stacked_apply_kernel<<<grid, SA_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)Y2, (const float*)T, (const float*)Ct, (const float*)Cb,
-      (float*)ot, (float*)ob, (float*)W, b, n);
-  return (int)cudaGetLastError();
+                                 int P, int b, int n, int bn, void* stream) {
+  const bool vec = ((uintptr_t)Y2 | (uintptr_t)T | (uintptr_t)Ct |
+                    (uintptr_t)Cb | (uintptr_t)ot | (uintptr_t)ob |
+                    (uintptr_t)W) % 16 == 0 &&
+                   b % 4 == 0 && n % 4 == 0;
+  const auto y = (const float*)Y2, t = (const float*)T;
+  const auto ct = (const float*)Ct, cb = (const float*)Cb;
+  const auto o1 = (float*)ot, o2 = (float*)ob, w = (float*)W;
+  const auto s = (cudaStream_t)stream;
+  switch (bn) {
+    case 32: return launch_apply_tile<32>(y, t, ct, cb, o1, o2, w, P, b, n, vec, s);
+    case 64: return launch_apply_tile<64>(y, t, ct, cb, o1, o2, w, P, b, n, vec, s);
+    case 128: return launch_apply_tile<128>(y, t, ct, cb, o1, o2, w, P, b, n, vec, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

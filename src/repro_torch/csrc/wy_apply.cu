@@ -4,49 +4,90 @@
 // wy_apply_math): the leaf apply of every panel of the FT-CAQR sweep on
 // the live window, caqr_apply_qt, and recovery's recover_lane_local.
 //
-// What bounds it on the H100: about 4 m b n FP32 operations against
-// 8 m n bytes of C in and out, i.e. b/2 operations per byte; at b = 128
+// What bounds it on the H100: 4 m b n + b^2 n FP32 operations against
+// 8 m n bytes of C in and out, about b/2 operations per byte; at b = 128
 // that is 64, above the card's FP32 ridge (67 TFLOP/s over 3.35 TB/s, 20
 // operations per byte), so FP32 FFMA throughput bounds it. TF32 tensor
 // cores would be faster but break the 3e-4 tolerance.
 //
-// The simple design: grid (column blocks of 32, lanes), one block of 256
-// threads per tile running wy_apply_tile (qr_common.cuh, shared with the
-// fused K5/K6): each block walks all m rows twice in chunks of 32 rows
-// staged in shared memory: first W1 = Y^T C for its columns (each thread
-// keeps up to 16 sums in registers), then W = T^T W1 in shared memory, then
-// out = C - Y W. The reduction over rows stays inside the block, in row
-// order: no split-K, no atomics, so a column's bits do not depend on its
-// block, its lane or the launch size. C may be a strided view (lane and row
-// strides), which is how the sweep passes its live window without a copy.
+// The design: grid (column tiles of BN, lanes), one 256-thread block per
+// tile running apply_engine (qr_common.cuh, shared with K4 and the fused
+// K5/K6). Phase A accumulates W1 = Y^T C (b x BN) in registers, 8 x 8 per
+// thread at BN = 128, over slices of 16 to 64 rows of Y and C that a
+// cp.async double buffer brings in while the previous slice is multiplied,
+// each thread's copy addresses worked out once per tile; phase B
+// keeps W1 in shared memory and forms W = T^T W1 from staged slices of T;
+// phase C streams 128-row blocks of Y against the resident W and writes
+// out = C - Y W. BN (128, 64 or 32) is the caller's choice per launch
+// (backend.tile_bn fills the SMs: the tall sweep's window narrows from
+// 4096 to 128 columns, and a REBUILD replays one lane).
+//
+// The bits: each output element is one sequential fmaf chain in index
+// order (W1 over the m rows, W over q, Y W over q, then C minus it), which
+// neither BN, nor the thread that computes it, nor the lane changes, and
+// which the kernel's first, one-FMA-per-load version also followed: the
+// reduction over the rows stays whole inside the block (no split-K, no
+// atomics), so both give the same bits. C may be a strided view (lane and
+// row strides), which is how the sweep passes its live window without a
+// copy; 16-byte copies are used when every stride and pointer allows them,
+// scalar loads otherwise (two instances of the kernel, chosen per launch).
+#include <cstdint>
+
 #include "qr_common.cuh"
 
 using namespace repro;
 
-__global__ void __launch_bounds__(WY_THREADS)
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(TILE_THREADS, 2)
 wy_apply_kernel(const float* __restrict__ Y, const float* __restrict__ T,
                 const float* __restrict__ C, long long c_bs, long long c_ld,
                 float* out, int m, int b, int n) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int p = blockIdx.y;
-  wy_apply_tile<true>(Y + (size_t)p * m * b, T + (size_t)p * b * b, C + p * c_bs,
-                      c_ld, out + (size_t)p * m * n, n, m, b, n,
-                      blockIdx.x * WY_BN, threadIdx.x, smem);
+  wy_apply_tile<BN, VEC>(Y + (size_t)p * m * b, T + (size_t)p * b * b,
+                         C + p * c_bs, c_ld, out + (size_t)p * m * n, n, m, b,
+                         n, blockIdx.x * BN, threadIdx.x, 0, smem);
+}
+
+template <int BN, bool VEC>
+static int launch(const float* Y, const float* T, const float* C,
+                  long long c_bs, long long c_ld, float* out, int P, int m,
+                  int b, int n, cudaStream_t stream) {
+  const int smem = tile_smem_floats(BN) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      wy_apply_kernel<BN, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((n + BN - 1) / BN, P);
+  wy_apply_kernel<BN, VEC><<<grid, TILE_THREADS, smem, stream>>>(
+      Y, T, C, c_bs, c_ld, out, m, b, n);
+  return (int)cudaGetLastError();
+}
+
+template <int BN>
+static int launch_tile(const float* Y, const float* T, const float* C,
+                  long long c_bs, long long c_ld, float* out, int P, int m,
+                  int b, int n, bool vec, cudaStream_t stream) {
+  return vec ? launch<BN, true>(Y, T, C, c_bs, c_ld, out, P, m, b, n, stream)
+             : launch<BN, false>(Y, T, C, c_bs, c_ld, out, P, m, b, n, stream);
 }
 
 // Y: P (m x b), T: P (b x b), contiguous. C: P (m x n) with lane stride
 // c_bs and row stride c_ld in floats, unit column stride. out: P (m x n),
-// contiguous.
+// contiguous. bn: the column tile, 32, 64 or 128.
 extern "C" int wy_apply_f32(const void* Y, const void* T, const void* C,
                             long long c_bs, long long c_ld, void* out, int P,
-                            int m, int b, int n, void* stream) {
-  const size_t smem = wy_tile_smem_floats(b) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      wy_apply_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + WY_BN - 1) / WY_BN, P);
-  wy_apply_kernel<<<grid, WY_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)Y, (const float*)T, (const float*)C, c_bs, c_ld,
-      (float*)out, m, b, n);
-  return (int)cudaGetLastError();
+                            int m, int b, int n, int bn, void* stream) {
+  const bool vec = ((uintptr_t)Y | (uintptr_t)T | (uintptr_t)C |
+                    (uintptr_t)out) % 16 == 0 &&
+                   b % 4 == 0 && n % 4 == 0 && c_bs % 4 == 0 && c_ld % 4 == 0;
+  const auto y = (const float*)Y, t = (const float*)T, c = (const float*)C;
+  const auto o = (float*)out;
+  const auto s = (cudaStream_t)stream;
+  switch (bn) {
+    case 32: return launch_tile<32>(y, t, c, c_bs, c_ld, o, P, m, b, n, vec, s);
+    case 64: return launch_tile<64>(y, t, c, c_bs, c_ld, o, P, m, b, n, vec, s);
+    case 128: return launch_tile<128>(y, t, c, c_bs, c_ld, o, P, m, b, n, vec, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

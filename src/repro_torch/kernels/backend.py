@@ -11,7 +11,8 @@ ran each op last, and ``LAUNCHES`` counts the kernel launches.
 """
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from typing import Dict, Optional
 
 import torch
 
@@ -73,6 +74,36 @@ def contiguous_lanes(x: torch.Tensor, op: str) -> torch.Tensor:
         raise ValueError(f"{op}: expected a contiguous tensor, got strides "
                          f"{x.stride()}")
     return x
+
+
+# Column tiles of K2 and K4 (and of K5/K6's apply phases), widest first.
+TILE_BNS = (128, 64, 32)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def tile_bn(P: int, n: int, sms: int) -> int:
+    """The column tile for a launch over P lanes of n columns on a card
+    with ``sms`` SMs: the widest tile whose (lane, tile) grid still gives
+    every SM a block, else the narrowest. The tile does not change a bit
+    of the result (every element is one fixed chain, see
+    ``csrc/qr_common.cuh``); it only sets how the work spreads."""
+    for bn in TILE_BNS[:-1]:
+        if P * -(-n // bn) >= sms:
+            return bn
+    return TILE_BNS[-1]
+
+
+def launch_bn(P: int, n: int, x: torch.Tensor, bn: Optional[int]) -> int:
+    """``bn`` if given (checked), else ``tile_bn`` for the card of ``x``."""
+    if bn is None:
+        return tile_bn(P, n, _sm_count(x.device.index or 0))
+    if bn not in TILE_BNS:
+        raise ValueError(f"column tile {bn} is not one of {TILE_BNS}")
+    return bn
 
 
 def stream_ptr(x: torch.Tensor) -> int:

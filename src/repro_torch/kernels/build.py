@@ -17,6 +17,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 from typing import Dict, Iterable, List
@@ -87,6 +88,27 @@ def build_all(names: Iterable[str] = SOURCES) -> List[pathlib.Path]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return [_target(n) for n in names]
+
+
+def resource_usage(name: str) -> Dict[str, Dict[str, int]]:
+    """Registers and spill bytes of each kernel of ``csrc/<name>.cu``, read
+    from the ``-Xptxas -v`` lines of its build log: {mangled kernel name:
+    {"registers": n, "spill_stores": bytes, "spill_loads": bytes}}."""
+    out: Dict[str, Dict[str, int]] = {}
+    entry = props = None
+    for line in _target(name).with_suffix(".log").read_text().splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            entry = m.group(1)
+            out[entry] = {}
+        elif m := re.search(r"Function properties for (\S+)", line):
+            props = m.group(1)
+        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                             r"loads", line)) and entry and props == entry:
+            out[entry].update(spill_stores=int(m.group(1)),
+                              spill_loads=int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry:
+            out[entry]["registers"] = int(m.group(1))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -118,30 +118,31 @@ def _tops(P: int, t_lane: int, levels: int):
 def _k5():
     return build.bind("fused_sweep", "panel_qr_apply_f32",
                       [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _P])
+                       _I, _I, _I, _I, _I, _P])
 
 
 @functools.cache
 def _k6():
     return build.bind("fused_sweep", "fused_panel_f32",
-                      [_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I]
+                      [_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I]
                       + [_P] * 16 + [_P])
 
 
 @functools.cache
 def _smem():
     f = build.load("fused_sweep").fused_sweep_smem_bytes
-    f.argtypes, f.restype = [_I, _I], ctypes.c_size_t
+    f.argtypes, f.restype = [_I, _I, _I], ctypes.c_size_t
     return f
 
 
-def _check(op: str, m: int, w: int, b: int) -> None:
+def _check(op: str, m: int, w: int, b: int, bn: int) -> None:
     if not 1 <= b <= MAX_B or m < b or w < b or m * max(b, w) >= 2 ** 31:
         raise ValueError(f"{op}: needs 1 <= b <= {MAX_B} and m, w >= b, got "
                          f"m={m}, w={w}, b={b}")
-    if _smem()(m, b) > SMEM_LIMIT:
-        raise ValueError(f"{op}: m={m} needs {_smem()(m, b)} bytes of shared "
-                         f"memory, over {SMEM_LIMIT}")
+    smem = _smem()(m, b, bn)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{op}: m={m} needs {smem} bytes of shared memory, "
+                         f"over {SMEM_LIMIT}")
 
 
 def panel_qr_apply(W: torch.Tensor, row_start, b: int):
@@ -151,7 +152,8 @@ def panel_qr_apply(W: torch.Tensor, row_start, b: int):
     squeeze = W.dim() == 2
     W3 = backend.lanes(W, "panel_qr_apply")
     P, m, w = W3.shape
-    _check("panel_qr_apply", m, w, b)
+    bn = backend.launch_bn(P, w, W3, None)
+    _check("panel_qr_apply", m, w, b, bn)
     dev = W3.device
     rs = backend.to_device(row_start, dev).to(torch.int32)
     rs = rs.reshape(-1).expand(P).contiguous()
@@ -163,7 +165,7 @@ def panel_qr_apply(W: torch.Tensor, row_start, b: int):
     work = torch.empty_like(Y)
     err = _k5()(W3.data_ptr(), W3.stride(0), W3.stride(1), rs.data_ptr(),
                 Y.data_ptr(), T.data_ptr(), R.data_ptr(), C.data_ptr(),
-                Cp.data_ptr(), work.data_ptr(), P, m, w, b,
+                Cp.data_ptr(), work.data_ptr(), P, m, w, b, bn,
                 backend.stream_ptr(W3))
     build.check(err, "panel_qr_apply")
     backend.count_launch("panel_qr_apply")
@@ -189,7 +191,8 @@ def fused_panel(window: torch.Tensor, k: int, *, b: int, m_loc_pad: int,
         raise ValueError(f"fused_panel: needs P = 2^levels >= 2 lanes of "
                          f"m_loc_pad rows, got P={P}, levels={L}, m={m}, "
                          f"m_loc_pad={m_loc_pad}")
-    _check("fused_panel", m, w, b)
+    bn = backend.launch_bn(P, w, W3, None)
+    _check("fused_panel", m, w, b, bn)
     dev, dt = W3.device, W3.dtype
     t_lane = (k * b) // m_loc_pad
     _c0, _t, row_start, active = panel_geometry(SimComm(P), k, b, m_loc_pad)
@@ -210,7 +213,7 @@ def fused_panel(window: torch.Tensor, k: int, *, b: int, m_loc_pad: int,
     scratch = (empty(P, m, b), empty(P, 2 * b, b), empty(P, 2 * b, b),
                empty(max(L - 1, 1), P, b, b), empty(b, w))
     err = _k6()(W3.data_ptr(), W3.stride(0), W3.stride(1), rs.data_ptr(),
-                act.data_ptr(), P, m, w, b, L, t_lane,
+                act.data_ptr(), P, m, w, b, L, t_lane, bn,
                 *(out[f].data_ptr() for f in FUSED_FIELDS),
                 *(s.data_ptr() for s in scratch), backend.stream_ptr(W3))
     build.check(err, "fused_panel")

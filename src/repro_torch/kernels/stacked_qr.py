@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -32,7 +33,7 @@ def _qr_kernel():
 @functools.cache
 def _apply_kernel():
     return build.bind("stacked_qr", "stacked_apply_f32",
-                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
 
 
 def _b(b: int, op: str) -> None:
@@ -65,10 +66,13 @@ def stacked_qr(R_top: torch.Tensor, R_bot: torch.Tensor):
 
 
 def stacked_apply(Y2: torch.Tensor, T: torch.Tensor, C_top: torch.Tensor,
-                  C_bot: torch.Tensor):
+                  C_bot: torch.Tensor, bn: Optional[int] = None):
     """(C_top - W, C_bot - Y2 W, W) with W = T^T (C_top + Y2^T C_bot), for
-    contiguous CUDA f32 tensors: Y2, T (P, b, b); C_top, C_bot (P, b, n);
-    or the same without the lane axis."""
+    contiguous CUDA f32 tensors: Y2, T (P, b, b), upper triangular as
+    ``stacked_qr`` makes them (the kernel skips their zero triangles);
+    C_top, C_bot (P, b, n); or the same without the lane axis. ``bn`` is
+    the kernel's column tile (32, 64 or 128; by default
+    ``backend.tile_bn``); it does not change the result's bits."""
     squeeze = C_top.dim() == 2
     Y3 = backend.contiguous_lanes(Y2, "stacked_apply")
     T3 = backend.contiguous_lanes(T, "stacked_apply")
@@ -79,11 +83,12 @@ def stacked_apply(Y2: torch.Tensor, T: torch.Tensor, C_top: torch.Tensor,
         raise ValueError("stacked_apply: shapes do not conform: "
                          f"{[tuple(x.shape) for x in (Y2, T, C_top, C_bot)]}")
     _b(b, "stacked_apply")
+    bn = backend.launch_bn(P, n, Ct, bn)
     ot, ob, W = (torch.empty_like(Ct) for _ in range(3))
     if n:
         err = _apply_kernel()(Y3.data_ptr(), T3.data_ptr(), Ct.data_ptr(),
                               Cb.data_ptr(), ot.data_ptr(), ob.data_ptr(),
-                              W.data_ptr(), P, b, n, backend.stream_ptr(Ct))
+                              W.data_ptr(), P, b, n, bn, backend.stream_ptr(Ct))
         build.check(err, "stacked_apply")
         backend.count_launch("stacked_apply")
     if squeeze:

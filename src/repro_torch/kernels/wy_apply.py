@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -22,13 +23,16 @@ _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 @functools.cache
 def _kernel():
     return build.bind("wy_apply", "wy_apply_f32",
-                      [_P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _P])
+                      [_P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _P])
 
 
-def wy_apply(Y: torch.Tensor, T: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+def wy_apply(Y: torch.Tensor, T: torch.Tensor, C: torch.Tensor,
+             bn: Optional[int] = None) -> torch.Tensor:
     """Q^T C for CUDA f32 tensors: Y (P, m, b), T (P, b, b), C (P, m, n), or
     the same without the lane axis. C may be a strided view (unit column
-    stride), such as the sweep's live window; the result is contiguous."""
+    stride), such as the sweep's live window; the result is contiguous.
+    ``bn`` is the kernel's column tile (32, 64 or 128; by default
+    ``backend.tile_bn``); it does not change the result's bits."""
     squeeze = C.dim() == 2
     Y3 = backend.contiguous_lanes(Y, "wy_apply")
     T3 = backend.contiguous_lanes(T, "wy_apply")
@@ -40,11 +44,12 @@ def wy_apply(Y: torch.Tensor, T: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
                          f"{tuple(T.shape)}, C {tuple(C.shape)} do not conform")
     if not 1 <= b <= MAX_B:
         raise ValueError(f"wy_apply: needs 1 <= b <= {MAX_B}, got {b}")
+    bn = backend.launch_bn(P, n, C3, bn)
     out = torch.empty(P, m, n, device=C3.device, dtype=C3.dtype)
     if m and n:
         err = _kernel()(Y3.data_ptr(), T3.data_ptr(), C3.data_ptr(),
                         C3.stride(0), C3.stride(1), out.data_ptr(),
-                        P, m, b, n, backend.stream_ptr(C3))
+                        P, m, b, n, bn, backend.stream_ptr(C3))
         build.check(err, "wy_apply")
         backend.count_launch("wy_apply")
     return out[0] if squeeze else out

@@ -92,6 +92,67 @@ def test_cuda_stacked_kernels_match_plain(rng, cuda, b, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,b,n", [(37, 4, 13), (130, 33, 1), (200, 100, 67),
+                                   (300, 128, 259), (129, 128, 128)])
+def test_cuda_wy_apply_edges(rng, cuda, m, b, n):
+    """K2 at the shapes its tiling makes hard (b in {4, 33, 100, 128}, n
+    off the tile and off 4, m off the 128-row blocks and 16-row slices, one
+    column), on a strided window: within tolerance of the plain version,
+    and bit-equal for a lane alone and for every column tile."""
+    Y = t(rng.standard_normal((3, m, b)).astype(np.float32) * 0.1).to(cuda)
+    T = t(np.triu(rng.standard_normal((3, b, b))).astype(np.float32) * 0.1).to(cuda)
+    C = t(rng.standard_normal((3, m, n + 3)).astype(np.float32)).to(cuda)[..., 3:]
+    got = twy.wy_apply(Y, T, C)
+    close(got, tref.wy_apply(Y, T, C))
+    assert torch.equal(got[2], twy.wy_apply(Y[2], T[2], C[2]))
+    for bn in backend.TILE_BNS:
+        assert torch.equal(got, twy.wy_apply(Y, T, C, bn=bn)), bn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(4, 1), (33, 70), (100, 259), (128, 130)])
+def test_cuda_stacked_apply_edges(rng, cuda, b, n):
+    """K4 at odd b and n: within tolerance of the plain version, and
+    bit-equal for a lane alone and for every column tile."""
+    Y2 = t(np.triu(rng.standard_normal((3, b, b))).astype(np.float32) * 0.1).to(cuda)
+    T = t(np.triu(rng.standard_normal((3, b, b))).astype(np.float32) * 0.1).to(cuda)
+    Ct = t(rng.standard_normal((3, b, n)).astype(np.float32)).to(cuda)
+    Cb = t(rng.standard_normal((3, b, n)).astype(np.float32)).to(cuda)
+    got = tstacked.stacked_apply(Y2, T, Ct, Cb)
+    close(got, tref.stacked_apply(Y2, T, Ct, Cb))
+    assert all(torch.equal(a[1], o) for a, o in
+               zip(got, tstacked.stacked_apply(Y2[1], T[1], Ct[1], Cb[1])))
+    for bn in backend.TILE_BNS:
+        assert all(torch.equal(a, o) for a, o in
+                   zip(got, tstacked.stacked_apply(Y2, T, Ct, Cb, bn=bn))), bn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["wy_apply", "stacked_apply"])
+def test_cuda_narrow_launch_equals_wide(rng, cuda, op):
+    """One lane alone (a narrow column tile) is bit-equal to the same lane
+    of an 8-lane launch (a wide tile), as a REBUILD replay needs."""
+    P, m, b, n = 8, 512, 128, 4096
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert backend.tile_bn(1, n, sms) < backend.tile_bn(P, n, sms)
+    if op == "wy_apply":
+        Y, T, _ = tpanel.panel_qr(
+            t(rng.standard_normal((P, m, b)).astype(np.float32)).to(cuda), 0)
+        C = t(rng.standard_normal((P, m, n)).astype(np.float32)).to(cuda)
+        wide = (twy.wy_apply(Y, T, C),)
+        one = [(twy.wy_apply(Y[k], T[k], C[k]),) for k in range(P)]
+    else:
+        R = t(np.stack([qr_factor(rng, b) for _ in range(2 * P)])).to(cuda)
+        Y2, T, _ = tstacked.stacked_qr(R[:P].contiguous(), R[P:].contiguous())
+        Ct = t(rng.standard_normal((P, b, n)).astype(np.float32)).to(cuda)
+        Cb = t(rng.standard_normal((P, b, n)).astype(np.float32)).to(cuda)
+        wide = tstacked.stacked_apply(Y2, T, Ct, Cb)
+        one = [tstacked.stacked_apply(Y2[k], T[k], Ct[k], Cb[k]) for k in range(P)]
+    for k in range(P):
+        assert all(torch.equal(w[k], o) for w, o in zip(wide, one[k])), k
+
+
+@pytest.mark.cuda
 def test_cuda_rejects_other_dtypes(cuda):
     with pytest.raises(NotImplementedError):
         ops.panel_qr(torch.zeros(8, 4, device=cuda, dtype=torch.float64), 0)

@@ -93,7 +93,13 @@ def test_stacked_qr_matches_pallas_interpret(rng, b):
           jref.stacked_qr(jnp.asarray(R1), jnp.asarray(R2)))
 
 
-@pytest.mark.parametrize("m,b,n", [(64, 16, 48), (256, 32, 300), (37, 5, 13)])
+# The odd shapes are those the CUDA kernel's tiling makes hard (its
+# 128-row blocks, 16-row slices, 32/64/128-column tiles and float4
+# accesses): b in {4, 33, 100, 128}, n off the tile and off 4, m off the
+# row blocks, one column.
+@pytest.mark.parametrize("m,b,n", [(64, 16, 48), (256, 32, 300), (37, 5, 13),
+                                   (130, 4, 1), (200, 33, 67),
+                                   (129, 100, 130), (300, 128, 259)])
 def test_wy_apply_matches_pallas_interpret(rng, m, b, n):
     Y = rng.standard_normal((m, b)).astype(np.float32) * 0.1
     T = np.triu(rng.standard_normal((b, b))).astype(np.float32) * 0.1
@@ -114,7 +120,8 @@ def test_wy_apply_strided_window(rng):
         close(got[p], jref.wy_apply(*[jnp.asarray(x) for x in (Y[p], T[p], A[p, :, 7:])]))
 
 
-@pytest.mark.parametrize("b,n", [(16, 40), (32, 128), (5, 11)])
+@pytest.mark.parametrize("b,n", [(16, 40), (32, 128), (5, 11), (4, 1),
+                                 (33, 70), (100, 259), (128, 130)])
 def test_stacked_apply_matches_pallas_interpret(rng, b, n):
     Y2 = np.triu(rng.standard_normal((b, b))).astype(np.float32) * 0.1
     T = np.triu(rng.standard_normal((b, b))).astype(np.float32) * 0.1
@@ -124,6 +131,23 @@ def test_stacked_apply_matches_pallas_interpret(rng, b, n):
     got = ops.stacked_apply(t(Y2), t(T), t(Ct), t(Cb))
     close(got, jstacked.stacked_apply(*args, block_n=32, interpret=True))
     close(tstacked.stacked_apply_plain(t(Y2), t(T), t(Ct), t(Cb)), jref.stacked_apply(*args))
+
+
+@pytest.mark.parametrize("P,n,bn", [(8, 4096, 128), (8, 2048, 64),
+                                    (8, 512, 32), (1, 4096, 32),
+                                    (8, 128, 32), (132, 1, 128)])
+def test_tile_bn_fills_the_card(P, n, bn):
+    """K2/K4's column tile: the widest whose (lane, tile) grid gives each of
+    132 SMs a block (the tall sweep's first panel, a late panel, a
+    one-lane REBUILD replay)."""
+    assert backend.tile_bn(P, n, 132) == bn
+
+
+def test_launch_bn_checks_a_given_tile():
+    x = torch.zeros(1)
+    assert backend.launch_bn(8, 4096, x, 64) == 64
+    with pytest.raises(ValueError):
+        backend.launch_bn(8, 4096, x, 48)
 
 
 def test_cpu_tensors_run_the_plain_engine(rng):
