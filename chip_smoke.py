@@ -13,10 +13,14 @@ non-zero and prints no result):
    kernels doing the same work (K5: K1+K2; K6: the stepped panel); the
    check that one lane of a P-lane launch equals a launch of it alone
    (K1-K5); K2 and K4 also at a late panel (w = 512) and on one lane (the
-   REBUILD replay), bit-equal at two column tiles, and timed on the device
-   alone (torch.profiler) beside the events' time, which for a short
-   kernel includes the host's time to issue it; each kernel's registers
-   and spills from its build log; one JSON line per kernel.
+   REBUILD replay), bit-equal at two column tiles, and K1 on one lane (the
+   REBUILD replay) and at the last panel's row start (rs = 3968) beside
+   ``torch.geqrf`` on the same rows, all timed on the device alone
+   (torch.profiler) beside the events' time, which for a short kernel
+   includes the host's time to issue it; each kernel's registers and
+   spills from its build log; one JSON line per kernel, and one with K1's
+   team (its size, shared memory, and how many teams the card holds at
+   once, from cudaOccupancyMaxActiveClusters).
 3. sweep: the windowed FT-CAQR sweep of a 32768 x 4096 f32 matrix over
    P = 8 lanes at panel width 128 (32 panels, 3 butterfly levels), with
    the launch counters at 0 before it; checks that K1-K4 ran, that R is
@@ -68,6 +72,7 @@ from repro_torch.core.lstsq import caqr_lstsq  # noqa: E402
 from repro_torch.ft import FailureSchedule, ft_caqr_sweep, sweep_point  # noqa: E402
 from repro_torch.ft.online import state as sm  # noqa: E402
 from repro_torch.kernels import backend, build, ops, ref  # noqa: E402
+from repro_torch.kernels import panel_qr as tpq  # noqa: E402
 from repro_torch.kernels import stacked_qr as tsa  # noqa: E402
 from repro_torch.kernels import wy_apply as twy  # noqa: E402
 
@@ -204,6 +209,51 @@ def ptxas(source: str, kernel: str) -> dict:
     return out
 
 
+def leaf_cost(P, m, b, rs):
+    """(FLOPs, bytes) of K1 on P panels whose column loops start at row rs:
+    3 m' b^2 - b^3 / 3 a lane over the m' = m - rs rows the loop touches;
+    those rows read, Y (m x b), T and R written once."""
+    ma = m - rs
+    return (P * (3.0 * ma * b * b - b ** 3 / 3.0),
+            4.0 * P * (ma * b + m * b + 2 * b * b))
+
+
+def k1_record(panel: torch.Tensor, rs: int, reps: int) -> dict:
+    """K1 on one lane's (m x b) panel at row start rs, beside the plain
+    version and ``torch.geqrf`` of the rows the column loop touches."""
+    m, b = panel.shape
+    run = lambda: ops.panel_qr(panel, rs)  # noqa: E731
+    active = panel[rs:].contiguous()
+    lib = lambda: torch.geqrf(active)  # noqa: E731
+    err, scaled = max_err(run(), ref.panel_qr(panel, rs))
+    check(scaled <= ref.tolerances(torch.float32)[0],
+          f"panel_qr: scaled error {scaled} at rs = {rs}")
+    bms, by = bound_ms(*leaf_cost(1, m, b, rs))
+    return dict(shape=[m, b], row_start=rs, team=backend.team_blocks(m, b),
+                max_abs_err=err, scaled_err=scaled, ms=time_ms(run, reps),
+                device_ms=device_ms(run, reps), bound_ms=bms, bound_by=by,
+                library_ms=time_ms(lib, reps),
+                library_device_ms=device_ms(lib, reps),
+                library_shape=list(active.shape))
+
+
+def team_record() -> dict:
+    """K1's lane team at the tall and square cells' panels: its size,
+    shared memory a block, and how many teams the card holds at once; the
+    registers and spills of K1, K5 and K6 from their build logs."""
+    out = {}
+    for cell, m in (("tall", M_LOC), ("square", N // P)):
+        C = backend.team_blocks(m, B)
+        out[cell] = dict(m=m, b=B, team=C,
+                         slab_in_smem=backend.team_slab_in_smem(m, B, C),
+                         smem_bytes=tpq.smem_bytes(m, B, C),
+                         max_active_clusters=tpq.max_active_clusters(m, B))
+    out["ptxas"] = {**ptxas(KERNELS["panel_qr"][0], "panel_qr_kernel"),
+                    **ptxas(KERNELS["fused_panel"][0], "panel_qr_apply_kernel"),
+                    **ptxas(KERNELS["fused_panel"][0], "fused_panel_kernel")}
+    return out
+
+
 def shape_record(op: str, args: tuple, cost: tuple, lib, reps: int) -> dict:
     """One kernel at other shapes than the first panel's: time, bound,
     library time and error against the plain version."""
@@ -217,7 +267,7 @@ def shape_record(op: str, args: tuple, cost: tuple, lib, reps: int) -> dict:
     C = args[2]
     P = C.shape[0] if C.dim() == 3 else 1
     return dict(shapes=[list(a.shape) for a in args], bn=backend.tile_bn(
-        P, C.shape[-1], torch.cuda.get_device_properties(0).multi_processor_count),
+        P, C.shape[-1], backend.sm_count(0)),
         max_abs_err=err, scaled_err=scaled, ms=time_ms(lambda: run(*args), reps),
         device_ms=device_ms(lambda: run(*args), reps),
         bound_ms=bms, bound_by=by, library_ms=time_ms(lambda: lib(*args), reps),
@@ -237,10 +287,10 @@ def kernel_phase(A: torch.Tensor) -> list:
     Y, T, R = ops.panel_qr(panel, 0)
     leaf_flops = 3.0 * M_LOC * B * B - B ** 3 / 3.0
     apply_flops = 4.0 * M_LOC * B * N + B * B * N
+    flops, nbytes = leaf_cost(P, M_LOC, B, 0)
     cases["panel_qr"] = dict(
         run=lambda: ops.panel_qr(panel, 0), plain=lambda: ref.panel_qr(panel, 0),
-        lib=lambda: torch.geqrf(panel), flops=P * leaf_flops,
-        nbytes=f * P * (2 * M_LOC * B + 2 * B * B), reps=5)
+        lib=lambda: torch.geqrf(panel), flops=flops, nbytes=nbytes, reps=20)
     flops, nbytes = wy_cost(P, M_LOC, B, N)
     cases["wy_apply"] = dict(
         run=lambda: ops.wy_apply(Y, T, C), plain=lambda: ref.wy_apply(Y, T, C),
@@ -323,6 +373,9 @@ def kernel_phase(A: torch.Tensor) -> list:
     late = N - LATE_W
     Ctl, Cbl = Ct[..., :LATE_W].contiguous(), Cb[..., :LATE_W].contiguous()
     other_shapes = {
+        "panel_qr": {
+            "one_lane": k1_record(panel[k], 0, 20),
+            "late_panel": k1_record(panel[0], M_LOC - B, 50)},
         "wy_apply": {
             "late_panel": shape_record("wy_apply", (Y, T, A[..., late:]),
                                        wy_cost(P, M_LOC, B, LATE_W), wy_library, 20),
@@ -361,9 +414,9 @@ def kernel_phase(A: torch.Tensor) -> list:
         if name in other_shapes:
             rec["device_ms"] = device_ms(c["run"], c["reps"])
             rec["library_device_ms"] = device_ms(c["lib"], c["reps"])
-            rec["bn"] = backend.tile_bn(
-                P, N, torch.cuda.get_device_properties(0).multi_processor_count)
-            rec["bn_bitwise"] = bn_bitwise[name]
+            if name in bn_bitwise:
+                rec["bn"] = backend.tile_bn(P, N, backend.sm_count(0))
+                rec["bn_bitwise"] = bn_bitwise[name]
             rec.update(other_shapes[name])
         rec["ptxas"] = ptxas(source, name + "_kernel")
         emit({"kernel": rec})
@@ -659,6 +712,7 @@ def main() -> int:
 
     rng = np.random.default_rng(args.seed)
     A = block_row_layout(rng.standard_normal((P * M_LOC, N)).astype(np.float32), P)
+    emit({"team": team_record()})
     records = kernel_phase(A)
     launches, sweep_seconds, res = sweep_phase(A, rng)
     want = flat_result(res)

@@ -7,8 +7,10 @@
 //
 // One cooperative launch of a persistent grid (as many 512-thread blocks as
 // fit on the card at once), phases separated by grid-wide barriers:
-//   1. leaf: masked panel QR of each lane (K1's body, one block per lane);
-//      inactive (consumed) lanes get zero Y, T, R;
+//   1. leaf: masked panel QR of each lane on a team of C consecutive
+//      blocks (K1's body, team_qr, with the same C as K1; lanes beyond the
+//      teams that fit run in waves); inactive (consumed) lanes get zero
+//      Y, T, R;
 //   2. (K6 only) L butterfly levels: each lane reads its buddy's R from
 //      global memory, stacks the pair and QRs it (K3's body), or passes
 //      through under the group-activity masks of core/tsqr.py;
@@ -20,9 +22,15 @@
 // K5 is phases 1 and 3 with no lane masks.
 //
 // Fused == stepped, bit for bit: every element is computed by the same
-// device functions as K1-K4 (qr_common.cuh) in the same order. Phases 1-2
-// run masked_qr at 512 threads, as K1 and K3 do, whose sums depend on the
-// thread layout. Phases 3-4 run two independent 256-thread tiles per block
+// device functions as K1-K4 (qr_common.cuh) in the same order. Phase 1
+// runs team_qr at 512 threads and team size C, as K1 does; its teams
+// exchange their partial sums through global memory behind a per-team
+// barrier (GlobalExchange) where K1 uses a cluster's distributed shared
+// memory, and sum them in the same rank order. (A cooperative launch with
+// clusters of 16 is refused on the H100: it holds 7 such clusters, not
+// the 8 a grid of 128 blocks needs.) Phase 2 runs masked_qr at 512
+// threads, as K3 does, whose sums depend on the thread layout. Phases 3-4
+// run two independent 256-thread tiles per block
 // (each with its own shared memory and its own named barrier) through the
 // register-tiled body of K2 and K4, whose every output element is one
 // sequential fmaf chain in index order: what keeps the bits there is that
@@ -31,20 +39,19 @@
 // consumed lanes, stacked QR of dead groups) is skipped; the selected
 // values are the same.
 //
-// What bounds it on the H100: the same as K1-K4 (the leaf's column loop on
-// one block per lane, then FP32 FFMA in the apply). The design keeps all
-// intermediates in global memory (L2 at these sizes) and uses one
-// 512-thread block per SM (the leaf tile needs 140 KB of shared memory at
-// m = 4096, two BN = 128 tiles 224 KB), so each SM runs two apply tiles at
-// a time, as the stepped K2 and K4 do at BN = 128.
-#include <cooperative_groups.h>
-
+// What bounds it on the H100: the same as K1-K4 (the leaf's column loop,
+// then FP32 FFMA in the apply). The design keeps all intermediates in
+// global memory (L2 at these sizes) and uses one 512-thread block per SM
+// (a leaf team block needs 171 KB of shared memory at m = 4096, two
+// BN = 128 tiles 192 KB), so each SM runs two apply tiles at a time, as
+// the stepped K2 and K4 do at BN = 128. The grid holds at least P * C
+// blocks where the card has room, so the leaf runs every lane's team at
+// once.
 #include <cstdint>
 #include <initializer_list>
 
 #include "qr_common.cuh"
 
-namespace cg = cooperative_groups;
 using namespace repro;
 
 static_assert(QR_THREADS == 2 * TILE_THREADS, "two apply tiles per block");
@@ -57,6 +64,8 @@ struct FusedArgs {
   int P, m, w, b, L, t_lane;
   int bn;     // column tile of phases 3-4: 32, 64 or 128
   bool vec;   // 16-byte accesses allowed in phases 3-4
+  int C;      // leaf team size, team_blocks(m, b)
+  bool slab_in_smem;  // the leaf slabs fit in shared memory
   float* leaf_Y;    // (P, m, b)
   float* leaf_T;    // (P, b, b)
   float* R_leaf;    // (P, b, b)
@@ -68,7 +77,9 @@ struct FusedArgs {
   float* Ws;        // (L, P, b, w)        K6 only
   float* Cs_self;   // (L, P, b, w)        K6 only
   float* Cs_buddy;  // (L, P, b, w)        K6 only
-  float* work;      // scratch (P, m, b)
+  float* work;      // scratch: P * C slabs when not in shared memory
+  float* xch;       // scratch: each leaf block's exchange slots
+  unsigned* arrivals;  // scratch: each team's barrier counter, zeroed
   float* stack;     // scratch (P, 2b, b)  K6 only
   float* Yw;        // scratch (P, 2b, b)  K6 only
   float* Rtmp;      // scratch (L - 1, P, b, b), K6 only
@@ -79,19 +90,36 @@ __device__ inline bool lane_active(const FusedArgs& a, int p) {
   return a.active == nullptr || a.active[p] != 0;
 }
 
-// Phase 1: the masked leaf QR of every lane.
+// Phase 1: the masked leaf QR of every lane, lane p on team p % teams.
 __device__ void leaf_phase(const FusedArgs& a, float* smem) {
   const size_t mb = (size_t)a.m * a.b, bb = (size_t)a.b * a.b;
-  for (int p = blockIdx.x; p < a.P; p += gridDim.x) {
+  const int teams = gridDim.x / a.C, team = blockIdx.x / a.C;
+  const int rank = blockIdx.x % a.C;
+  if (team >= teams) return;  // blocks past the last whole team
+  GlobalExchange ex{smem, a.xch + (size_t)team * team_slots_floats(a.b), a.b,
+                    a.C, rank, a.arrivals + team, 0u};
+  const size_t slab = (size_t)team_cols(a.b) * team_ld(team_rows(a.m, a.C));
+  for (int p = team; p < a.P; p += teams) {
     float* Y = a.leaf_Y + p * mb;
     float* T = a.leaf_T + p * bb;
     float* R = a.R_leaf + p * bb;
     if (lane_active(a, p)) {
-      panel_qr_lane(a.win + p * a.w_bs, a.w_ld, Y, T, R, a.work + p * mb, a.m,
-                    a.b, a.rs[p], smem);
-    } else {
-      for (size_t e = threadIdx.x; e < mb; e += QR_THREADS) Y[e] = 0.f;
-      for (size_t e = threadIdx.x; e < bb; e += QR_THREADS) T[e] = R[e] = 0.f;
+      const float* W = a.win + p * a.w_bs;
+      if (a.slab_in_smem) {
+        team_qr<true>(W, a.w_ld, Y, T, R, a.m, a.b, a.rs[p], a.C, rank,
+                      nullptr, smem, ex);
+      } else {
+        team_qr<false>(W, a.w_ld, Y, T, R, a.m, a.b, a.rs[p], a.C, rank,
+                       a.work + ((size_t)p * a.C + rank) * slab, smem, ex);
+      }
+    } else {  // every rank zeroes its rows of Y; rank 0 T and R
+      const int rows = team_rows(a.m, a.C);
+      const int lo = min(rank * rows, a.m), hi = min(lo + rows, a.m);
+      for (size_t e = (size_t)lo * a.b + threadIdx.x; e < (size_t)hi * a.b;
+           e += QR_THREADS)
+        Y[e] = 0.f;
+      if (rank == 0)
+        for (size_t e = threadIdx.x; e < bb; e += QR_THREADS) T[e] = R[e] = 0.f;
     }
   }
 }
@@ -233,7 +261,8 @@ fused_panel_kernel(FusedArgs a) {
 }
 
 static size_t fused_smem_bytes(int m, int b, int bn) {
-  size_t f = qr_smem_floats(m, b);
+  const int C = team_blocks(m, b);
+  size_t f = team_smem_floats(m, b, C, team_slab_in_smem(m, b, C));
   f = f > qr_smem_floats(2 * b, b) ? f : qr_smem_floats(2 * b, b);
   const size_t tiles = 2 * (size_t)tile_smem_floats(bn);
   f = f > tiles ? f : tiles;
@@ -250,10 +279,27 @@ static bool aligned16(std::initializer_list<const void*> ptrs) {
   return true;
 }
 
+// Floats of leaf scratch (the global slabs) a lane needs: 0 when the slabs
+// fit in shared memory.
+extern "C" size_t fused_sweep_work_floats(int m, int b, int C) {
+  return team_slab_in_smem(m, b, C) ? 0 : team_work_floats(m, b, C);
+}
+
+// Floats of exchange scratch for a grid of at most `blocks` blocks in teams
+// of C (a team's slots each).
+extern "C" size_t fused_sweep_xch_floats(int b, int C, int blocks) {
+  return (size_t)(blocks + C - 1) / C * team_slots_floats(b);
+}
+
 // One cooperative launch of `kernel` on a persistent grid: as many blocks as
-// fit on the card at once, but no more than the largest phase has work for.
-static int launch(const void* kernel, FusedArgs& a, void* stream) {
+// fit on the card at once, but no more than the largest phase has work for
+// (the leaf's P teams of C blocks, or a block per two apply tiles). The
+// exchange scratch holds xch_blocks blocks' slots and as many counters.
+static int launch(const void* kernel, FusedArgs& a, int xch_blocks,
+                  void* stream) {
   if (a.bn != 32 && a.bn != 64 && a.bn != 128) return (int)cudaErrorInvalidValue;
+  if (a.C != team_blocks(a.m, a.b)) return (int)cudaErrorInvalidValue;
+  a.slab_in_smem = team_slab_in_smem(a.m, a.b, a.C);
   a.vec = aligned16({a.win, a.leaf_Y, a.leaf_T, a.C_local, a.C_prime,
                      a.level_Y2, a.level_T, a.Ws, a.Cs_self, a.sink}) &&
           a.b % 4 == 0 && a.w % 4 == 0 && a.w_bs % 4 == 0 && a.w_ld % 4 == 0;
@@ -270,8 +316,12 @@ static int launch(const void* kernel, FusedArgs& a, void* stream) {
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   const int tiles = a.P * ((a.w + a.bn - 1) / a.bn);
-  int grid = (tiles + 1) / 2 > a.P ? (tiles + 1) / 2 : a.P;
+  int grid = (tiles + 1) / 2 > a.P * a.C ? (tiles + 1) / 2 : a.P * a.C;
   if (grid > per_sm * sms) grid = per_sm * sms;
+  if (grid < a.C || grid > xch_blocks) return (int)cudaErrorInvalidValue;
+  err = cudaMemsetAsync(a.arrivals, 0, (size_t)grid * sizeof(unsigned),
+                        (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   void* args[] = {&a};
   err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(QR_THREADS), args,
                                     smem, (cudaStream_t)stream);
@@ -280,13 +330,17 @@ static int launch(const void* kernel, FusedArgs& a, void* stream) {
 }
 
 // K5. W: P windows (m x w), lane stride w_bs and row stride w_ld in floats,
-// unit column stride; rs: P int32 row starts (device). Y, work: P*m*b;
-// T, R: P*b*b; C: P*m*w; Cp: P*b*w floats, all contiguous. bn: the column
-// tile of the apply phase, 32, 64 or 128.
+// unit column stride; rs: P int32 row starts (device). Y: P*m*b; T, R:
+// P*b*b; C: P*m*w; Cp: P*b*w floats, all contiguous. bn: the column tile of
+// the apply phase, 32, 64 or 128; team: the leaf team size,
+// team_blocks(m, b). Scratch: work P * fused_sweep_work_floats; xch
+// fused_sweep_xch_floats(b, xch_blocks) floats and arrivals xch_blocks
+// unsigned, where xch_blocks is at least the grid (the card's SMs do).
 extern "C" int panel_qr_apply_f32(const void* W, long long w_bs, long long w_ld,
                                   const void* rs, void* Y, void* T, void* R,
-                                  void* C, void* Cp, void* work, int P, int m,
-                                  int w, int b, int bn, void* stream) {
+                                  void* C, void* Cp, void* work, void* xch,
+                                  void* arrivals, int xch_blocks, int P, int m,
+                                  int w, int b, int bn, int team, void* stream) {
   FusedArgs a{};
   a.win = (const float*)W;
   a.w_bs = w_bs;
@@ -294,23 +348,27 @@ extern "C" int panel_qr_apply_f32(const void* W, long long w_bs, long long w_ld,
   a.rs = (const int*)rs;
   a.active = nullptr;
   a.P = P, a.m = m, a.w = w, a.b = b, a.L = 0, a.t_lane = 0, a.bn = bn;
+  a.C = team;
   a.leaf_Y = (float*)Y, a.leaf_T = (float*)T, a.R_leaf = (float*)R;
   a.C_local = (float*)C, a.C_prime = (float*)Cp, a.work = (float*)work;
-  return launch((const void*)panel_qr_apply_kernel, a, stream);
+  a.xch = (float*)xch, a.arrivals = (unsigned*)arrivals;
+  return launch((const void*)panel_qr_apply_kernel, a, xch_blocks, stream);
 }
 
 // K6. W, rs as for K5; active: P uint8 lane flags (device); L >= 1 levels
 // over P = 2^L lanes rooted at t_lane. Outputs as in FusedArgs, all
-// contiguous; scratch: work P*m*b, stack and Yw P*2b*b, Rtmp (L-1)*P*b*b,
-// sink b*w. bn: the column tile of phases 3-4, 32, 64 or 128.
+// contiguous; scratch: work, xch and arrivals as for K5, stack and Yw
+// P*2b*b, Rtmp (L-1)*P*b*b, sink b*w. bn: the column tile of phases 3-4,
+// 32, 64 or 128; team: the leaf team size, team_blocks(m, b).
 extern "C" int fused_panel_f32(const void* W, long long w_bs, long long w_ld,
                                const void* rs, const void* active, int P, int m,
                                int w, int b, int L, int t_lane, int bn,
-                               void* leaf_Y,
+                               int team, int xch_blocks, void* leaf_Y,
                                void* leaf_T, void* R_leaf, void* R_carry,
                                void* level_Y2, void* level_T, void* C_local,
                                void* C_prime, void* Ws, void* Cs_self,
-                               void* Cs_buddy, void* work, void* stack, void* Yw,
+                               void* Cs_buddy, void* work, void* xch,
+                               void* arrivals, void* stack, void* Yw,
                                void* Rtmp, void* sink, void* stream) {
   FusedArgs a{};
   a.win = (const float*)W;
@@ -319,12 +377,14 @@ extern "C" int fused_panel_f32(const void* W, long long w_bs, long long w_ld,
   a.rs = (const int*)rs;
   a.active = (const unsigned char*)active;
   a.P = P, a.m = m, a.w = w, a.b = b, a.L = L, a.t_lane = t_lane, a.bn = bn;
+  a.C = team;
   a.leaf_Y = (float*)leaf_Y, a.leaf_T = (float*)leaf_T;
   a.R_leaf = (float*)R_leaf, a.R_carry = (float*)R_carry;
   a.level_Y2 = (float*)level_Y2, a.level_T = (float*)level_T;
   a.C_local = (float*)C_local, a.C_prime = (float*)C_prime;
   a.Ws = (float*)Ws, a.Cs_self = (float*)Cs_self, a.Cs_buddy = (float*)Cs_buddy;
   a.work = (float*)work, a.stack = (float*)stack, a.Yw = (float*)Yw;
+  a.xch = (float*)xch, a.arrivals = (unsigned*)arrivals;
   a.Rtmp = (float*)Rtmp, a.sink = (float*)sink;
-  return launch((const void*)fused_panel_kernel, a, stream);
+  return launch((const void*)fused_panel_kernel, a, xch_blocks, stream);
 }

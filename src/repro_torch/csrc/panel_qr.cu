@@ -1,8 +1,9 @@
-// K1: masked Householder panel QR with compact-WY output, one lane per
-// thread block.
+// K1: masked Householder panel QR with compact-WY output, a team of C
+// thread blocks per lane.
 //
 // Replaces the TPU kernel src/repro/kernels/panel_qr.py::panel_qr (body
-// panel_qr_math), the leaf of every panel of the FT-CAQR sweep.
+// panel_qr_math), the leaf of every panel of the FT-CAQR sweep and of
+// every REBUILD replay.
 //
 // What bounds it on the H100: the column loop. Each of the b columns needs
 // a norm, a product w = v^T A and a rank-1 update over the (m x b) tile,
@@ -10,44 +11,105 @@
 // floating-point work (about 3 m b^2 operations per lane) would take the
 // card's FP32 pipes microseconds.
 //
-// The simple design: one block of 512 threads per lane (the lane axis is
-// the grid). The block first copies its (possibly strided) panel into a
-// contiguous scratch tile in global memory: at m = 4096, b = 128 a tile is
-// 2 MiB, too large for shared memory, but 8 lanes of it stay in the 50 MB
-// L2. Shared memory holds the current reflector, the partial sums and, at
-// the end, G = Y^T Y and T. No tensor cores: the sums run as IEEE FP32
-// FFMA, since TF32 would not meet the 3e-4 tolerance.
+// The design (team_qr in qr_common.cuh): each lane runs on a thread-block
+// cluster of C = team_blocks(m, b) blocks of 512 threads, each holding one
+// slab of ceil(m / C) rows column-major in its shared memory (at m = 4096,
+// b = 128: 16 blocks of 256 rows, 135 KB each with two scratch columns),
+// so the column loop's passes read shared memory instead of a 2 MiB tile
+// in L2, on 16 SMs per lane instead of 1. The blocks exchange their
+// partial sums through distributed shared memory behind one cluster
+// barrier a column and sum them in rank order, so every block holds the
+// same bits. A panel whose slab does not fit even at C = 16 keeps it in
+// the global scratch `work`. The H100 holds 7 clusters of 16 blocks at
+// once at that shared memory, so 8 lanes of 4096 x 128 run in two waves.
+// No tensor cores: the sums run as IEEE FP32 FFMA, since TF32 would not
+// meet the 3e-4 tolerance.
 #include "qr_common.cuh"
 
 using namespace repro;
 
-__global__ void __launch_bounds__(QR_THREADS)
+__global__ void __launch_bounds__(QR_THREADS, 1)
 panel_qr_kernel(const float* __restrict__ A, long long a_bs, long long a_ld,
                 const int* __restrict__ rs, float* Y, float* T, float* R,
-                float* work, int m, int b) {
-  extern __shared__ float smem[];
-  const int p = blockIdx.x;
-  panel_qr_lane(A + p * a_bs, a_ld, Y + (size_t)p * m * b,
-                T + (size_t)p * b * b, R + (size_t)p * b * b,
-                work + (size_t)p * m * b, m, b, rs[p], smem);
+                float* work, int m, int b, int C, int slab_in_smem) {
+  extern __shared__ __align__(16) float smem[];
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int p = blockIdx.x / C;
+  const TeamSmem sm(smem, m, b, C, slab_in_smem);
+  ClusterExchange ex{sm.slots, b, C, rank};
+  A += p * a_bs, Y += (size_t)p * m * b, T += (size_t)p * b * b;
+  R += (size_t)p * b * b;
+  if (slab_in_smem) {
+    team_qr<true>(A, a_ld, Y, T, R, m, b, rs[p], C, rank, nullptr, smem, ex);
+  } else {
+    float* slab = work + ((size_t)p * C + rank) * team_cols(b) *
+                             team_ld(team_rows(m, C));
+    team_qr<false>(A, a_ld, Y, T, R, m, b, rs[p], C, rank, slab, smem, ex);
+  }
 }
 
-extern "C" size_t panel_qr_smem_bytes(int m, int b) {
-  return qr_smem_floats(m, b) * sizeof(float);
+extern "C" size_t panel_qr_smem_bytes(int m, int b, int C) {
+  return team_smem_floats(m, b, C, team_slab_in_smem(m, b, C)) * sizeof(float);
+}
+
+// Floats of global scratch a lane needs (0 when the slabs are in shared
+// memory).
+extern "C" size_t panel_qr_work_floats(int m, int b, int C) {
+  return team_slab_in_smem(m, b, C) ? 0 : team_work_floats(m, b, C);
+}
+
+// The launch of P lanes on teams of C: grid P * C, clusters of C.
+static cudaError_t configure(int P, int m, int b, int C, cudaStream_t stream,
+                             cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  if (C < 1 || C > TEAM_MAX || (C & (C - 1)) != 0) return cudaErrorInvalidValue;
+  const size_t smem = panel_qr_smem_bytes(m, b, C);
+  cudaError_t err = cudaFuncSetAttribute(
+      panel_qr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(panel_qr_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(P * C);
+  cfg->blockDim = dim3(QR_THREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// How many clusters of C blocks of K1 the card holds at once at the shared
+// memory an (m x b) panel needs (cudaOccupancyMaxActiveClusters).
+extern "C" int panel_qr_max_clusters(int m, int b, int C, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = configure(C, m, b, C, nullptr, &cfg, &attr);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveClusters(out, panel_qr_kernel, &cfg);
 }
 
 // A: P panels (m x b), lane stride a_bs and row stride a_ld in floats,
-// unit column stride. rs: P int32 row starts (device). Y, work: P*m*b
-// floats; T, R: P*b*b floats.
+// unit column stride. rs: P int32 row starts (device). Y: P*m*b floats;
+// T, R: P*b*b; work: P * panel_qr_work_floats(m, b, C). C: the team size,
+// team_blocks(m, b) (checked).
 extern "C" int panel_qr_f32(const void* A, long long a_bs, long long a_ld,
                             const void* rs, void* Y, void* T, void* R,
-                            void* work, int P, int m, int b, void* stream) {
-  const size_t smem = panel_qr_smem_bytes(m, b);
-  cudaError_t err = cudaFuncSetAttribute(
-      panel_qr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                            void* work, int P, int m, int b, int C,
+                            void* stream) {
+  if (C != team_blocks(m, b)) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = configure(P, m, b, C, (cudaStream_t)stream, &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
-  panel_qr_kernel<<<P, QR_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)A, a_bs, a_ld, (const int*)rs, (float*)Y, (float*)T,
-      (float*)R, (float*)work, m, b);
+  err = cudaLaunchKernelEx(&cfg, panel_qr_kernel, (const float*)A, a_bs, a_ld,
+                           (const int*)rs, (float*)Y, (float*)T, (float*)R,
+                           (float*)work, m, b, C,
+                           (int)team_slab_in_smem(m, b, C));
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -1,29 +1,35 @@
-// Shared device code of the port's kernels: a masked Householder QR of one
-// (m x b) tile run by one thread block, with the compact-WY T factor, and
-// the per-lane / per-tile bodies of K1 (panel_qr_lane), K2 (wy_apply_tile),
-// K3 (stacked_qr_lane) and K4 (stacked_apply_tile). The kernels K1-K4 and
-// the fused K5/K6 (fused_sweep.cu) all call these bodies, so the fused
-// kernels compute every element by the same operations in the same order
-// as the stepped ones, which the fused == stepped bitwise contract needs.
+// Shared device code of the port's kernels: K1's lane team (team_qr: a
+// masked Householder QR of one (m x b) panel on C blocks, with the
+// compact-WY T factor), a masked QR of one tile by one block (masked_qr,
+// K3's stacked_qr_lane), and the per-tile bodies of K2 (wy_apply_tile) and
+// K4 (stacked_apply_tile). The kernels K1-K4 and the fused K5/K6
+// (fused_sweep.cu) all call these bodies, so the fused kernels compute
+// every element by the same operations in the same order as the stepped
+// ones, which the fused == stepped bitwise contract needs.
 //
 // The QR arithmetic follows src/repro/kernels/panel_qr.py::panel_qr_math:
 // column j pivots at row_start + j; rows above the pivot are neither read
 // nor written; beta = -sign(x0)*||x|| with sign(0) = +1; a column with
-// ||x|| <= 1e-30 gives tau = 0 and v = e_pivot; the rank-1 update spans
-// the full tile width; T comes from the forward recurrence over G = Y^T Y.
+// ||x|| <= 1e-30 gives tau = 0 and v = e_pivot; T comes from the forward
+// recurrence over G = Y^T Y (team_qr's applied by 32-column blocks).
+// masked_qr's rank-1 update spans the full tile width; team_qr's spans
+// only the columns right of the pivot's (see there).
 //
 // Determinism: every sum runs in a fixed order (in the QR, per-thread
-// partials over a fixed row assignment, then a fixed tree; in the K2/K4
-// tiles, one sequential chain per element, see their section below);
-// there are no atomics, and no sum depends on the block index. So a tile
-// gives the same bits in any lane of any launch, which the FT butterfly
-// and recovery rely on.
+// partials over a fixed row assignment, then a fixed tree, and across a
+// team in rank order; in the K2/K4 tiles, one sequential chain per
+// element, see their section below); there are no atomics, and no sum
+// depends on the lane or the launch size. So a lane gives the same bits in
+// any launch, which the FT butterfly and recovery rely on.
 #pragma once
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "async_copy.cuh"
 
 namespace repro {
+
+namespace cg = cooperative_groups;
 
 constexpr int QR_THREADS = 512;
 constexpr int QR_MAX_B = 128;
@@ -206,15 +212,490 @@ __device__ inline void masked_qr(float* W, float* Y, float* T, float* R,
   __syncthreads();
 }
 
-// K1's body for one lane: copy the (possibly strided, row stride a_ld)
-// panel into the contiguous scratch tile Wp, then masked_qr.
-__device__ inline void panel_qr_lane(const float* Ap, long long a_ld, float* Y,
-                                     float* T, float* R, float* Wp, int m, int b,
-                                     int rs, float* smem) {
-  for (int e = threadIdx.x; e < m * b; e += QR_THREADS)
-    Wp[e] = Ap[(size_t)(e / b) * a_ld + e % b];
+// -- K1's body: the lane team ------------------------------------------------
+//
+// K1 (src/repro/kernels/panel_qr.py::panel_qr) runs each lane's (m x b)
+// panel on a team of C blocks, each owning one slab of ceil(m / C)
+// consecutive rows. A slab sits in the block's shared memory, column-major
+// (a column's rows are consecutive, so a thread reads four rows of a column
+// as one 16-byte access), with two more columns of per-row scratch; a slab
+// too large for shared memory even at C = TEAM_MAX sits in global scratch
+// with the same layout, reached through the same float*, so which memory
+// holds it changes no bit. C is a function of (m, b) alone (team_blocks;
+// the Python wrappers compute it by the same rule and pass it to every
+// launch), so a one-lane REBUILD launch gives a lane the bits it has in an
+// 8-lane launch, and K1, K5 and K6 agree.
+//
+// One team barrier a column. Column j, pivot p = rs + j (rows above p are
+// frozen), x = A[:, j]; the reflector is v = e_p + x_below / denom, so
+//   w_c = v^T A[:, c] = A[p, c] + (sum_{i > p} x_i A[i, c]) / denom,
+// and a block can form its share of every such sum, and of ||x||^2, before
+// the norm (and so denom) is known. Each block therefore sends, per column,
+// its partial sum of x_i^2 over its rows at and below p, its partial sums
+// y_c = sum over its rows i > p of x_i A[i, c] for every c != j, and, from
+// the block that holds row p, that row. After the barrier every block sums
+// the C partials in rank order 0..C-1 (so all hold the same bits) and
+// forms beta, tau, denom, and w_c for c > j, and G[c, j] = Y_c^T v for
+// c < j, where A[:, c] holds v_c (G = Y^T Y comes out of the loop, as
+// LAPACK's larft forms it). It writes v over its rows of column j, with
+// tau v_i and the updated column j + 1 beside the slab, and makes one pass
+// over its rows at and below p: the rank-1 update of the columns c > j
+// (columns c < j would receive updates that no output reads; column j
+// would receive what R's diagonal holds, kept as beta, or x0 for tau = 0)
+// and, from the updated values, column j + 1's sums, which it sends as
+// soon as they are complete. Blocks whose slab lies wholly above the pivot
+// send zeros but take part in every barrier. After the loop each block
+// writes its rows of Y and R; rank 0 forms T from the gathered G
+// (team_t) and writes it.
+//
+// The exchange is a template parameter: K1 pushes each block's sums into
+// every team block's shared memory inside a thread-block cluster
+// (ClusterExchange: distributed shared memory stores, one cluster barrier);
+// the cooperative K5/K6 write them to global memory and, behind a per-team
+// barrier, copy the team's into shared memory (GlobalExchange). Either way
+// every block then reads the same values from its own shared memory and
+// sums them in the same order, so the arithmetic, and every bit, is the
+// same.
+
+constexpr int TEAM_MAX = 16;            // blocks per lane, at most
+constexpr size_t TEAM_SMEM_LIMIT = 232448;  // bytes a block may use (Hopper)
+constexpr int QR_WARPS = QR_THREADS / 32;
+constexpr int TEAM_WARP_COLS = 8;  // columns a warp takes in the pass
+constexpr int TEAM_W_THREADS = QR_MAX_B;  // threads forming w, beside v
+static_assert(QR_WARPS * TEAM_WARP_COLS >= QR_MAX_B, "the pass covers b");
+
+__host__ __device__ inline int team_rows(int m, int C) { return (m + C - 1) / C; }
+
+// Leading dimension of a column-major slab: a multiple of 4 (16-byte
+// column starts), 4 more than a multiple of 8, so that the row-major copies
+// in and out meet at most 4-way bank conflicts.
+__host__ __device__ inline int team_ld(int rows) {
+  const int r4 = (rows + 3) / 4 * 4;
+  return r4 % 8 == 0 ? r4 + 4 : r4;
+}
+
+// Columns of a slab: the b of the panel, then tau v_i and column j + 1's
+// updated values of the current column.
+__host__ __device__ inline int team_cols(int b) { return b + 2; }
+
+// Slots a block sends a column: ||x||^2's partial (0), the pivot row
+// (1 + c), the sums y (1 + b + c); padded to a multiple of 4.
+__host__ __device__ inline int team_xch_floats(int b) { return (2 * b + 4) / 4 * 4; }
+
+// Floats of one team's exchange: two buffers (columns alternate between
+// them) of TEAM_MAX ranks' rows of team_xch_floats(b) slots, so that a
+// warp's stores of consecutive slots to one rank are consecutive.
+__host__ __device__ inline size_t team_slots_floats(int b) {
+  return 2 * (size_t)team_xch_floats(b) * TEAM_MAX;
+}
+
+// Floats of team_t's scratch: G^T, T (b x (b + 1)) and a (b x 32) product.
+__host__ __device__ inline size_t team_t_floats(int b) {
+  return (size_t)b * b + (size_t)b * (b + 1) + (size_t)b * 32;
+}
+
+// Floats of the region after the slots: the slab (when it is in shared
+// memory) and, once the loop is over, team_t's scratch.
+__host__ __device__ inline size_t team_region_floats(int m, int b, int C,
+                                                     bool slab_in_smem) {
+  const size_t slab =
+      slab_in_smem ? (size_t)team_cols(b) * team_ld(team_rows(m, C)) : 0;
+  return slab > team_t_floats(b) ? slab : team_t_floats(b);
+}
+
+// Floats of shared memory the team body needs: the exchange slots it reads
+// (ClusterExchange's team stores into them; GlobalExchange copies them in
+// from global memory), the region, the block's outgoing values, w, the
+// taus, R's diagonal, and the column's denominator, tau and w_{j+1}.
+__host__ __device__ inline size_t team_smem_floats(int m, int b, int C,
+                                                   bool slab_in_smem) {
+  return team_slots_floats(b) + team_region_floats(m, b, C, slab_in_smem) +
+         team_xch_floats(b) + 3 * (size_t)b + 4;
+}
+
+__host__ __device__ inline bool team_slab_in_smem(int m, int b, int C) {
+  return team_smem_floats(m, b, C, true) * sizeof(float) <= TEAM_SMEM_LIMIT;
+}
+
+// The team size for an (m x b) panel: the smallest power of two up to
+// TEAM_MAX whose slab fits in shared memory beside the other buffers, else
+// TEAM_MAX (the slab then lives in global scratch). Mirrored by
+// repro_torch.kernels.backend.team_blocks.
+__host__ __device__ inline int team_blocks(int m, int b) {
+  for (int C = 1; C < TEAM_MAX; C *= 2)
+    if (team_slab_in_smem(m, b, C)) return C;
+  return TEAM_MAX;
+}
+
+// Floats of global scratch a lane needs when its slabs are not in shared
+// memory: C slabs of team_cols(b) x team_ld(rows).
+__host__ __device__ inline size_t team_work_floats(int m, int b, int C) {
+  return (size_t)C * team_cols(b) * team_ld(team_rows(m, C));
+}
+
+// Where rank r's value of slot i of buffer par sits in a team's slots.
+__host__ __device__ inline int team_slot(int b, int par, int i, int r) {
+  return (par * TEAM_MAX + r) * team_xch_floats(b) + i;
+}
+
+// The exchanges keep two buffers of slots, buffer `par` for the columns of
+// parity par: a block sends column j + 1's sums after the barrier of
+// column j, while a slower block may still read column j's, but never
+// column j - 1's (it has passed the barrier that follows them). After
+// sync(par) every block reads buffer par from its own shared memory
+// (`slots`, team_slots_floats(b) floats).
+//
+// The K1 exchange: a block stores its values into its rank's place in
+// every team block's shared memory (distributed shared memory); the
+// cluster barrier orders those stores before the reads.
+struct ClusterExchange {
+  float* slots;
+  int b, C, rank;
+  // value v of slot i into team block r
+  __device__ void put(int par, int i, int r, float v) const {
+    cg::this_cluster().map_shared_rank(slots, r)[team_slot(b, par, i, rank)] = v;
+  }
+  __device__ void sync(int) const { cg::this_cluster().sync(); }
+};
+
+// The K5/K6 exchange: each block stores its values once, into the team's
+// slots in global memory (`team`, team_slots_floats(b) floats); after a
+// barrier on the team's arrival counter (zeroed before the launch) every
+// block copies buffer par into its shared memory through L2. Every block
+// of a cooperative launch is resident, so the spin cannot wait on a block
+// that never runs.
+struct GlobalExchange {
+  float* slots;
+  float* team;
+  int b, C, rank;
+  unsigned* counter;
+  unsigned target;  // arrivals the next barrier waits for
+  __device__ void put(int par, int i, int r, float v) const {
+    if (r == 0) team[team_slot(b, par, i, rank)] = v;
+  }
+  __device__ void sync(int par) {
+    target += C;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      atomicAdd(counter, 1u);
+      while (*(volatile unsigned*)counter < target) {
+      }
+      __threadfence();
+    }
+    __syncthreads();
+    const int n = C * team_xch_floats(b) / 4;  // buffer par's rows 0..C-1
+    const float4* src =
+        reinterpret_cast<const float4*>(team + team_slot(b, par, 0, 0));
+    float4* dst = reinterpret_cast<float4*>(slots + team_slot(b, par, 0, 0));
+    for (int e = threadIdx.x; e < n; e += QR_THREADS) dst[e] = __ldcg(src + e);
+    __syncthreads();
+  }
+};
+
+// Rank r's value of slot i of buffer par, after sync(par).
+__device__ __forceinline__ float team_get(const float* slots, int b, int par,
+                                          int r, int i) {
+  return slots[team_slot(b, par, i, r)];
+}
+
+// Slot i of the C blocks of a team summed in rank order 0..C-1 (the loads
+// issued together).
+__device__ __forceinline__ float rank_sum(const float* slots, int b, int C,
+                                          int par, int i) {
+  float part[TEAM_MAX];
+#pragma unroll
+  for (int r = 0; r < TEAM_MAX; ++r)
+    part[r] = r < C ? team_get(slots, b, par, r, i) : 0.f;
+  float s = 0.f;
+#pragma unroll
+  for (int r = 0; r < TEAM_MAX; ++r)
+    if (r < C) s += part[r];
+  return s;
+}
+
+// The team's scratch in one block's shared memory (see team_smem_floats).
+struct TeamSmem {
+  float *slots, *region, *out, *w, *taus, *rdiag, *scal;
+  __device__ TeamSmem(float* smem, int m, int b, int C, bool slab_in_smem)
+      : slots(smem), region(smem + team_slots_floats(b)),
+        out(region + team_region_floats(m, b, C, slab_in_smem)),
+        w(out + team_xch_floats(b)), taus(w + b), rdiag(taus + b),
+        scal(rdiag + b) {}
+};
+
+// Send the block's values of a column (sm.out: 1 + b of them, or 1 + 2b
+// from the block that holds the pivot row) to the team, in buffer par:
+// warp r stores them into block r, consecutive slots from consecutive
+// lanes.
+template <class Ex>
+__device__ __forceinline__ void team_send(const Ex& ex, const TeamSmem& sm,
+                                          int b, int C, int par,
+                                          bool holds_pivot) {
+  const int r = threadIdx.x >> 5, n = holds_pivot ? 1 + 2 * b : 1 + b;
+  if (r >= C) return;
+  for (int k = threadIdx.x & 31; k < n; k += 32) {
+    const int i = k == 0 || holds_pivot ? k : b + k;  // the slot
+    ex.put(par, i, r, sm.out[i]);
+  }
+}
+
+// One pass over this block's local rows [s0, nr) after column j's
+// reflector: columns c > j get A[i, c] -= tau v_i w_c (tau v_i in slab
+// column b; skipped for tau = 0), and column nxt's sums are formed from the
+// updated values (column nxt's in slab column b + 1) into sm.out: ||x||^2
+// over rows at and below pivot np, y_c = sum_{i > np} x_i A[i, c], and
+// row np's values when this block holds it.
+// Warp w takes columns [8w, 8w + 8); lane (q, g) = (lane % 8, lane / 8)
+// takes columns 8w + 2g and 8w + 2g + 1 of rows 4q .. 4q + 3 of every
+// 32-row step, as 16-byte accesses. A column's sum is each lane's sum over
+// its rows in order, then a fixed shuffle tree over the 8 lanes q. Four
+// rows that all lie strictly below np and above nr take a path without
+// per-row tests (the same operations in the same order).
+__device__ __forceinline__ void team_pass(float* S, int ld, int lo, int nr,
+                                          int s0, int b, int j, bool upd,
+                                          int np, const TeamSmem& sm) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q = lane & 7, g = lane >> 3;
+  const int c0 = TEAM_WARP_COLS * warp + 2 * g;
+  if (TEAM_WARP_COLS * warp >= b && warp != 0) return;
+  const bool has0 = c0 < b, has1 = c0 + 1 < b, want_sq = warp == 0;
+  const bool up0 = upd && has0 && c0 > j, up1 = upd && has1 && c0 + 1 > j;
+  const float w0 = up0 ? sm.w[c0] : 0.f, w1 = up1 ? sm.w[c0 + 1] : 0.f;
+  const float* tv = S + (size_t)b * ld;
+  const float* xn = S + (size_t)(b + 1) * ld;
+  float* a0p = S + (size_t)(has0 ? c0 : 0) * ld;
+  float* a1p = S + (size_t)(has1 ? c0 + 1 : 0) * ld;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int full = max(np - lo + 1, s0);  // first local row of the plain path
+  float y0 = 0.f, y1 = 0.f, sq = 0.f;
+  for (int i = (s0 & ~3) + 4 * q; i < nr; i += 32) {
+    const float4 t = *reinterpret_cast<const float4*>(tv + i);
+    const float4 x = *reinterpret_cast<const float4*>(xn + i);
+    const float4 a4 = has0 ? *reinterpret_cast<const float4*>(a0p + i) : zero;
+    const float4 c4 = has1 ? *reinterpret_cast<const float4*>(a1p + i) : zero;
+    float tk[4] = {t.x, t.y, t.z, t.w}, xk[4] = {x.x, x.y, x.z, x.w};
+    float av[4] = {a4.x, a4.y, a4.z, a4.w}, cv[4] = {c4.x, c4.y, c4.z, c4.w};
+    if (i >= full && i + 4 <= nr) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (up0) av[k] = fmaf(-tk[k], w0, av[k]);
+        if (up1) cv[k] = fmaf(-tk[k], w1, cv[k]);
+        if (want_sq) sq = fmaf(xk[k], xk[k], sq);
+        y0 = fmaf(xk[k], av[k], y0);
+        y1 = fmaf(xk[k], cv[k], y1);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int li = i + k, gi = lo + li;
+        if (li < s0 || li >= nr) continue;
+        if (up0) av[k] = fmaf(-tk[k], w0, av[k]);
+        if (up1) cv[k] = fmaf(-tk[k], w1, cv[k]);
+        if (want_sq && gi >= np) sq = fmaf(xk[k], xk[k], sq);
+        if (gi > np) {
+          y0 = fmaf(xk[k], av[k], y0);
+          y1 = fmaf(xk[k], cv[k], y1);
+        } else if (gi == np) {  // the next pivot's row
+          if (has0) sm.out[1 + c0] = av[k];
+          if (has1) sm.out[1 + c0 + 1] = cv[k];
+        }
+      }
+    }
+    if (up0)
+      *reinterpret_cast<float4*>(a0p + i) = make_float4(av[0], av[1], av[2], av[3]);
+    if (up1)
+      *reinterpret_cast<float4*>(a1p + i) = make_float4(cv[0], cv[1], cv[2], cv[3]);
+  }
+  for (int o = 4; o > 0; o >>= 1) {
+    y0 += __shfl_down_sync(0xffffffffu, y0, o, 8);
+    y1 += __shfl_down_sync(0xffffffffu, y1, o, 8);
+    sq += __shfl_down_sync(0xffffffffu, sq, o, 8);
+  }
+  if (q == 0) {
+    if (has0) sm.out[1 + b + c0] = y0;
+    if (has1) sm.out[1 + b + c0 + 1] = y1;
+    if (want_sq && g == 0) sm.out[0] = sq;
+  }
+}
+
+// T of the compact WY form from the taus and G = Y^T Y (T's strict lower
+// triangle holds G^T on entry), by 32-column blocks: each diagonal block
+// by the forward recurrence T[:j, j] = -tau_j T[:j, :j] G[:j, j],
+// T[j, j] = tau_j (the blocks at once, four threads a row), then, block
+// column by block column, T[:L0, L] = -T[:L0, :L0] (G[:L0, L] T[L, L])
+// for the block L starting at column L0, which is the same recurrence
+// applied to the blocks. Every sum runs in index order. Writes T; uses
+// team_t_floats(b) floats of shared memory at `work`.
+__device__ inline void team_t(float* T, int b, float* work, const float* taus) {
+  constexpr int NB = 32;
+  const int tid = threadIdx.x, tb = b + 1;
+  float* Gt = work;            // b * b, row j holds G[:j, j]
+  float* Ts = Gt + b * b;      // b * (b + 1), padded rows
+  float* M = Ts + b * tb;      // (b - NB) x NB: G[:L0, L] T[L, L]
+  for (int e = tid; e < b * b; e += QR_THREADS)
+    Gt[e] = e % b < e / b ? T[e] : 0.f;
+  for (int e = tid; e < b * tb; e += QR_THREADS) Ts[e] = 0.f;
   __syncthreads();
-  masked_qr(Wp, Y, T, R, m, b, rs, smem);
+  // the diagonal blocks: block k on threads [128k, 128k + 128), row
+  // 32k + t on threads 4t .. 4t + 3 of them
+  {
+    const int k = tid / (4 * NB), t = NB * k + (tid % (4 * NB)) / 4, q = tid & 3;
+    for (int jj = 0; jj < NB; ++jj) {
+      const int j = NB * k + jj;
+      float s = 0.f;
+      if (t < j && j < b) {  // T is upper triangular: the terms i < t are 0
+#pragma unroll 8
+        for (int i = t + q; i < j; i += 4)
+          s = fmaf(Ts[t * tb + i], Gt[j * b + i], s);
+      }
+      s += __shfl_down_sync(0xffffffffu, s, 2, 4);
+      s += __shfl_down_sync(0xffffffffu, s, 1, 4);
+      if (j < b) {
+        if (t < j && q == 0) Ts[t * tb + j] = -taus[j] * s;
+        if (t == j && q == 0) Ts[j * tb + j] = taus[j];
+      }
+      __syncthreads();
+    }
+  }
+  for (int L0 = NB; L0 < b; L0 += NB) {
+    const int nc = min(NB, b - L0);
+    for (int e = tid; e < L0 * nc; e += QR_THREADS) {
+      const int r = e / nc, c = L0 + e % nc;
+      float s = 0.f;
+      for (int k = L0; k <= c; ++k) s = fmaf(Gt[k * b + r], Ts[k * tb + c], s);
+      M[e] = s;
+    }
+    __syncthreads();
+    for (int e = tid; e < L0 * nc; e += QR_THREADS) {
+      const int r = e / nc, c = e % nc;
+      float s = 0.f;
+      for (int k = r; k < L0; ++k) s = fmaf(Ts[r * tb + k], M[k * nc + c], s);
+      Ts[r * tb + L0 + c] = -s;
+    }
+    __syncthreads();
+  }
+  for (int e = tid; e < b * b; e += QR_THREADS) T[e] = Ts[(e / b) * tb + e % b];
+}
+
+// One team block's share of the masked QR of the (m x b) panel A (row
+// stride a_ld, unit column stride): rows [rank * rows, ...) of team_rows(m,
+// C). Writes this block's rows of Y and R; rank 0 writes T (its strict
+// lower triangle holds G^T during the loop). kSlabInSmem =
+// team_slab_in_smem(m, b, C); when false, slab_g is this block's slab in
+// global scratch (team_cols(b) x team_ld floats, 16-byte aligned). Both
+// instances run the same arithmetic through the same float* S; the flag
+// only lets the compiler see that S is in shared memory, so that it
+// addresses it as such (32-bit shared loads, not generic 64-bit ones).
+// Needs team_smem_floats(m, b, C, kSlabInSmem) floats at smem (16-byte
+// aligned).
+template <bool kSlabInSmem, class Ex>
+__device__ void team_qr(const float* A, long long a_ld, float* Y, float* T,
+                        float* R, int m, int b, int rs, int C, int rank,
+                        float* slab_g, float* smem, Ex& ex) {
+  const int tid = threadIdx.x;
+  const int rows = team_rows(m, C), ld = team_ld(rows);
+  const int lo = min(rank * rows, m), nr = min(rows, m - lo);
+  const TeamSmem sm(smem, m, b, C, kSlabInSmem);
+  float* S = kSlabInSmem ? sm.region : slab_g;
+  float* tv = S + (size_t)b * ld;        // tau v_i of the current column
+  float* xn = S + (size_t)(b + 1) * ld;  // column j + 1, updated
+  // first local row at or below global row `row`
+  auto first_local = [&](int row) { return min(max(row - lo, 0), nr); };
+
+  for (int e = tid; e < nr * b; e += QR_THREADS) {
+    const int i = e / b, c = e % b;
+    S[(size_t)c * ld + i] = A[(size_t)(lo + i) * a_ld + c];
+  }
+  __syncthreads();
+  auto holds = [&](int row) { return row >= lo && row < lo + nr; };
+  // column 0's sums: a pass with no update
+  for (int i = first_local(rs) + tid; i < nr; i += QR_THREADS) xn[i] = S[i];
+  __syncthreads();
+  team_pass(S, ld, lo, nr, first_local(rs), b, -1, false, rs, sm);
+  __syncthreads();
+  team_send(ex, sm, b, C, 0, holds(rs));
+
+  for (int j = 0; j < b; ++j) {
+    const int p = rs + j, par = j & 1;
+    ex.sync(par);  // column j's sums are out
+    const int owner = (p >= 0 && p < m) ? p / rows : -1;
+    const int s0 = first_local(p), nxt = j + 1;
+    // w_c = v^T A[:, c] (c > j) and G[c, j] (c < j)
+    auto w_of = [&](int c, float denom) {
+      const float ap = owner >= 0 ? team_get(sm.slots, b, par, owner, 1 + c) : 0.f;
+      return ap + rank_sum(sm.slots, b, C, par, 1 + b + c) / denom;
+    };
+    if (tid < 32) {  // warp 0: the reflector's scalars, and w of column j + 1
+      const float sumsq = rank_sum(sm.slots, b, C, par, 0);
+      const float x0 =
+          owner >= 0 ? team_get(sm.slots, b, par, owner, 1 + j) : 0.f;
+      const float sigma = sumsq - x0 * x0;
+      const float norm = sqrtf(x0 * x0 + sigma);
+      const float beta = (x0 >= 0.f) ? -norm : norm;
+      const bool degenerate = norm <= 1e-30f;
+      const float denom = degenerate ? 1.f : x0 - beta;
+      const float tau = degenerate ? 0.f : (beta - x0) / beta;
+      const float wn = nxt < b && tau != 0.f ? w_of(nxt, denom) : 0.f;
+      if (tid == 0) {
+        sm.taus[j] = tau;
+        sm.rdiag[j] = degenerate ? x0 : beta;
+        sm.scal[0] = denom, sm.scal[1] = tau, sm.scal[2] = wn;
+      }
+    }
+    __syncthreads();
+    const float denom = sm.scal[0], tau = sm.scal[1], wn = sm.scal[2];
+    if (tid < TEAM_W_THREADS) {  // w and G
+      for (int c = tid; c < b; c += TEAM_W_THREADS) {
+        if (c == j) continue;
+        const float s = c == nxt ? wn : w_of(c, denom);
+        sm.w[c] = s;
+        if (rank == 0 && c < j) T[(size_t)j * b + c] = s;  // G[c, j]
+      }
+    } else {
+      // v over this block's rows at and below the pivot, in place of
+      // column j; beside it tau v_i and column j + 1 updated
+      float* v = S + (size_t)j * ld;
+      for (int i = s0 + tid - TEAM_W_THREADS; i < nr;
+           i += QR_THREADS - TEAM_W_THREADS) {
+        const float vi = lo + i == p ? 1.f : v[i] / denom;
+        v[i] = vi;
+        if (nxt < b) {
+          const float t = tau * vi;
+          tv[i] = t;
+          xn[i] = tau != 0.f ? fmaf(-t, wn, S[(size_t)nxt * ld + i])
+                             : S[(size_t)nxt * ld + i];
+        }
+      }
+    }
+    __syncthreads();
+    if (nxt < b) {
+      team_pass(S, ld, lo, nr, s0, b, j, tau != 0.f, p + 1, sm);
+      __syncthreads();
+      team_send(ex, sm, b, C, nxt & 1, holds(p + 1));
+    }
+  }
+  __syncthreads();
+
+  // Y: v below the pivots, zero above
+  for (int e = tid; e < nr * b; e += QR_THREADS) {
+    const int i = e / b, c = e % b;
+    Y[(size_t)(lo + i) * b + c] = lo + i < rs + c ? 0.f : S[(size_t)c * ld + i];
+  }
+  // R: rows [rs', rs' + b) that this block holds, rs' = clamp(rs, 0, m - b)
+  const int rstart = rs < 0 ? 0 : (rs > m - b ? m - b : rs);
+  const int r0 = max(rstart, lo) - rstart, r1 = min(rstart + b, lo + nr) - rstart;
+  for (int e = r0 * b + tid; e < r1 * b; e += QR_THREADS) {
+    const int r = e / b, c = e % b, i = rstart + r, pv = rs + c;
+    R[e] = r > c ? 0.f
+           : i < pv ? S[(size_t)c * ld + (i - lo)]
+           : i == pv ? sm.rdiag[c] : 0.f;
+  }
+
+  if (rank == 0) {
+    __syncthreads();  // the slab is read; the region now holds G^T and T
+    team_t(T, b, sm.region, sm.taus);
+  }
 }
 
 // K3's body for one lane: stack triu(Rt) over triu(Rb) in the scratch tile

@@ -81,7 +81,7 @@ TILE_BNS = (128, 64, 32)
 
 
 @functools.cache
-def _sm_count(index: int) -> int:
+def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -100,10 +100,62 @@ def tile_bn(P: int, n: int, sms: int) -> int:
 def launch_bn(P: int, n: int, x: torch.Tensor, bn: Optional[int]) -> int:
     """``bn`` if given (checked), else ``tile_bn`` for the card of ``x``."""
     if bn is None:
-        return tile_bn(P, n, _sm_count(x.device.index or 0))
+        return tile_bn(P, n, sm_count(x.device.index or 0))
     if bn not in TILE_BNS:
         raise ValueError(f"column tile {bn} is not one of {TILE_BNS}")
     return bn
+
+
+# K1's lane team (csrc/qr_common.cuh, team_qr): at most TEAM_MAX blocks per
+# lane, each with at most SMEM_LIMIT bytes of shared memory (Hopper's limit
+# for one block).
+TEAM_MAX = 16
+SMEM_LIMIT = 232448
+
+
+def team_rows(m: int, C: int) -> int:
+    """Rows of one team block's slab (the last slab may hold fewer)."""
+    return -(-m // C)
+
+
+def team_ld(rows: int) -> int:
+    """Leading dimension of a team block's column-major slab
+    (``team_ld`` in ``csrc/qr_common.cuh``): a multiple of 4, and 4 more
+    than a multiple of 8."""
+    r4 = -(-rows // 4) * 4
+    return r4 + 4 if r4 % 8 == 0 else r4
+
+
+def team_smem_bytes(m: int, b: int, C: int, slab_in_smem: bool = True) -> int:
+    """Shared memory of one team block (``team_smem_floats`` in
+    ``csrc/qr_common.cuh``): two buffers of 2b + 1 exchange slots (padded
+    to a multiple of 4) of TEAM_MAX values each; the slab, b + 2 columns of
+    ``team_ld`` rows, when it is in shared memory, or else room for the T
+    factor's scratch at the end; the block's outgoing values (one buffer of
+    slots); then w, the taus, R's diagonal and the column's three scalars
+    (padded to 4)."""
+    xch = (2 * b + 4) // 4 * 4
+    slab = (b + 2) * team_ld(team_rows(m, C)) if slab_in_smem else 0
+    t_scratch = b * b + b * (b + 1) + 32 * b  # G^T, T, one product
+    return 4 * (2 * xch * TEAM_MAX + max(slab, t_scratch) + xch + 3 * b + 4)
+
+
+def team_blocks(m: int, b: int) -> int:
+    """The team size C of K1 (and of K5/K6's leaf) for an (m x b) panel:
+    the smallest power of two up to TEAM_MAX whose slab of
+    ``team_rows(m, C)`` rows fits in a block's shared memory, else
+    TEAM_MAX (the slabs then live in global scratch). A function of (m, b)
+    alone, never of the lane count or the card, so a lane gets the same
+    bits in a one-lane REBUILD launch as in a P-lane launch, and K1, K5
+    and K6 agree; ``csrc/qr_common.cuh::team_blocks`` is the same rule."""
+    C = 1
+    while C < TEAM_MAX and team_smem_bytes(m, b, C) > SMEM_LIMIT:
+        C *= 2
+    return C
+
+
+def team_slab_in_smem(m: int, b: int, C: int) -> bool:
+    return team_smem_bytes(m, b, C) <= SMEM_LIMIT
 
 
 def stream_ptr(x: torch.Tensor) -> int:

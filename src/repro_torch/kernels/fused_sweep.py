@@ -26,7 +26,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import backend, build
-from repro_torch.kernels.panel_qr import MAX_B, SMEM_LIMIT
+from repro_torch.kernels.panel_qr import MAX_B
 from repro_torch.kernels.ref import panel_qr_apply as panel_qr_apply_ref  # noqa: F401
 
 # Kernel-output field order of the fused panel (the SweepState in-flight
@@ -117,21 +117,20 @@ def _tops(P: int, t_lane: int, levels: int):
 @functools.cache
 def _k5():
     return build.bind("fused_sweep", "panel_qr_apply_f32",
-                      [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _P])
+                      [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _P])
 
 
 @functools.cache
 def _k6():
     return build.bind("fused_sweep", "fused_panel_f32",
-                      [_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I]
-                      + [_P] * 16 + [_P])
+                      [_P, _L, _L, _P, _P] + [_I] * 9 + [_P] * 18 + [_P])
 
 
 @functools.cache
-def _smem():
-    f = build.load("fused_sweep").fused_sweep_smem_bytes
-    f.argtypes, f.restype = [_I, _I, _I], ctypes.c_size_t
+def _entry(name: str, nargs: int):
+    f = getattr(build.load("fused_sweep"), name)
+    f.argtypes, f.restype = [_I] * nargs, ctypes.c_size_t
     return f
 
 
@@ -139,10 +138,24 @@ def _check(op: str, m: int, w: int, b: int, bn: int) -> None:
     if not 1 <= b <= MAX_B or m < b or w < b or m * max(b, w) >= 2 ** 31:
         raise ValueError(f"{op}: needs 1 <= b <= {MAX_B} and m, w >= b, got "
                          f"m={m}, w={w}, b={b}")
-    smem = _smem()(m, b, bn)
-    if smem > SMEM_LIMIT:
+    smem = _entry("fused_sweep_smem_bytes", 3)(m, b, bn)
+    if smem > backend.SMEM_LIMIT:
         raise ValueError(f"{op}: m={m} needs {smem} bytes of shared memory, "
-                         f"over {SMEM_LIMIT}")
+                         f"over {backend.SMEM_LIMIT}")
+
+
+def _leaf_scratch(P: int, m: int, b: int, x: torch.Tensor):
+    """(team size, global slabs, exchange slots, arrival counters, blocks
+    the exchange holds) of the leaf phase: room for a block on every SM,
+    the most a cooperative grid of these kernels holds."""
+    C = backend.team_blocks(m, b)
+    blocks = backend.sm_count(x.device.index or 0)
+    work = torch.empty(P * _entry("fused_sweep_work_floats", 3)(m, b, C),
+                       device=x.device, dtype=torch.float32)
+    xch = torch.empty(_entry("fused_sweep_xch_floats", 3)(b, C, blocks),
+                      device=x.device, dtype=torch.float32)
+    arrivals = torch.empty(blocks, device=x.device, dtype=torch.int32)
+    return C, work, xch, arrivals, blocks
 
 
 def panel_qr_apply(W: torch.Tensor, row_start, b: int):
@@ -162,10 +175,11 @@ def panel_qr_apply(W: torch.Tensor, row_start, b: int):
     R = torch.empty_like(T)
     C = torch.empty(P, m, w, device=dev, dtype=W3.dtype)
     Cp = torch.empty(P, b, w, device=dev, dtype=W3.dtype)
-    work = torch.empty_like(Y)
+    team, work, xch, arrivals, blocks = _leaf_scratch(P, m, b, W3)
     err = _k5()(W3.data_ptr(), W3.stride(0), W3.stride(1), rs.data_ptr(),
                 Y.data_ptr(), T.data_ptr(), R.data_ptr(), C.data_ptr(),
-                Cp.data_ptr(), work.data_ptr(), P, m, w, b, bn,
+                Cp.data_ptr(), work.data_ptr(), xch.data_ptr(),
+                arrivals.data_ptr(), blocks, P, m, w, b, bn, team,
                 backend.stream_ptr(W3))
     build.check(err, "panel_qr_apply")
     backend.count_launch("panel_qr_apply")
@@ -210,10 +224,11 @@ def fused_panel(window: torch.Tensor, k: int, *, b: int, m_loc_pad: int,
         "Ws": empty(L, P, b, w), "Cs_self": empty(L, P, b, w),
         "Cs_buddy": empty(L, P, b, w),
     }
-    scratch = (empty(P, m, b), empty(P, 2 * b, b), empty(P, 2 * b, b),
+    team, work, xch, arrivals, blocks = _leaf_scratch(P, m, b, W3)
+    scratch = (work, xch, arrivals, empty(P, 2 * b, b), empty(P, 2 * b, b),
                empty(max(L - 1, 1), P, b, b), empty(b, w))
     err = _k6()(W3.data_ptr(), W3.stride(0), W3.stride(1), rs.data_ptr(),
-                act.data_ptr(), P, m, w, b, L, t_lane, bn,
+                act.data_ptr(), P, m, w, b, L, t_lane, bn, team, blocks,
                 *(out[f].data_ptr() for f in FUSED_FIELDS),
                 *(s.data_ptr() for s in scratch), backend.stream_ptr(W3))
     build.check(err, "fused_panel")

@@ -63,6 +63,65 @@ def test_cuda_panel_qr_matches_plain(rng, cuda, m, b, row_start):
                zip(got, tpanel.panel_qr(A[1], row_start)))
 
 
+def _panels(rng, P, m, b, zero_col=None):
+    A = rng.standard_normal((P, m, b)).astype(np.float32)
+    if zero_col is not None:
+        A[:, :, zero_col] = 0.0
+    return t(A)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,b,row_start,zero_col", [
+    (4096, 128, 0, None),     # the tall cell's panel: a team of 16 blocks
+    (4096, 128, 3968, None),  # a late panel: one block holds every pivot
+    (512, 128, 384, None),    # the square cell's panel: a team of 2
+    (1000, 96, 17, None),     # odd row start, ragged slabs
+    (8192, 128, 0, None),     # slabs too large for shared memory
+    (512, 128, 0, 5),         # a zero column: tau = 0
+    (512, 128, 500, None),    # row start past m - b: R's rows clamped
+])
+def test_cuda_panel_qr_team_matches_plain(rng, cuda, m, b, row_start, zero_col):
+    """K1's lane team within tolerance of the plain version at the shapes
+    that make the team hard, and a lane alone bit-equal to the same lane
+    of a two-lane launch."""
+    C = backend.team_blocks(m, b)
+    assert (C > 1) == (m >= 512)
+    assert backend.team_slab_in_smem(m, b, C) == (m != 8192)
+    A = _panels(rng, 2, m, b, zero_col).to(cuda)
+    got = tpanel.panel_qr(A, row_start)
+    close(got, tref.panel_qr(A, row_start))
+    if zero_col is not None:
+        assert torch.all(got[1][:, zero_col, zero_col] == 0)  # T = tau = 0
+    assert all(torch.equal(a[1], o) for a, o in
+               zip(got, tpanel.panel_qr(A[1], row_start)))
+
+
+@pytest.mark.cuda
+def test_cuda_panel_qr_one_lane_equals_eight(rng, cuda):
+    """A one-lane launch (a REBUILD replay) gives each lane the bits it has
+    in an 8-lane launch, at the tall cell's panel and row starts."""
+    P, m, b = 8, 4096, 128
+    A = _panels(rng, P, m, b).to(cuda)
+    rs = torch.tensor([3968, 0, 0, 0, 0, 0, 0, 0], dtype=torch.int32)
+    wide = tpanel.panel_qr(A, rs)
+    for k in range(P):
+        one = tpanel.panel_qr(A[k], int(rs[k]))
+        assert all(torch.equal(w[k], o) for w, o in zip(wide, one)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,b", [(37, 5), (512, 128), (1000, 96), (4096, 128),
+                                 (8192, 128), (20000, 100)])
+def test_cuda_team_rule_matches_the_kernel(cuda, m, b):
+    """The wrappers' team size and shared memory are the kernel's, and the
+    card holds at least one team at once."""
+    C = backend.team_blocks(m, b)
+    assert tpanel.smem_bytes(m, b, C) == backend.team_smem_bytes(
+        m, b, C, backend.team_slab_in_smem(m, b, C))
+    assert (tpanel.work_floats(m, b, C) == 0) == backend.team_slab_in_smem(m, b, C)
+    assert tpanel.max_active_clusters(m, b) >= 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,b,n", [(37, 5, 13), (256, 128, 300)])
 def test_cuda_wy_apply_matches_plain(rng, cuda, m, b, n):
@@ -189,7 +248,9 @@ def test_cuda_kill_and_recover_is_bitwise_clean(rng, cuda, level):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,w,b,row_start", [(37, 45, 5, 2), (64, 200, 8, 60),
-                                             (512, 300, 128, 0)])
+                                             (512, 300, 128, 0),
+                                             (512, 640, 128, 384),
+                                             (8192, 160, 128, 7)])
 def test_cuda_panel_qr_apply_matches_plain_and_k1_k2(rng, cuda, m, w, b,
                                                      row_start):
     """K5 within tolerance of its plain version, and bit-equal to K1 then
@@ -232,7 +293,8 @@ def _assert_states_equal(got, want, tag):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("P,m_loc,n,b", [(4, 8, 16, 4), (4, 6, 10, 4),
-                                         (4, 4, 40, 4), (8, 32, 256, 16)])
+                                         (4, 4, 40, 4), (8, 32, 256, 16),
+                                         (4, 512, 1024, 128)])
 def test_cuda_fused_equals_stepped_bitwise(rng, cuda, P, m_loc, n, b):
     """run_panel_fused (one K6 launch a panel) == the panel's sweep_steps
     (K1-K4), bit for bit at every panel boundary and after finalize."""

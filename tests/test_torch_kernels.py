@@ -7,6 +7,8 @@ kernels themselves are held against those plain versions by
 made with numpy from a seed and fed to both packages. Floats are compared
 at the JAX package's f32 tolerance, ``atol = 3e-4 * max(1, max|ref|)``.
 """
+import inspect
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -141,6 +143,30 @@ def test_tile_bn_fills_the_card(P, n, bn):
     132 SMs a block (the tall sweep's first panel, a late panel, a
     one-lane REBUILD replay)."""
     assert backend.tile_bn(P, n, 132) == bn
+
+
+@pytest.mark.parametrize("m,b,C,in_smem", [
+    (4096, 128, 16, True),   # the tall cell's panel: 16 slabs of 256 rows
+    (512, 128, 2, True),     # the square cell's panel
+    (1000, 96, 2, True),
+    (8192, 128, 16, False),  # even 512-row slabs overflow shared memory
+    (37, 5, 1, True),
+    (128, 128, 1, True),
+    (20000, 100, 16, False)])
+def test_team_blocks_rule(m, b, C, in_smem):
+    """K1's team size depends on (m, b) only; it is the smallest power of
+    two whose slabs fit in shared memory (else 16, with the slabs in
+    global scratch); the slabs cover the m rows with none empty; and a
+    block's shared memory stays within Hopper's limit."""
+    assert backend.team_blocks(m, b) == C
+    assert backend.team_slab_in_smem(m, b, C) == in_smem
+    rows = backend.team_rows(m, C)
+    assert C * rows >= m and (C - 1) * rows < m
+    assert backend.team_smem_bytes(m, b, C, in_smem) <= backend.SMEM_LIMIT
+    if C > 1:
+        assert not backend.team_slab_in_smem(m, b, C // 2)
+    # the rule takes nothing but (m, b): not the lane count, not the card
+    assert list(inspect.signature(backend.team_blocks).parameters) == ["m", "b"]
 
 
 def test_launch_bn_checks_a_given_tile():
