@@ -12,7 +12,10 @@ non-zero and prints no result):
    one PyTorch call computing the same function (K1-K4) or the stepped
    kernels doing the same work (K5: K1+K2; K6: the stepped panel); the
    check that one lane of a P-lane launch equals a launch of it alone
-   (K1-K5); K2 and K4 also at a late panel (w = 512) and on one lane (the
+   (K1-K5), and that K3 gives the two lanes of a butterfly pair, which
+   stack the same two R factors, equal bits; every kernel's device time
+   (torch.profiler); K3's and K6's shared memory a block, and K6's blocks
+   per SM; K2 and K4 also at a late panel (w = 512) and on one lane (the
    REBUILD replay), bit-equal at two column tiles, and K1 on one lane (the
    REBUILD replay) and at the last panel's row start (rs = 3968) beside
    ``torch.geqrf`` on the same rows, all timed on the device alone
@@ -72,6 +75,7 @@ from repro_torch.core.lstsq import caqr_lstsq  # noqa: E402
 from repro_torch.ft import FailureSchedule, ft_caqr_sweep, sweep_point  # noqa: E402
 from repro_torch.ft.online import state as sm  # noqa: E402
 from repro_torch.kernels import backend, build, ops, ref  # noqa: E402
+from repro_torch.kernels import fused_sweep as tfs  # noqa: E402
 from repro_torch.kernels import panel_qr as tpq  # noqa: E402
 from repro_torch.kernels import stacked_qr as tsa  # noqa: E402
 from repro_torch.kernels import wy_apply as twy  # noqa: E402
@@ -129,21 +133,30 @@ def _device_us(event) -> float:
     return event.self_cuda_time_total if us is None else us
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, kernel: str = ""):
     """Device time per call of ``fn``: the kernels' own time under
     torch.profiler over ``reps`` calls. Unlike ``time_ms`` it leaves out
     the host's time to issue each call, which bounds the eager time of a
-    kernel shorter than about 0.05 ms."""
+    kernel shorter than about 0.05 ms. The trace must hold at least
+    ``reps`` records of ``kernel`` (a name prefix; any kernel if empty):
+    the profiler has been seen to drop records, so it tries three times,
+    then gives None (not measured) rather than a short sum."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(_device_us(e) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = sum(e.count for e in events
+                   if e.key.removeprefix("void ").startswith(kernel))
+        if seen >= reps:
+            return sum(_device_us(e) for e in events) / reps / 1e3
+    return None
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -231,7 +244,8 @@ def k1_record(panel: torch.Tensor, rs: int, reps: int) -> dict:
     bms, by = bound_ms(*leaf_cost(1, m, b, rs))
     return dict(shape=[m, b], row_start=rs, team=backend.team_blocks(m, b),
                 max_abs_err=err, scaled_err=scaled, ms=time_ms(run, reps),
-                device_ms=device_ms(run, reps), bound_ms=bms, bound_by=by,
+                device_ms=device_ms(run, reps, "panel_qr_kernel"),
+                bound_ms=bms, bound_by=by,
                 library_ms=time_ms(lib, reps),
                 library_device_ms=device_ms(lib, reps),
                 library_shape=list(active.shape))
@@ -269,7 +283,7 @@ def shape_record(op: str, args: tuple, cost: tuple, lib, reps: int) -> dict:
     return dict(shapes=[list(a.shape) for a in args], bn=backend.tile_bn(
         P, C.shape[-1], backend.sm_count(0)),
         max_abs_err=err, scaled_err=scaled, ms=time_ms(lambda: run(*args), reps),
-        device_ms=device_ms(lambda: run(*args), reps),
+        device_ms=device_ms(lambda: run(*args), reps, op + "_kernel"),
         bound_ms=bms, bound_by=by, library_ms=time_ms(lambda: lib(*args), reps),
         library_device_ms=device_ms(lambda: lib(*args), reps))
 
@@ -344,6 +358,13 @@ def kernel_phase(A: torch.Tensor) -> list:
     check(all(torch.equal(a[k], o) for a, o in
               zip(ops.stacked_qr(R_top, R_bot), one)),
           "stacked_qr: lane bits depend on the launch")
+    # K3 on a butterfly pair's stacks, as ft_tsqr_level gives them at level
+    # 0: both lanes of a pair stack the same two R factors, top lane first.
+    pair = ops.stacked_qr(R[[p & ~1 for p in range(P)]].contiguous(),
+                          R[[p | 1 for p in range(P)]].contiguous())
+    pair_bitwise = all(torch.equal(x[p], x[p ^ 1]) for x in pair for p in range(P))
+    check(pair_bitwise, "stacked_qr: the two lanes of a butterfly pair differ")
+    del pair
     one = ops.wy_apply(Y[k], T[k], C[k])
     check(torch.equal(ops.wy_apply(Y, T, C)[k], one),
           "wy_apply: lane bits depend on the launch")
@@ -406,14 +427,22 @@ def kernel_phase(A: torch.Tensor) -> list:
                    tolerance=rtol, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                    bound_by=by,
                    library_ms=time_ms(c["lib"], c["reps"]) if "lib" in c else None)
+        rec["device_ms"] = device_ms(c["run"], c["reps"], name + "_kernel")
+        if "lib" in c:
+            rec["library_device_ms"] = device_ms(c["lib"], c["reps"])
         if "stepped" in c:
             # no single PyTorch call computes K5 or K6: the yardstick is the
             # stepped kernels doing the same work
             rec["stepped_ms"] = time_ms(c["stepped"], c["reps"])
             rec["stepped_route"] = c["stepped_route"]
+        if name == "stacked_qr":
+            rec["smem_bytes"] = tsa.smem_bytes(B)
+            rec["pair_bitwise"] = pair_bitwise
+        if name == "fused_panel":
+            bn = backend.tile_bn(P, N, backend.sm_count(0))
+            rec["smem_bytes"] = tfs.smem_bytes(M_LOC, B, bn)
+            rec["blocks_per_sm"] = tfs.blocks_per_sm(M_LOC, B, bn)
         if name in other_shapes:
-            rec["device_ms"] = device_ms(c["run"], c["reps"])
-            rec["library_device_ms"] = device_ms(c["lib"], c["reps"])
             if name in bn_bitwise:
                 rec["bn"] = backend.tile_bn(P, N, backend.sm_count(0))
                 rec["bn_bitwise"] = bn_bitwise[name]

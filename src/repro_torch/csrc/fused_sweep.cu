@@ -11,9 +11,10 @@
 //      blocks (K1's body, team_qr, with the same C as K1; lanes beyond the
 //      teams that fit run in waves); inactive (consumed) lanes get zero
 //      Y, T, R;
-//   2. (K6 only) L butterfly levels: each lane reads its buddy's R from
-//      global memory, stacks the pair and QRs it (K3's body), or passes
-//      through under the group-activity masks of core/tsqr.py;
+//   2. (K6 only) L butterfly levels: each lane reads its own and its
+//      buddy's R from global memory into a stack in shared memory and QRs
+//      it (K3's body, stacked_qr_lane), or passes through under the
+//      group-activity masks of core/tsqr.py;
 //   3. leaf apply: the window times Q^T over (lane, BN-column) tiles (K2's
 //      body), and each tile copies its columns of the C' rows at the
 //      clamped row_start (zero on inactive lanes);
@@ -28,9 +29,9 @@
 // barrier (GlobalExchange) where K1 uses a cluster's distributed shared
 // memory, and sum them in the same rank order. (A cooperative launch with
 // clusters of 16 is refused on the H100: it holds 7 such clusters, not
-// the 8 a grid of 128 blocks needs.) Phase 2 runs masked_qr at 512
-// threads, as K3 does, whose sums depend on the thread layout. Phases 3-4
-// run two independent 256-thread tiles per block
+// the 8 a grid of 128 blocks needs.) Phase 2 runs stacked_qr_lane on one
+// 512-thread block a lane, as K3 does, whose sums depend on the thread
+// layout. Phases 3-4 run two independent 256-thread tiles per block
 // (each with its own shared memory and its own named barrier) through the
 // register-tiled body of K2 and K4, whose every output element is one
 // sequential fmaf chain in index order: what keeps the bits there is that
@@ -40,9 +41,10 @@
 // values are the same.
 //
 // What bounds it on the H100: the same as K1-K4 (the leaf's column loop,
-// then FP32 FFMA in the apply). The design keeps all intermediates in
-// global memory (L2 at these sizes) and uses one 512-thread block per SM
-// (a leaf team block needs 171 KB of shared memory at m = 4096, two
+// then FP32 FFMA in the apply). The design keeps the intermediates between
+// phases in global memory (L2 at these sizes) and uses one 512-thread
+// block per SM (a leaf team block needs 180 KB of shared memory at
+// m = 4096, the butterfly's stack and T scratch 149 KB at b = 128, two
 // BN = 128 tiles 192 KB), so each SM runs two apply tiles at a time, as
 // the stepped K2 and K4 do at BN = 128. The grid holds at least P * C
 // blocks where the card has room, so the leaf runs every lane's team at
@@ -80,8 +82,6 @@ struct FusedArgs {
   float* work;      // scratch: P * C slabs when not in shared memory
   float* xch;       // scratch: each leaf block's exchange slots
   unsigned* arrivals;  // scratch: each team's barrier counter, zeroed
-  float* stack;     // scratch (P, 2b, b)  K6 only
-  float* Yw;        // scratch (P, 2b, b)  K6 only
   float* Rtmp;      // scratch (L - 1, P, b, b), K6 only
   float* sink;      // scratch (b, w): combine outputs a lane does not keep
 };
@@ -140,7 +140,7 @@ __device__ void butterfly_phase(const FusedArgs& a, int lvl, float* smem) {
     if (!my_dead && !sib_dead) {
       stacked_qr_lane(Rin + (is_top ? p : buddy) * bb,
                       Rin + (is_top ? buddy : p) * bb, Y2, T, Rout + p * bb,
-                      a.stack + 2 * p * bb, a.Yw + 2 * p * bb, a.b, smem);
+                      a.b, smem);
     } else {
       const float* src = Rin + (my_dead ? buddy : p) * bb;
       for (size_t e = threadIdx.x; e < bb; e += QR_THREADS) {
@@ -263,7 +263,7 @@ fused_panel_kernel(FusedArgs a) {
 static size_t fused_smem_bytes(int m, int b, int bn) {
   const int C = team_blocks(m, b);
   size_t f = team_smem_floats(m, b, C, team_slab_in_smem(m, b, C));
-  f = f > qr_smem_floats(2 * b, b) ? f : qr_smem_floats(2 * b, b);
+  f = f > stacked_smem_floats(b) ? f : stacked_smem_floats(b);
   const size_t tiles = 2 * (size_t)tile_smem_floats(bn);
   f = f > tiles ? f : tiles;
   return f * sizeof(float);
@@ -271,6 +271,18 @@ static size_t fused_smem_bytes(int m, int b, int bn) {
 
 extern "C" size_t fused_sweep_smem_bytes(int m, int b, int bn) {
   return fused_smem_bytes(m, b, bn);
+}
+
+// Blocks of K6 an SM holds at once at the shared memory of an (m x b)
+// panel and column tile bn.
+extern "C" int fused_panel_blocks_per_sm(int m, int b, int bn, int* out) {
+  const size_t smem = fused_smem_bytes(m, b, bn);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_panel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, fused_panel_kernel, QR_THREADS, smem);
 }
 
 static bool aligned16(std::initializer_list<const void*> ptrs) {
@@ -357,8 +369,8 @@ extern "C" int panel_qr_apply_f32(const void* W, long long w_bs, long long w_ld,
 
 // K6. W, rs as for K5; active: P uint8 lane flags (device); L >= 1 levels
 // over P = 2^L lanes rooted at t_lane. Outputs as in FusedArgs, all
-// contiguous; scratch: work, xch and arrivals as for K5, stack and Yw
-// P*2b*b, Rtmp (L-1)*P*b*b, sink b*w. bn: the column tile of phases 3-4,
+// contiguous; scratch: work, xch and arrivals as for K5, Rtmp
+// (L-1)*P*b*b, sink b*w. bn: the column tile of phases 3-4,
 // 32, 64 or 128; team: the leaf team size, team_blocks(m, b).
 extern "C" int fused_panel_f32(const void* W, long long w_bs, long long w_ld,
                                const void* rs, const void* active, int P, int m,
@@ -368,8 +380,8 @@ extern "C" int fused_panel_f32(const void* W, long long w_bs, long long w_ld,
                                void* level_Y2, void* level_T, void* C_local,
                                void* C_prime, void* Ws, void* Cs_self,
                                void* Cs_buddy, void* work, void* xch,
-                               void* arrivals, void* stack, void* Yw,
-                               void* Rtmp, void* sink, void* stream) {
+                               void* arrivals, void* Rtmp, void* sink,
+                               void* stream) {
   FusedArgs a{};
   a.win = (const float*)W;
   a.w_bs = w_bs;
@@ -383,7 +395,7 @@ extern "C" int fused_panel_f32(const void* W, long long w_bs, long long w_ld,
   a.level_Y2 = (float*)level_Y2, a.level_T = (float*)level_T;
   a.C_local = (float*)C_local, a.C_prime = (float*)C_prime;
   a.Ws = (float*)Ws, a.Cs_self = (float*)Cs_self, a.Cs_buddy = (float*)Cs_buddy;
-  a.work = (float*)work, a.stack = (float*)stack, a.Yw = (float*)Yw;
+  a.work = (float*)work;
   a.xch = (float*)xch, a.arrivals = (unsigned*)arrivals;
   a.Rtmp = (float*)Rtmp, a.sink = (float*)sink;
   return launch((const void*)fused_panel_kernel, a, xch_blocks, stream);

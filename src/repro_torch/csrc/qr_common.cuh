@@ -1,8 +1,8 @@
 // Shared device code of the port's kernels: K1's lane team (team_qr: a
 // masked Householder QR of one (m x b) panel on C blocks, with the
-// compact-WY T factor), a masked QR of one tile by one block (masked_qr,
-// K3's stacked_qr_lane), and the per-tile bodies of K2 (wy_apply_tile) and
-// K4 (stacked_apply_tile). The kernels K1-K4 and the fused K5/K6
+// compact-WY T factor), K3's structured QR of two stacked triangles by one
+// block (stacked_qr_lane), and the per-tile bodies of K2 (wy_apply_tile)
+// and K4 (stacked_apply_tile). The kernels K1-K4 and the fused K5/K6
 // (fused_sweep.cu) all call these bodies, so the fused kernels compute
 // every element by the same operations in the same order as the stepped
 // ones, which the fused == stepped bitwise contract needs.
@@ -10,10 +10,11 @@
 // The QR arithmetic follows src/repro/kernels/panel_qr.py::panel_qr_math:
 // column j pivots at row_start + j; rows above the pivot are neither read
 // nor written; beta = -sign(x0)*||x|| with sign(0) = +1; a column with
-// ||x|| <= 1e-30 gives tau = 0 and v = e_pivot; T comes from the forward
-// recurrence over G = Y^T Y (team_qr's applied by 32-column blocks).
-// masked_qr's rank-1 update spans the full tile width; team_qr's spans
-// only the columns right of the pivot's (see there).
+// ||x|| <= 1e-30 gives tau = 0 and v = e_pivot + x_below (denom = 1); T
+// comes from the forward recurrence over G = Y^T Y, applied by 32-column
+// blocks (team_t). Both QR bodies update only the columns right of the
+// pivot's, which are all that any output reads, and write beta as R's
+// diagonal.
 //
 // Determinism: every sum runs in a fixed order (in the QR, per-thread
 // partials over a fixed row assignment, then a fixed tree, and across a
@@ -33,184 +34,6 @@ namespace cg = cooperative_groups;
 
 constexpr int QR_THREADS = 512;
 constexpr int QR_MAX_B = 128;
-constexpr int QR_G_PER_THREAD = QR_MAX_B * QR_MAX_B / QR_THREADS;
-constexpr int QR_CHUNK = 16;  // rows of Y staged per step of G = Y^T Y
-constexpr int QR_UNROLL = 16;  // tile loads a thread keeps in flight
-
-// Floats of dynamic shared memory masked_qr needs for an (m x b) tile.
-__host__ __device__ inline size_t qr_smem_floats(int m, int b) {
-  const size_t G = QR_THREADS / b;
-  const size_t cols = (size_t)m + G * b + b;
-  const size_t tail = (size_t)b * b + (size_t)b * (b + 1) + (size_t)QR_CHUNK * b;
-  return b + 33 + (cols > tail ? cols : tail);
-}
-
-// Sum of one value per thread in a fixed order: a shuffle-down tree in
-// each warp, then the warp partials in warp order. All threads get it.
-// `red` holds 33 floats of shared memory.
-__device__ inline float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.f;
-    for (int w = 0; w < nwarps; ++w) s += red[w];
-    red[32] = s;
-  }
-  __syncthreads();
-  const float out = red[32];
-  __syncthreads();
-  return out;
-}
-
-// First row >= i0 of row group g when rows are dealt round-robin to G groups.
-__device__ inline int first_row(int i0, int g, int G) {
-  return i0 + ((g - i0 % G) % G + G) % G;
-}
-
-// Masked Householder QR of the tile W (m x b, row-major, leading dim b) in
-// place, by one block of QR_THREADS threads. Writes Y (m x b), T and R
-// (b x b), all row-major. R is rows [rs', rs' + b) of the transformed tile,
-// rs' = clamp(rs, 0, m - b) as lax.dynamic_slice clamps. Needs
-// qr_smem_floats(m, b) floats of shared memory at `smem`.
-__device__ inline void masked_qr(float* W, float* Y, float* T, float* R,
-                                 int m, int b, int rs, float* smem) {
-  const int tid = threadIdx.x;
-  const int G = QR_THREADS / b;        // row groups of the column passes
-  const int c = tid % b, g = tid / b;  // this thread's column and row group
-  const bool in_grid = g < G;
-  float* taus = smem;                  // b
-  float* red = taus + b;               // 33
-  float* v = red + 33;                 // m: the current reflector
-  float* wpart = v + m;                // G * b partial sums of w
-  float* w = wpart + G * b;            // b
-
-  for (int j = 0; j < b; ++j) {
-    const int pivot = rs + j;
-    const int i0 = pivot > 0 ? pivot : 0;
-    float part = 0.f;
-    for (int i = i0 + tid; i < m; i += QR_THREADS) {
-      const float x = W[(size_t)i * b + j];
-      part += x * x;
-    }
-    const float sumsq = block_sum(part, red);
-    const float x0 = (pivot >= 0 && pivot < m) ? W[(size_t)pivot * b + j] : 0.f;
-    const float sigma = sumsq - x0 * x0;
-    const float norm = sqrtf(x0 * x0 + sigma);
-    const float beta = (x0 >= 0.f) ? -norm : norm;
-    const bool degenerate = norm <= 1e-30f;
-    const float denom = degenerate ? 1.f : x0 - beta;
-    const float tau = degenerate ? 0.f : (beta - x0) / beta;
-
-    for (int i = tid; i < m; i += QR_THREADS) {
-      float vi = 0.f;
-      if (i == pivot) vi = 1.f;
-      else if (i > pivot) vi = W[(size_t)i * b + j] / denom;
-      v[i] = vi;
-      Y[(size_t)i * b + j] = vi;
-    }
-    __syncthreads();
-
-    // w = v^T W over the rows at and below the pivot (v is 0 above it).
-    // The tile lives in L2, so each thread issues QR_UNROLL loads before
-    // it uses them; the sum still runs in row order.
-    if (in_grid) {
-      float acc = 0.f;
-      int i = first_row(i0, g, G);
-      for (; i + (QR_UNROLL - 1) * G < m; i += QR_UNROLL * G) {
-        float x[QR_UNROLL];
-#pragma unroll
-        for (int u = 0; u < QR_UNROLL; ++u) x[u] = W[(size_t)(i + u * G) * b + c];
-#pragma unroll
-        for (int u = 0; u < QR_UNROLL; ++u) acc += v[i + u * G] * x[u];
-      }
-      for (; i < m; i += G) acc += v[i] * W[(size_t)i * b + c];
-      wpart[g * b + c] = acc;
-    }
-    __syncthreads();
-    if (tid < b) {
-      float s = 0.f;
-      for (int gg = 0; gg < G; ++gg) s += wpart[gg * b + tid];
-      w[tid] = s;
-    }
-    if (tid == 0) taus[j] = tau;
-    __syncthreads();
-
-    // W -= tau v w^T (tau = 0 leaves the tile as it is).
-    if (in_grid && tau != 0.f) {
-      const float wc = w[c];
-      int i = first_row(i0, g, G);
-      for (; i + (QR_UNROLL - 1) * G < m; i += QR_UNROLL * G) {
-        float x[QR_UNROLL];
-#pragma unroll
-        for (int u = 0; u < QR_UNROLL; ++u) x[u] = W[(size_t)(i + u * G) * b + c];
-#pragma unroll
-        for (int u = 0; u < QR_UNROLL; ++u)
-          W[(size_t)(i + u * G) * b + c] = x[u] - (tau * v[i + u * G]) * wc;
-      }
-      for (; i < m; i += G) {
-        const size_t e = (size_t)i * b + c;
-        W[e] = W[e] - (tau * v[i]) * wc;
-      }
-    }
-    __syncthreads();
-  }
-
-  const int rstart = rs < 0 ? 0 : (rs > m - b ? m - b : rs);
-  for (int e = tid; e < b * b; e += QR_THREADS) {
-    const int r = e / b, cc = e % b;
-    R[e] = (r <= cc) ? W[(size_t)(rstart + r) * b + cc] : 0.f;
-  }
-
-  // G = Y^T Y; rows above rs are zero in Y and are skipped.
-  float* Gs = red + 33;           // b * b
-  float* Ts = Gs + b * b;         // b * (b + 1), padded rows
-  float* ych = Ts + b * (b + 1);  // QR_CHUNK * b
-  const int tb = b + 1;
-  float acc[QR_G_PER_THREAD];
-#pragma unroll
-  for (int k = 0; k < QR_G_PER_THREAD; ++k) acc[k] = 0.f;
-  const int ibeg = ((rs > 0 ? rs : 0) / QR_CHUNK) * QR_CHUNK;
-  for (int ic = ibeg; ic < m; ic += QR_CHUNK) {
-    for (int e = tid; e < QR_CHUNK * b; e += QR_THREADS) {
-      const int i = ic + e / b;
-      ych[e] = i < m ? Y[(size_t)i * b + e % b] : 0.f;
-    }
-    __syncthreads();
-    for (int ii = 0; ii < QR_CHUNK; ++ii) {
-#pragma unroll
-      for (int k = 0; k < QR_G_PER_THREAD; ++k) {
-        const int e = tid + k * QR_THREADS;
-        if (e < b * b)
-          acc[k] += ych[ii * b + e / b] * ych[ii * b + e % b];
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int k = 0; k < QR_G_PER_THREAD; ++k) {
-    const int e = tid + k * QR_THREADS;
-    if (e < b * b) Gs[e] = acc[k];
-  }
-  for (int e = tid; e < b * tb; e += QR_THREADS) Ts[e] = 0.f;
-  __syncthreads();
-
-  // T[:j, j] = -tau_j T[:j, :j] G[:j, j]; T[j, j] = tau_j.
-  for (int j = 0; j < b; ++j) {
-    if (tid < j) {
-      float s = 0.f;
-      for (int i = 0; i < j; ++i) s += Ts[tid * tb + i] * Gs[i * b + j];
-      Ts[tid * tb + j] = -taus[j] * s;
-    } else if (tid == j) {
-      Ts[j * tb + j] = taus[j];
-    }
-    __syncthreads();
-  }
-  for (int e = tid; e < b * b; e += QR_THREADS) T[e] = Ts[(e / b) * tb + e % b];
-  __syncthreads();
-}
 
 // -- K1's body: the lane team ------------------------------------------------
 //
@@ -698,24 +521,236 @@ __device__ void team_qr(const float* A, long long a_ld, float* Y, float* T,
   }
 }
 
-// K3's body for one lane: stack triu(Rt) over triu(Rb) in the scratch tile
-// Wp (2b x b), QR it with row_start 0 (reflectors in the scratch Yp), and
-// keep Y2 = triu of the reflectors' bottom half.
-__device__ inline void stacked_qr_lane(const float* Rt, const float* Rb,
-                                       float* Y2, float* T, float* R, float* Wp,
-                                       float* Yp, int b, float* smem) {
-  const size_t bb = (size_t)b * b;
-  for (int e = threadIdx.x; e < b * b; e += QR_THREADS) {
-    const bool up = e / b <= e % b;
-    Wp[e] = up ? Rt[e] : 0.f;
-    Wp[bb + e] = up ? Rb[e] : 0.f;
-  }
-  __syncthreads();
-  masked_qr(Wp, Yp, T, R, 2 * b, b, 0, smem);
-  for (int e = threadIdx.x; e < b * b; e += QR_THREADS)
-    Y2[e] = (e / b <= e % b) ? Yp[bb + e] : 0.f;
+// -- K3's body: the structured QR of two stacked triangles ------------------
+//
+// K3 (src/repro/kernels/stacked_qr.py::stacked_qr) is the QR of the (2b x b)
+// stack S = [triu(Rt); triu(Rb)] with row_start 0, LAPACK tpqrt's case:
+// column j's reflector has support top row j and bottom rows 0..j. Its top
+// rows > j start as zeros of Rt's triangle and its bottom rows > j as zeros
+// of Rb's, and no earlier reflector k < j writes them (reflector k's
+// support is top row k and bottom rows 0..k); so with x the bottom rows
+// 0..j of column j, v_j = e_j + x / denom and every other entry of v_j is
+// an exact zero. For the columns c > j, w_c = S[j, c] + sum_{i <= j} v_i
+// S[b + i, c] and the rank-1 update therefore need only those j + 2 rows,
+// and the columns left of the pivot, which no output reads, are skipped
+// (as in team_qr).
+//
+// One block of QR_THREADS threads holds S in shared memory, column-major.
+// Thread t takes column c = t / 4 and, of each column's bottom half, the
+// four consecutive rows 16k + 4g .. 16k + 4g + 3 for k = 0, 1, ... (g = t %
+// 4), as one 16-byte access; a step covers the support rounded up to whole
+// 16-row chunks. The pivot's rows past the support are zeros of Rb's
+// triangle, so the terms the rounding adds are fmaf(0, x, s) = s and
+// x - (0 tau / denom) w = x: the rows outside the support keep their
+// values, as the reference's x - tau 0 w leaves them. During the loop a
+// column's bottom rows are held in its four threads' registers (loaded
+// once, written back at the end), so that a step does not pass the whole
+// active stack through shared memory twice; only the pivot's rows go
+// through it, written back by column j + 1's threads after their update in
+// step j.
+//
+// One barrier a column. In step j every column's group reads the pivot's
+// x from shared memory and forms, each in the same order, ||x||^2 (so every
+// group holds the same beta, tau and denom, and no group waits for another
+// to publish them, as in team_qr) and its own sum: for c > j, y_c =
+// sum x_i S[b + i, c], then w_c = S[j, c] + y_c / denom (the division after
+// the sum, as team_qr does; |denom| >= |x_i| keeps the error at the
+// reference's level) and the update S[b + i, c] -= (tau / denom) x_i w_c,
+// S[j, c] -= tau w_c; for c < j, z = Y2[:, c]^T x, which gives G[c, j] =
+// Y2[:, c]^T v_j = z / denom in T's strict lower triangle in step j + 1,
+// once column j's threads have published 1 / denom (Y = [I; Y2]: the
+// identity rows add nothing off the diagonal); for c = j, v = x (1 /
+// denom). A thread's sum is four chains (the four rows of its chunks)
+// added in a fixed order, then a fixed xor tree over its group's four
+// threads, which leaves all four the same bits. After the loop S holds R's
+// strict upper triangle and Y2; R's diagonal is beta (x0 for a degenerate
+// column); T comes from team_t. The sums depend on (the inputs, b) alone,
+// so the two lanes of a butterfly pair, which receive the same (Rt, Rb),
+// give the same bits in any launch, and K6's phase 2, which runs this body,
+// equals K3.
+
+constexpr int SQ_GROUP = 4;   // threads of a column in stacked_qr_lane
+constexpr int SQ_CHUNK = 16;  // rows of a column the group takes per float4
+constexpr int SQ_CHUNKS = QR_MAX_B / SQ_CHUNK;  // chunks of a column, at most
+static_assert(QR_THREADS == SQ_GROUP * QR_MAX_B, "a thread group per column");
+static_assert(SQ_CHUNK == 4 * SQ_GROUP, "a float4 of rows per thread");
+
+// Layout of the stack in shared memory: column c at c * ld, its top rows
+// 0..b-1 from 0 and its bottom rows from bo (16-byte aligned), the bottom
+// half padded with zeros to whole chunks; ld is 16 more than a multiple of
+// 32, so that a quarter warp's 16-byte reads (two columns) meet 32 banks.
+struct StackLayout {
+  int b, bo, b16, ld;
+  __host__ __device__ explicit StackLayout(int b_)
+      : b(b_), bo((b_ + 3) / 4 * 4),
+        b16((b_ + SQ_CHUNK - 1) / SQ_CHUNK * SQ_CHUNK),
+        ld((bo + b16 - 16 + 31) / 32 * 32 + 16) {}
+  // floats before the stack (16-byte aligned): the taus, R's diagonal and
+  // each column's 1 / denom
+  __host__ __device__ size_t head() const { return (3 * (size_t)b + 3) / 4 * 4; }
+};
+
+// Floats of shared memory stacked_qr_lane needs: the head, then the stack
+// (after the loop, team_t's scratch).
+__host__ __device__ inline size_t stacked_smem_floats(int b) {
+  const StackLayout L(b);
+  const size_t stack = (size_t)b * L.ld, tt = team_t_floats(b);
+  return L.head() + (stack > tt ? stack : tt);
 }
 
+__device__ __forceinline__ float4 ld4s(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4s(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+// K3's body for one lane: (Y2, T, R) of QR([triu(Rt); triu(Rb)]), all
+// (b x b) row-major (the strict lower triangles of Rt and Rb are not
+// used). Needs stacked_smem_floats(b) floats of shared memory at smem
+// (16-byte aligned); ends with a barrier, after which smem may be reused.
+__device__ inline void stacked_qr_lane(const float* Rt, const float* Rb,
+                                       float* Y2, float* T, float* R, int b,
+                                       float* smem) {
+  const int tid = threadIdx.x;
+  const StackLayout L(b);
+  const int ld = L.ld, bo = L.bo, b16 = L.b16;
+  const int c = tid / SQ_GROUP, g = tid % SQ_GROUP;
+  float* taus = smem;       // b
+  float* rdiag = taus + b;  // b: R's diagonal
+  float* rinvs = rdiag + b; // b: 1 / denom
+  float* S = smem + L.head();
+  float* col = S + (size_t)(c < b ? c : 0) * ld;  // this thread's column
+  float* bot = col + bo + SQ_GROUP * g;  // its rows 4g.. of the bottom half
+
+  // The row-major (b x b) inputs and outputs meet the column-major stack in
+  // tiles of 8 rows x 4 columns, one a warp: 16-byte segments of a row in
+  // global memory, at most two threads a bank in shared memory.
+  const int ct = (b + 3) / 4, tiles = (b + 7) / 8 * ct;
+  auto for_tiles = [&](auto&& f) {
+    for (int e = tid; e < tiles * 32; e += QR_THREADS) {
+      const int t = e / 32, l = e % 32;
+      const int r = t / ct * 8 + l / 4, cc = t % ct * 4 + l % 4;
+      if (r < b && cc < b) f(r, cc, r * b + cc);
+    }
+  };
+  for (int e = tid; e < b * (b16 - b); e += QR_THREADS)
+    S[(size_t)(e / (b16 - b)) * ld + bo + b + e % (b16 - b)] = 0.f;
+  for_tiles([&](int r, int cc, int e) {
+    const bool up = r <= cc;
+    S[(size_t)cc * ld + r] = up ? Rt[e] : 0.f;
+    S[(size_t)cc * ld + bo + r] = up ? Rb[e] : 0.f;
+  });
+  __syncthreads();
+
+  // xr: this column's chunks (its rows past c are zeros), held for the
+  // whole loop; xp: the pivot's, read each step (constant indices after
+  // unrolling, so both stay in registers), loaded together, so that a step
+  // waits on one load latency, not one a chunk.
+  float4 xp[SQ_CHUNKS], xr[SQ_CHUNKS];
+#pragma unroll
+  for (int k = 0; k < SQ_CHUNKS; ++k) {
+    if (SQ_CHUNK * k > c || c >= b) break;
+    xr[k] = ld4s(bot + SQ_CHUNK * k);
+  }
+  float z = 0.f;  // Y2[:, c]^T x of the step before, for G
+  for (int j = 0; j < b; ++j) {
+    if (g == 0 && c < j - 1) T[(size_t)(j - 1) * b + c] = z * rinvs[j - 1];
+    const bool upd = c < b && c > j, gram = c < j;
+    const int last = upd ? j : gram ? c : -1;  // this column's rows in play
+    const int plast = gram ? c : j;            // the pivot's rows it reads
+    const float* pivot = S + (size_t)j * ld;
+    const float x0 = pivot[j];
+    const float top = upd ? col[j] : 0.f;
+    float4 q = make_float4(0.f, 0.f, 0.f, 0.f), y = q;
+#pragma unroll
+    for (int k = 0; k < SQ_CHUNKS; ++k) {
+      if (SQ_CHUNK * k > plast) break;
+      const float4 x = ld4s(pivot + bo + SQ_GROUP * g + SQ_CHUNK * k);
+      xp[k] = x;
+      if (!gram) {  // G needs no norm
+        q.x = fmaf(x.x, x.x, q.x);
+        q.y = fmaf(x.y, x.y, q.y);
+        q.z = fmaf(x.z, x.z, q.z);
+        q.w = fmaf(x.w, x.w, q.w);
+      }
+      if (last >= 0) {
+        y.x = fmaf(x.x, xr[k].x, y.x);
+        y.y = fmaf(x.y, xr[k].y, y.y);
+        y.z = fmaf(x.z, xr[k].z, y.z);
+        y.w = fmaf(x.w, xr[k].w, y.w);
+      }
+    }
+    float sq = (q.x + q.y) + (q.z + q.w), ys = (y.x + y.y) + (y.z + y.w);
+    sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+    ys += __shfl_xor_sync(0xffffffffu, ys, 1);
+    sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+    ys += __shfl_xor_sync(0xffffffffu, ys, 2);
+    __syncwarp();  // the group has read S[j, c] before g = 0 writes it
+    if (upd || c == j) {
+      const float norm = sqrtf(x0 * x0 + sq);
+      const float beta = (x0 >= 0.f) ? -norm : norm;
+      const bool degenerate = norm <= 1e-30f;
+      const float denom = degenerate ? 1.f : x0 - beta;
+      const float tau = degenerate ? 0.f : (beta - x0) / beta;
+      const float rinv = 1.f / denom;
+      if (upd) {
+        const float w = top + ys * rinv;
+        if (tau != 0.f) {  // tau = 0 leaves the column as it is
+          const float tw = tau * rinv * w;  // x_i tw = tau v_i w_c
+#pragma unroll
+          for (int k = 0; k < SQ_CHUNKS; ++k) {
+            if (SQ_CHUNK * k > j) break;
+            float4& x = xr[k];
+            x.x = fmaf(-xp[k].x, tw, x.x);
+            x.y = fmaf(-xp[k].y, tw, x.y);
+            x.z = fmaf(-xp[k].z, tw, x.z);
+            x.w = fmaf(-xp[k].w, tw, x.w);
+          }
+          if (g == 0) col[j] = fmaf(-tau, w, top);
+        }
+        if (c == j + 1) {  // the next pivot's rows, for every group to read
+#pragma unroll
+          for (int k = 0; k < SQ_CHUNKS; ++k) {
+            if (SQ_CHUNK * k > j) break;
+            st4s(bot + SQ_CHUNK * k, xr[k]);
+          }
+        }
+      } else {  // the pivot's v, and its scalars
+#pragma unroll
+        for (int k = 0; k < SQ_CHUNKS; ++k) {
+          if (SQ_CHUNK * k > j) break;
+          xr[k] = make_float4(xp[k].x * rinv, xp[k].y * rinv, xp[k].z * rinv,
+                              xp[k].w * rinv);
+        }
+        if (g == 0) {
+          taus[j] = tau;
+          rdiag[j] = degenerate ? x0 : beta;
+          rinvs[j] = rinv;
+        }
+      }
+    } else if (gram) {
+      z = ys;
+    }
+    __syncthreads();
+  }
+  if (g == 0 && c < b - 1) T[(size_t)(b - 1) * b + c] = z * rinvs[b - 1];
+#pragma unroll
+  for (int k = 0; k < SQ_CHUNKS; ++k) {  // Y2: every column's v
+    if (SQ_CHUNK * k > c || c >= b) break;
+    st4s(bot + SQ_CHUNK * k, xr[k]);
+  }
+  __syncthreads();
+
+  for_tiles([&](int r, int cc, int e) {
+    R[e] = r < cc ? S[(size_t)cc * ld + r] : r == cc ? rdiag[r] : 0.f;
+    Y2[e] = r <= cc ? S[(size_t)cc * ld + bo + r] : 0.f;
+  });
+  __syncthreads();  // the stack is read; its region now holds team_t's scratch
+  team_t(T, b, S, taus);
+  __syncthreads();
+}
 
 // -- K2's and K4's tile: a register-tiled FFMA engine ------------------------
 //

@@ -2,13 +2,19 @@
 // combine), and K4: the fused trailing combine (paper Algorithm 2 body).
 //
 // K3 replaces src/repro/kernels/stacked_qr.py::stacked_qr (body
-// stacked_qr_math). Bound on the H100: the column loop's latency, as in
-// K1; the tile is only (2b x b). Simple design: one block per lane builds
-// the stack in a scratch tile in global memory (at b = 128 the stack plus
-// its reflectors are 256 KB, over the 227 KB of shared memory a block may
-// use) and runs the same masked QR device code as K1 with row_start 0, so
-// Y = [I; Y2] with Y2 upper triangular comes out of the general loop. Both
-// lanes of a butterfly pair get identical inputs and so identical bits.
+// stacked_qr_math). Bound on the H100: the column loop's latency; the
+// work is only about b^3 / 3 FMAs a lane on a (2b x b) stack. The design
+// (stacked_qr_lane in qr_common.cuh): one 512-thread block per lane holds
+// the stack in shared memory (139 KB at b = 128) and touches only each
+// reflector's support (top row j, bottom rows 0..j: LAPACK tpqrt's
+// structure), four threads a column, which keep its bottom rows in
+// registers during the loop and read the pivot's from shared memory as
+// 16-byte accesses; one barrier a column: every column's threads form the
+// pivot's norm themselves, so no thread waits for another to publish it.
+// G = Y^T Y is formed inside the loop by the threads left of the pivot,
+// and T by 32-column blocks. The sums depend on (the inputs, b) alone, so
+// both lanes of a butterfly pair, which get identical inputs, get
+// identical bits.
 //
 // K4 replaces src/repro/kernels/stacked_qr.py::stacked_apply (body
 // stacked_apply_math):
@@ -37,30 +43,25 @@ using namespace repro;
 
 __global__ void __launch_bounds__(QR_THREADS)
 stacked_qr_kernel(const float* __restrict__ Rt, const float* __restrict__ Rb,
-                  float* Y2, float* T, float* R, float* work, float* Yw, int b) {
+                  float* Y2, float* T, float* R, int b) {
   extern __shared__ __align__(16) float smem[];
-  const int p = blockIdx.x;
-  const size_t bb = (size_t)b * b;
-  stacked_qr_lane(Rt + p * bb, Rb + p * bb, Y2 + p * bb, T + p * bb, R + p * bb,
-                  work + (size_t)p * 2 * b * b, Yw + (size_t)p * 2 * b * b, b,
-                  smem);
+  const size_t off = (size_t)blockIdx.x * b * b;
+  stacked_qr_lane(Rt + off, Rb + off, Y2 + off, T + off, R + off, b, smem);
 }
 
 extern "C" size_t stacked_qr_smem_bytes(int b) {
-  return qr_smem_floats(2 * b, b) * sizeof(float);
+  return stacked_smem_floats(b) * sizeof(float);
 }
 
-// Rt, Rb: P (b x b) triangles. Y2, T, R: P*b*b floats; work, Yw: P*2b*b.
+// Rt, Rb: P (b x b) triangles; Y2, T, R: P*b*b floats; all contiguous.
 extern "C" int stacked_qr_f32(const void* Rt, const void* Rb, void* Y2,
-                              void* T, void* R, void* work, void* Yw, int P,
-                              int b, void* stream) {
+                              void* T, void* R, int P, int b, void* stream) {
   const size_t smem = stacked_qr_smem_bytes(b);
   cudaError_t err = cudaFuncSetAttribute(
       stacked_qr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   stacked_qr_kernel<<<P, QR_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)Rt, (const float*)Rb, (float*)Y2, (float*)T, (float*)R,
-      (float*)work, (float*)Yw, b);
+      (const float*)Rt, (const float*)Rb, (float*)Y2, (float*)T, (float*)R, b);
   return (int)cudaGetLastError();
 }
 

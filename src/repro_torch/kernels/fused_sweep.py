@@ -124,7 +124,7 @@ def _k5():
 @functools.cache
 def _k6():
     return build.bind("fused_sweep", "fused_panel_f32",
-                      [_P, _L, _L, _P, _P] + [_I] * 9 + [_P] * 18 + [_P])
+                      [_P, _L, _L, _P, _P] + [_I] * 9 + [_P] * 16 + [_P])
 
 
 @functools.cache
@@ -134,11 +134,27 @@ def _entry(name: str, nargs: int):
     return f
 
 
+def smem_bytes(m: int, b: int, bn: int) -> int:
+    """Shared memory of one block of K5/K6 at an (m x b) panel and column
+    tile bn: the largest phase's, as the kernel computes it."""
+    return _entry("fused_sweep_smem_bytes", 3)(m, b, bn)
+
+
+def blocks_per_sm(m: int, b: int, bn: int) -> int:
+    """Blocks of K6 an SM holds at once at that shared memory
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    n = ctypes.c_int(0)
+    f = build.bind("fused_sweep", "fused_panel_blocks_per_sm",
+                   [_I, _I, _I, ctypes.POINTER(ctypes.c_int)])
+    build.check(f(m, b, bn, ctypes.byref(n)), "fused_panel_blocks_per_sm")
+    return n.value
+
+
 def _check(op: str, m: int, w: int, b: int, bn: int) -> None:
     if not 1 <= b <= MAX_B or m < b or w < b or m * max(b, w) >= 2 ** 31:
         raise ValueError(f"{op}: needs 1 <= b <= {MAX_B} and m, w >= b, got "
                          f"m={m}, w={w}, b={b}")
-    smem = _entry("fused_sweep_smem_bytes", 3)(m, b, bn)
+    smem = smem_bytes(m, b, bn)
     if smem > backend.SMEM_LIMIT:
         raise ValueError(f"{op}: m={m} needs {smem} bytes of shared memory, "
                          f"over {backend.SMEM_LIMIT}")
@@ -225,8 +241,7 @@ def fused_panel(window: torch.Tensor, k: int, *, b: int, m_loc_pad: int,
         "Cs_buddy": empty(L, P, b, w),
     }
     team, work, xch, arrivals, blocks = _leaf_scratch(P, m, b, W3)
-    scratch = (work, xch, arrivals, empty(P, 2 * b, b), empty(P, 2 * b, b),
-               empty(max(L - 1, 1), P, b, b), empty(b, w))
+    scratch = (work, xch, arrivals, empty(max(L - 1, 1), P, b, b), empty(b, w))
     err = _k6()(W3.data_ptr(), W3.stride(0), W3.stride(1), rs.data_ptr(),
                 act.data_ptr(), P, m, w, b, L, t_lane, bn, team, blocks,
                 *(out[f].data_ptr() for f in FUSED_FIELDS),

@@ -27,13 +27,21 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _qr_kernel():
     return build.bind("stacked_qr", "stacked_qr_f32",
-                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P])
+                      [_P, _P, _P, _P, _P, _I, _I, _P])
 
 
 @functools.cache
 def _apply_kernel():
     return build.bind("stacked_qr", "stacked_apply_f32",
                       [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+
+
+def smem_bytes(b: int) -> int:
+    """Shared memory of one block of K3 (one lane) at b, as the kernel
+    computes it."""
+    f = build.load("stacked_qr").stacked_qr_smem_bytes
+    f.argtypes, f.restype = [_I], ctypes.c_size_t
+    return f(b)
 
 
 def _b(b: int, op: str) -> None:
@@ -53,11 +61,8 @@ def stacked_qr(R_top: torch.Tensor, R_bot: torch.Tensor):
                          f"{tuple(R_bot.shape)} are not two (P, b, b)")
     _b(b, "stacked_qr")
     Y2, T, R = (torch.empty_like(Rt) for _ in range(3))
-    work = torch.empty(P, 2 * b, b, device=Rt.device, dtype=Rt.dtype)
-    Yw = torch.empty_like(work)
     err = _qr_kernel()(Rt.data_ptr(), Rb.data_ptr(), Y2.data_ptr(),
-                       T.data_ptr(), R.data_ptr(), work.data_ptr(),
-                       Yw.data_ptr(), P, b, backend.stream_ptr(Rt))
+                       T.data_ptr(), R.data_ptr(), P, b, backend.stream_ptr(Rt))
     build.check(err, "stacked_qr")
     backend.count_launch("stacked_qr")
     if squeeze:

@@ -44,6 +44,39 @@ def qr_factor(rng, b):
     return np.linalg.qr(rng.standard_normal((2 * b, b)))[1].astype(np.float32)
 
 
+# Edge inputs of K3, the butterfly's stacked QR (``stacked_edge_pair``).
+STACKED_EDGES = ("zero_bot", "zero_top", "both_zero", "garbage_lower",
+                 "rank_deficient", "tiny_column")
+
+
+def stacked_edge_pair(rng, case, b):
+    """(R_top, R_bot), two (b, b) f32 triangles for one of STACKED_EDGES: a
+    zero triangle, or both; large garbage in the strict lower triangles,
+    which the QR must not read; two columns zero in both, so the stack
+    loses rank and those columns are exactly degenerate (tau = 0); a column
+    scaled by 1e-32 in both, whose squares underflow to 0 (degenerate, with
+    v = e_j + x_below)."""
+    R1, R2 = qr_factor(rng, b), qr_factor(rng, b)
+    if case == "zero_bot":
+        R2[:] = 0
+    elif case == "zero_top":
+        R1[:] = 0
+    elif case == "both_zero":
+        R1[:] = R2[:] = 0
+    elif case == "garbage_lower":
+        low = np.tril(np.ones((b, b), bool), -1)
+        R1[low] = rng.standard_normal(low.sum()) * 1e3
+        R2[low] = rng.standard_normal(low.sum()) * 1e3
+    elif case == "rank_deficient":
+        R1[:, [1, b - 2]] = R2[:, [1, b - 2]] = 0
+    elif case == "tiny_column":
+        R1[:, 2] *= np.float32(1e-32)
+        R2[:, 2] *= np.float32(1e-32)
+    else:
+        raise ValueError(case)
+    return R1, R2
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -148,6 +181,45 @@ def test_cuda_stacked_kernels_match_plain(rng, cuda, b, n):
     close(got, tref.stacked_apply(Y2, T, Ct, Cb))
     assert all(torch.equal(a[3], o) for a, o in
                zip(got, tstacked.stacked_apply(Y2[3], T[3], Ct[3], Cb[3])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [5, 33, 100, 127, 128])
+def test_cuda_stacked_qr_edges(rng, cuda, b):
+    """K3 within tolerance of the plain version, lane by lane, on a random
+    pair and every edge input, at b off and on the 4-row groups and the
+    8-column warps of the kernel's layout."""
+    pairs = [(qr_factor(rng, b), qr_factor(rng, b))]
+    pairs += [stacked_edge_pair(rng, case, b) for case in STACKED_EDGES]
+    Rt = t(np.stack([top for top, _ in pairs])).to(cuda)
+    Rb = t(np.stack([bot for _, bot in pairs])).to(cuda)
+    got = tstacked.stacked_qr(Rt, Rb)
+    want = tref.stacked_qr(Rt, Rb)
+    for p in range(len(pairs)):
+        close(tuple(x[p] for x in got), tuple(x[p] for x in want))
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+
+
+@pytest.mark.cuda
+def test_cuda_stacked_qr_lane_bits(rng, cuda):
+    """A lane alone equals its lane of an 8-lane launch; and with the
+    stacks that ft_tsqr_level gives a butterfly pair at each level (both
+    lanes stack the same two R factors in the same order), the two lanes'
+    outputs are bit-equal."""
+    P, b = 8, 128
+    R = t(np.stack([qr_factor(rng, b) for _ in range(P)])).to(cuda)
+    for lvl in range(3):
+        g = 1 << lvl
+        top = R[[p & ~g for p in range(P)]].contiguous()
+        bot = R[[p | g for p in range(P)]].contiguous()
+        out = tstacked.stacked_qr(top, bot)
+        for p in range(P):
+            assert all(torch.equal(x[p], x[p ^ g]) for x in out), (lvl, p)
+    R2 = R.flip(0).contiguous()
+    wide = tstacked.stacked_qr(R, R2)
+    for k in (0, 5):
+        one = tstacked.stacked_qr(R[k], R2[k])
+        assert all(torch.equal(w[k], o) for w, o in zip(wide, one)), k
 
 
 @pytest.mark.cuda

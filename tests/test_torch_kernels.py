@@ -23,6 +23,7 @@ from repro_torch.kernels import panel_qr as tpanel
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import stacked_qr as tstacked
 from repro_torch.kernels import wy_apply as twy
+from test_torch_cuda import STACKED_EDGES, stacked_edge_pair
 
 RTOL, ATOL = jref.tolerances(jnp.float32)
 
@@ -86,13 +87,24 @@ def test_panel_qr_lane_batched_per_lane_row_start(rng):
         close((Y[p], T[p], R[p]), jref.panel_qr(jnp.asarray(A[p]), int(rs[p])))
 
 
-@pytest.mark.parametrize("b", [8, 16, 5, 64])
+@pytest.mark.parametrize("b", [8, 16, 5, 64, 33, 100, 128])
 def test_stacked_qr_matches_pallas_interpret(rng, b):
     R1, R2 = qr_factor(rng, b), qr_factor(rng, b)
     want = jstacked.stacked_qr(jnp.asarray(R1), jnp.asarray(R2), interpret=True)
     close(ops.stacked_qr(t(R1), t(R2)), want)
     close(tstacked.stacked_qr_plain(t(R1), t(R2)),
           jref.stacked_qr(jnp.asarray(R1), jnp.asarray(R2)))
+
+
+@pytest.mark.parametrize("case", STACKED_EDGES)
+@pytest.mark.parametrize("b", [16, 33])
+def test_stacked_qr_edge_inputs_match_pallas_interpret(rng, case, b):
+    """The plain K3, which the CUDA kernel is held to, agrees with the
+    Pallas kernel on the edge inputs: zero triangles, garbage below the
+    diagonals, exactly degenerate and underflowing columns."""
+    R1, R2 = stacked_edge_pair(rng, case, b)
+    want = jstacked.stacked_qr(jnp.asarray(R1), jnp.asarray(R2), interpret=True)
+    close(ops.stacked_qr(t(R1), t(R2)), want)
 
 
 # The odd shapes are those the CUDA kernel's tiling makes hard (its
