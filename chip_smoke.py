@@ -41,15 +41,36 @@ non-zero and prints no result):
    early leaf point, a tsqr point and a trailing point of the panel's
    root lane mid-sweep, the last panel's last trailing point), R, factors
    and bundles bit-equal to the failure-free sweep, one single-source
-   event per kill, each REBUILD's seconds.
-7. recovery: the FT trailing update of one panel with lane 3 killed after
+   event per kill, each REBUILD's seconds; and with the same lanes killed
+   at the ends of those panels (the fused path's boundaries).
+7. online: ``ft_caqr_sweep_online`` on the same matrix, stepped and fused
+   without a death, stepped with the four kills (a ``ScriptedKiller``,
+   found by the NaN sentinel), fused with the panel-end kills, and
+   stepped with double-buffered segments: R, factors and bundles
+   bit-equal to the failure-free (and so to the scheduled) sweep, the
+   event ledgers equal to the scheduled runs'; seconds, segments,
+   boundaries, poll and recovery seconds, peak memory and launches. Then
+   fused under ``MDSScheme(f=2)`` with two simultaneous non-buddy deaths
+   at one boundary, decoded jointly and bit-equal to failure-free, with
+   the refresh seconds per boundary and the parity's bytes.
+8. shrink: SHRINK after one death, scheduled (stepped) and online (fused):
+   R bit-equal between the two, the Gram identity, the new world (8 slots,
+   7 live, the adopter's slice doubled to 8192 rows), and K1 and K6 at
+   that height against their plain versions.
+9. recovery: the FT trailing update of one panel with lane 3 killed after
    level 1 and rebuilt from one buddy, bitwise equal to the clean run.
-8. square: a 4096 x 4096 sweep (m_loc = 512, so the tree root walks lanes
+10. square: a 4096 x 4096 sweep (m_loc = 512, so the tree root walks lanes
    0-7 and lanes are consumed): fused == stepped at every panel boundary,
    both equal to ``caqr_factorize``, and a kill of a root lane recovered
    bitwise.
-9. ragged: an unaligned 32000 x 4000 sweep checked by the Gram identity,
+11. ragged: an unaligned 32000 x 4000 sweep checked by the Gram identity,
    and fused == stepped at every panel boundary.
+12. spread: each full-width sweep (``caqr_factorize``, the state machine
+   stepped and fused, the four-kill FT sweep, the online sweeps stepped,
+   fused and double-buffered) run five times: median and min-max seconds.
+
+The kernels line gives each kernel's launches on every path above, each
+counted from 0 just before the path ran.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Needs CUDA; imports neither JAX nor the JAX package.
@@ -72,7 +93,15 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 from repro_torch.core import SimComm, caqr_apply_qt, caqr_factorize, ft_tsqr  # noqa: E402
 from repro_torch.core import block_row_layout, householder, panel_geometry, recovery  # noqa: E402
 from repro_torch.core.lstsq import caqr_lstsq  # noqa: E402
-from repro_torch.ft import FailureSchedule, ft_caqr_sweep, sweep_point  # noqa: E402
+from repro_torch.ft import (  # noqa: E402
+    FailureSchedule,
+    MDSScheme,
+    ScriptedKiller,
+    Semantics,
+    ft_caqr_sweep,
+    ft_caqr_sweep_online,
+    sweep_point,
+)
 from repro_torch.ft.online import state as sm  # noqa: E402
 from repro_torch.kernels import backend, build, ops, ref  # noqa: E402
 from repro_torch.kernels import fused_sweep as tfs  # noqa: E402
@@ -104,6 +133,20 @@ KERNELS = {
 }
 STEPPED = ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply")
 LATE_W = 512  # a late panel's window width (panel 28 of 32)
+# the FT driver's four kills {point: lane}: an early leaf point, a tsqr and
+# a trailing point mid-sweep (the latter of the root lane: every panel of
+# the tall cell is rooted at lane 0) and the last panel's last point
+KILLS = {sweep_point(1, "leaf"): 2,
+         sweep_point(12, "tsqr", 1): 5,
+         sweep_point(16, "trailing", 0): 0,
+         sweep_point(N // B - 1, "trailing", L - 1): 7}
+# fused boundaries are panel ends: the same lanes at the last point of the
+# same four panels
+PANEL_END_KILLS = {sweep_point(k, "trailing", L - 1): lane
+                   for (k, _, _), lane in KILLS.items()}
+SPREAD_RUNS = 5
+# launches of every kernel on every path, counters at 0 before each path
+PATH_LAUNCHES = {}
 
 
 def emit(obj) -> None:
@@ -498,6 +541,7 @@ def sweep_phase(A: torch.Tensor, rng):
                qta_rest_rel=rest, lstsq_rel_err=lst,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     emit({"sweep": out})
+    PATH_LAUNCHES["sweep"] = dict(launches)
     return launches, seconds, res
 
 
@@ -546,6 +590,7 @@ def fused_leaf_phase(A: torch.Tensor) -> dict:
     same = same_bits((*wy, C, Cp), (*wy1, C1, C1[:, :B]))
     emit({"fused_leaf": dict(window=list(A.shape), launches=launches,
                              bitwise_equal_stepped=same)})
+    PATH_LAUNCHES["fused_leaf"] = launches
     check(launches["panel_qr_apply"] == 1 and
           all(launches[op] == 0 for op in STEPPED),
           f"fused leaf launches: {launches}")
@@ -620,6 +665,8 @@ def state_machine_phase(A: torch.Tensor, want: tuple) -> dict:
     ok_f = same_bits(flat_result(res_f), want)
     del res_f
     boundaries = lockstep(A)
+    PATH_LAUNCHES["state_machine_stepped"] = launch_s
+    PATH_LAUNCHES["state_machine_fused"] = launch_f
     emit({"state_machine": dict(
         shape=[P * M_LOC, N], stepped_seconds=sec_s, fused_seconds=sec_f,
         stepped_launches=launch_s, fused_launches=launch_f,
@@ -656,17 +703,251 @@ def kill_check(A: torch.Tensor, comm, kills: dict, want: tuple) -> dict:
           "a rebuild read from the dead lane")
     check(same, "the FT sweep with kills differs from the failure-free sweep")
     return dict(seconds=seconds, events=events, bitwise_equal=same,
-                launches=dict(backend.LAUNCHES))
+                launches=dict(backend.LAUNCHES), ledger=ledger(got.events))
 
 
-def ft_driver_phase(A: torch.Tensor, want: tuple) -> None:
-    root = 0  # every panel of the tall cell is rooted at lane 0
-    kills = {sweep_point(1, "leaf"): 2,
-             sweep_point(12, "tsqr", 1): 5,
-             sweep_point(16, "trailing", 0): root,
-             sweep_point(N // B - 1, "trailing", L - 1): 7}
-    out = kill_check(A, SimComm(P), kills, want)
-    emit({"ft_driver": dict(shape=[P * M_LOC, N], **out)})
+def ledger(events) -> list:
+    """(point, lane, reads) of each RecoveryEvent."""
+    return [(tuple(e.point), e.lane, dict(e.reads)) for e in events]
+
+
+def ft_driver_phase(A: torch.Tensor, want: tuple) -> dict:
+    """The scheduled FT sweep with the four kills and, for the fused online
+    run, with the same lanes killed at those panels' ends; returns both
+    event ledgers."""
+    out = kill_check(A, SimComm(P), KILLS, want)
+    ends = kill_check(A, SimComm(P), PANEL_END_KILLS, want)
+    PATH_LAUNCHES["ft_driver"] = out["launches"]
+    ledgers = {"kills": out.pop("ledger"),
+               "panel_end_kills": ends.pop("ledger")}
+    emit({"ft_driver": dict(shape=[P * M_LOC, N], **out,
+                            panel_end_kills=dict(
+                                seconds=ends["seconds"],
+                                events=ends["events"]))})
+    return ledgers
+
+
+class TimedScheme:
+    """A coding scheme that times each ``refresh`` (the device synchronised
+    before and after) and records the parity's bytes; everything else is
+    the wrapped scheme's."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.name, self.f, self.joint = inner.name, inner.f, inner.joint
+        self.seconds = []
+        self.parity_bytes = 0
+
+    def refresh(self, comm, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.inner.refresh(comm, state)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        self.parity_bytes = max(self.parity_bytes,
+                                sum(c.numel() for c in out.code))
+        return out
+
+    def decode_lanes(self, comm, state, newly, dead):
+        return self.inner.decode_lanes(comm, state, newly, dead)
+
+
+def online_run(A: torch.Tensor, kills: dict, **kw):
+    """``ft_caqr_sweep_online`` on the tall cell with a ``ScriptedKiller``
+    at ``kills`` ({point: [lanes]}), launch counters at 0 just before it
+    and peak memory counted above what was live; returns (result, the
+    orchestrator's statistics, seconds, launches, peak GB)."""
+    seen = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    backend.reset_launches()
+    t0 = time.perf_counter()
+    res = ft_caqr_sweep_online(
+        A, SimComm(P), B, fault_hooks=[ScriptedKiller(kills)],
+        boundary_hooks=[lambda orch: seen.append(orch)], **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    orch = seen[-1]
+    stats = dict(seconds=seconds, segments_run=orch.segments_run,
+                 boundaries=orch.boundaries, poll_s=orch.poll_s,
+                 recover_s=orch.recover_s,
+                 peak_mem_gb_above_live=(torch.cuda.max_memory_allocated()
+                                         - base) / 1e9)
+    return res, stats, dict(backend.LAUNCHES)
+
+
+def online_phase(A: torch.Tensor, want: tuple, ledgers: dict) -> None:
+    """The online path on the tall cell: stepped and fused without a
+    death; stepped with the FT driver's four kills, fused with the same
+    lanes killed at those panels' ends, and stepped with double-buffered
+    segments; each bit-equal to the failure-free sweep (so to the
+    scheduled runs, which equal it too) with the scheduled run's event
+    ledger. Then fused under MDSScheme(f=2) with
+    two simultaneous non-buddy deaths at one boundary, decoded jointly."""
+    kills = {pt: [lane] for pt, lane in KILLS.items()}
+    ends = {pt: [lane] for pt, lane in PANEL_END_KILLS.items()}
+    out = {}
+    for path, k, led, kw in (
+            ("online_stepped_failure_free", {}, [], {}),
+            ("online_fused_failure_free", {}, [], dict(fused=True)),
+            ("online_stepped", kills, ledgers["kills"], {}),
+            ("online_fused", ends, ledgers["panel_end_kills"], dict(fused=True)),
+            ("online_async", kills, ledgers["kills"],
+             dict(async_segments=True))):
+        res, stats, launches = online_run(A, k, **kw)
+        same = same_bits(flat_result(res), want)
+        got_ledger = ledger(res.events)
+        del res
+        PATH_LAUNCHES[path] = launches
+        out[path] = dict(stats, bitwise_equal_scheduled=same,
+                         ledger_equal_scheduled=got_ledger == led,
+                         launches=launches)
+        check(same, f"{path}: differs from the scheduled sweep")
+        check(got_ledger == led, f"{path}: ledger {got_ledger} != {led}")
+        if kw.get("fused"):
+            check(launches["fused_panel"] == N // B and
+                  (k or all(launches[op] == 0 for op in STEPPED)),
+                  f"{path}: K6 launches {launches}")
+        else:
+            check(all(launches[op] > 0 for op in STEPPED)
+                  and launches["fused_panel"] == 0,
+                  f"{path}: launches {launches}")
+    emit({"online": dict(shape=[P * M_LOC, N], **out)})
+
+    pair = [2, 5]  # no butterfly level pairs them
+    point = sweep_point(20, "trailing", L - 1)
+    scheme = TimedScheme(MDSScheme(f=2))
+    res, stats, launches = online_run(A, {point: pair}, fused=True,
+                                      scheme=scheme)
+    same = same_bits(flat_result(res), want)
+    events = [dict(point=list(e.point), lane=e.lane, reads=e.reads,
+                   decode_seconds=e.elapsed_s) for e in res.events]
+    del res
+    PATH_LAUNCHES["online_mds"] = launches
+    sec = sorted(scheme.seconds)
+    emit({"online_mds": dict(
+        f=2, killed=pair, point=list(point), **stats,
+        refresh_seconds_median=sec[len(sec) // 2],
+        refresh_seconds_min=sec[0], refresh_seconds_max=sec[-1],
+        refreshes=len(sec), parity_bytes_max=scheme.parity_bytes,
+        events=events, bitwise_equal_failure_free=same, launches=launches)})
+    check(same, "MDS joint decode differs from the failure-free sweep")
+    check([e["lane"] for e in events] == pair and
+          all(e["reads"].get("coded.parity1") == P + 1 for e in events),
+          f"MDS events are not a joint decode: {events}")
+    check(launches["fused_panel"] == N // B, f"online_mds launches {launches}")
+
+
+def shrunk_kernel_check(device, m: int, w: int) -> dict:
+    """K1 and K6 at the shrunken world's padded lane height against their
+    plain versions (random data from a seeded generator), and their
+    times."""
+    g = torch.Generator().manual_seed(1)
+    X = torch.randn(P, m, w, generator=g).to(device)
+    tol = ref.tolerances(torch.float32)[0]
+    out = {}
+    for name, run, plain in (
+            ("panel_qr", lambda: ops.panel_qr(X[..., :B].contiguous(), 0),
+             lambda: ref.panel_qr(X[..., :B].contiguous(), 0)),
+            ("fused_panel",
+             lambda: ops.fused_panel(X, 0, b=B, m_loc_pad=m, levels=L),
+             lambda: ref.fused_panel(X, 0, b=B, m_loc_pad=m, levels=L))):
+        err, scaled = max_err(as_tuple(run()), as_tuple(plain()))
+        check(scaled <= tol, f"{name} at m = {m}: scaled error {scaled}")
+        C = backend.team_blocks(m, B)
+        out[name] = dict(shape=[P, m, w], max_abs_err=err, scaled_err=scaled,
+                         team=C, slab_in_smem=backend.team_slab_in_smem(m, B, C),
+                         ms=time_ms(run, 5))
+    return out
+
+
+def shrink_phase(A: torch.Tensor) -> None:
+    """SHRINK after one death: the scheduled elastic sweep (stepped) and
+    the same kill online (fused), R bit-equal between the two and the Gram
+    identity within GRAM_TOL. With P = 8 and one death under the "pad"
+    policy the new world keeps 8 slots and the adopter's slice doubles, so
+    the next epoch runs at m_loc_pad = 2 M_LOC."""
+    lane, point = 3, sweep_point(8, "trailing", L - 1)
+    backend.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched = ft_caqr_sweep(A, SimComm(P), B, semantics=Semantics.SHRINK,
+                          schedule=FailureSchedule(events={point: [lane]}))
+    torch.cuda.synchronize()
+    sched_s = time.perf_counter() - t0
+    PATH_LAUNCHES["shrink_scheduled"] = dict(backend.LAUNCHES)
+    res, stats, launches = online_run(A, {point: [lane]}, fused=True,
+                                      semantics=Semantics.SHRINK)
+    PATH_LAUNCHES["shrink_online"] = launches
+    same = torch.equal(sched.R, res.R)
+    gram = gram_error(A.reshape(-1, N).double(), res.R)
+    (t,) = res.transitions
+    emit({"shrink": dict(
+        killed=lane, point=list(point), scheduled_seconds=sched_s,
+        online=stats, R_bitwise_scheduled_online=same,
+        transitions_equal=sched.transitions == res.transitions,
+        ledger_equal=ledger(sched.events) == ledger(res.events),
+        frontier=t.frontier, adopter=t.adopter,
+        world_after=dict(n_slots=t.world_after.n_slots,
+                         live=list(t.world_after.live)),
+        gram_rel_err=gram, launches_scheduled=PATH_LAUNCHES["shrink_scheduled"],
+        launches_online=launches,
+        shrunk_kernels=shrunk_kernel_check(A.device, 2 * M_LOC, N - 9 * B))})
+    check(same, "SHRINK: online R differs from the scheduled R")
+    check(sched.transitions == res.transitions and
+          ledger(sched.events) == ledger(res.events),
+          "SHRINK: transitions or ledgers differ")
+    check(t.world_after.n_slots == P and t.world_after.n_live == P - 1,
+          f"SHRINK world {t.world_after}")
+    check(gram <= GRAM_TOL, f"SHRINK Gram identity: {gram} > {GRAM_TOL}")
+    check(launches["fused_panel"] == N // B,
+          f"SHRINK online K6 launches {launches}")
+
+
+def spread_phase(A: torch.Tensor) -> None:
+    """Run-to-run spread: every full-width sweep SPREAD_RUNS times, each
+    run ending in a synchronise; median and min-max seconds."""
+    comm = SimComm(P)
+    kills = {pt: [lane] for pt, lane in KILLS.items()}
+    ends = {pt: [lane] for pt, lane in PANEL_END_KILLS.items()}
+
+    def fused():
+        s = sm.initial_sweep_state(comm, A, B)
+        while s.cursor is not None:
+            s = sm.run_panel_fused(comm, s)
+        return sm.finalize(comm, s)
+
+    def online(k, **kw):
+        return lambda: ft_caqr_sweep_online(
+            A, comm, B, fault_hooks=[ScriptedKiller(k)], **kw)
+
+    sweeps = {
+        "caqr_factorize": lambda: caqr_factorize(
+            A, comm, B, use_scan=False, collect_bundles=True),
+        "state_machine_stepped": lambda: sm.finalize(
+            comm, sm.run_steps(comm, sm.initial_sweep_state(comm, A, B))),
+        "state_machine_fused": fused,
+        "ft_sweep_four_kills": lambda: ft_caqr_sweep(
+            A, comm, B, schedule=FailureSchedule(events=kills)),
+        "online_stepped_four_kills": online(kills),
+        "online_fused_four_kills": online(ends, fused=True),
+        "online_async_four_kills": online(kills, async_segments=True),
+    }
+    out = {}
+    for name, fn in sweeps.items():
+        times = []
+        for _ in range(SPREAD_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del res
+        times.sort()
+        out[name] = dict(median_s=times[len(times) // 2], min_s=times[0],
+                         max_s=times[-1], runs=times)
+    emit({"spread": dict(shape=[P * M_LOC, N], runs=SPREAD_RUNS, **out)})
 
 
 def recovery_phase(A: torch.Tensor) -> None:
@@ -700,6 +981,7 @@ def square_phase(rng) -> None:
     k = 13                     # col0 = 1664: rooted at lane 3
     root = (k * B) // m_loc
     out = kill_check(A, comm, {sweep_point(k, "trailing", 1): root}, want)
+    del out["ledger"]
     emit({"square": dict(shape=[n, n], m_loc=m_loc, gram_rel_err=gram,
                          boundaries_bitwise=boundaries, kill=out)})
 
@@ -751,11 +1033,17 @@ def main() -> int:
     launches.update({"fused_panel": state_machine_phase(A, want)["fused_panel"]})
     for rec in records:
         rec["launches"] = launches[rec["name"]]
-    ft_driver_phase(A, want)
+    ledgers = ft_driver_phase(A, want)
+    online_phase(A, want, ledgers)
     del want
+    shrink_phase(A)
     recovery_phase(A)
     square_phase(rng)
     ragged_phase(rng)
+    spread_phase(A)
+    for rec in records:
+        rec["launches_by_path"] = {path: counts[rec["name"]]
+                                   for path, counts in PATH_LAUNCHES.items()}
     print(card, flush=True)
     emit({"kernels": records})
     emit({"ok": True, "device": {"platform": "gpu",

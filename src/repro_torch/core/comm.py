@@ -5,8 +5,9 @@ Every per-lane array carries a leading lane axis P. On one GPU this is the
 production layout, not a simulator: a lane-batched call runs the lanes as
 one kernel launch. ``ppermute`` restacks the lane slices, and the
 death-mask primitives (``where_lane``, ``poison``, ``fetch_lane``) are
-indexing on the lane axis. ``AxisComm``, ``xor_reduce`` and ``lane_slice``
-are not ported yet.
+indexing on the lane axis, and ``xor_reduce`` (the parity collective of
+``repro_torch.ft.coding``) and ``lane_slice`` (the speculative straggler
+check) complete the set. ``AxisComm`` is not ported yet.
 
 Lane-dependent bookkeeping (``axis_index`` and conditions built from it)
 lives on the CPU; ``where`` moves a condition to the data's device
@@ -101,3 +102,20 @@ class SimComm:
         out = (x if into is None else into).clone()
         out[self._lane_index(dst, lane_axis)] = x[self._lane_index(src, lane_axis)]
         return out
+
+    def xor_reduce(self, x: torch.Tensor, lane_axis: int = 0) -> torch.Tensor:
+        """Bitwise-XOR reduction of an integer tensor over the lane axis
+        (the parity collective of ``repro_torch.ft.coding``). The lane axis
+        is reduced away: the parity is a checksum-lane value with no
+        per-lane copy."""
+        x = torch.movedim(x, lane_axis, 0)
+        out = x[0].clone()
+        for i in range(1, x.shape[0]):
+            out.bitwise_xor_(x[i])
+        return out
+
+    def lane_slice(self, x: torch.Tensor, lane: int, lane_axis: int = 0):
+        """One lane's slice of a batched tensor (a view). The orchestrator's
+        speculative straggler recompute compares a rebuilt lane slice with
+        the original through it."""
+        return x[self._lane_index(lane, lane_axis)]

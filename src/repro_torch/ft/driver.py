@@ -1,5 +1,5 @@
 """Fault-tolerant execution driver for the windowed CAQR sweep, paper §II-III
-(port of ``src/repro/ft/driver.py``, REBUILD only).
+(port of ``src/repro/ft/driver.py``).
 
 The end-to-end form of the paper's claim: run the entire windowed FT-CAQR
 sweep while lanes die at scheduled points (any panel, after the leaf or
@@ -24,8 +24,8 @@ every lane through ``comm.map_local`` (a vmap) and keeps only the dead
 lane's result. The port's ``SimComm.map_local`` is the identity and the
 sweep-level primitives of ``repro_torch.core.recovery`` take one lane's
 2-D rows, so the port replays only the dead lane's slice and writes it
-back with ``where_lane``. SHRINK and BLANK (``repro.ft.elastic``) are not
-ported: ``ft_caqr_sweep`` raises ``NotImplementedError`` for them.
+back with ``where_lane``. SHRINK and BLANK delegate to the scheduled
+elastic driver (``repro_torch.ft.elastic.ft_caqr_sweep_elastic``).
 """
 from __future__ import annotations
 
@@ -115,11 +115,12 @@ def recover_lanes(
     """The REBUILD protocol: all detected deaths strike first, then
     recovery runs. One newly dead lane takes the paper's single-source XOR
     REBUILD; ``2 <= t <= scheme.f`` simultaneous deaths take the scheme's
-    joint decode (no ported scheme has one); otherwise the per-lane loop
-    runs, and a needed source that is itself dead raises
-    ``UnrecoverableFailure``. ``sync(state)`` (optional) drains the device
-    before and after each rebuild so ``elapsed_s`` covers only the rebuild;
-    ``on_recovered(lane)`` runs after a lane is rebuilt."""
+    joint decode (``MDSScheme``); otherwise the per-lane loop runs, and
+    a needed source that is itself dead raises ``UnrecoverableFailure``
+    (naming the scheme's ``f`` when ``t > f``). ``sync(state)`` (optional)
+    drains the device before and after each rebuild so ``elapsed_s``
+    covers only the rebuild; ``on_recovered(lane)`` runs after a lane is
+    rebuilt."""
     scheme = _XOR_SCHEME if scheme is None else scheme
     events: List[RecoveryEvent] = []
     newly = sorted(newly)
@@ -140,17 +141,25 @@ def recover_lanes(
             events.append(RecoveryEvent(point=point, lane=lane,
                                         reads=dict(reads), elapsed_s=elapsed))
         return state, events
-    for lane in newly:
-        if sync is not None:
-            sync(state)
-        t0 = time.perf_counter()
-        state, reads = rebuild_state(comm, state, lane, point, dead)
-        if sync is not None:
-            sync(state)
-        if on_recovered is not None:
-            on_recovered(lane)
-        events.append(RecoveryEvent(point=point, lane=lane, reads=reads,
-                                    elapsed_s=time.perf_counter() - t0))
+    try:
+        for lane in newly:
+            if sync is not None:
+                sync(state)
+            t0 = time.perf_counter()
+            state, reads = rebuild_state(comm, state, lane, point, dead)
+            if sync is not None:
+                sync(state)
+            if on_recovered is not None:
+                on_recovered(lane)
+            events.append(RecoveryEvent(point=point, lane=lane, reads=reads,
+                                        elapsed_s=time.perf_counter() - t0))
+    except UnrecoverableFailure as e:
+        if scheme.joint and len(newly) > scheme.f:
+            raise UnrecoverableFailure(
+                f"{len(newly)} simultaneous deaths exceed the coding "
+                f"scheme's tolerance f={scheme.f}, and the XOR fallback "
+                f"found no live source: {e}") from None
+        raise
     return state, events
 
 
@@ -380,8 +389,16 @@ def ft_caqr_sweep(
     §II-III end to end). Returns ``(R, factors, bundles, events)``,
     bit-identical to ``caqr_factorize(A0, comm, panel_width,
     collect_bundles=True, use_scan=False)`` whatever the (recoverable)
-    schedule, with one ``RecoveryEvent`` per REBUILD. Only REBUILD
-    semantics are ported.
+    schedule, with one ``RecoveryEvent`` per REBUILD.
+
+    ``semantics`` selects the continuation policy: REBUILD (default) runs
+    this driver; SHRINK and BLANK delegate to the scheduled elastic driver
+    (``repro_torch.ft.elastic.ft_caqr_sweep_elastic``), which returns an
+    ``ElasticSweepResult`` with a host-spliced R instead. ``scheme``
+    selects the redundancy coding: ``XORPairScheme`` (default) or
+    ``MDSScheme(f=...)``, whose parity slots recover any ``f``
+    simultaneous deaths bitwise. For runtime-detected failures use the
+    online orchestrator (``repro_torch.ft.online.orchestrator``).
 
     Example (kill lane 1 after panel 0's level-0 trailing combine):
 
@@ -400,7 +417,9 @@ def ft_caqr_sweep(
     [((0, 'trailing', 0), 1)]
     """
     if semantics is not None and semantics is not Semantics.REBUILD:
-        raise NotImplementedError(
-            f"{semantics}: only REBUILD is ported (SHRINK and BLANK wait for "
-            "ft/elastic.py)")
+        from repro_torch.ft.elastic import ft_caqr_sweep_elastic
+
+        return ft_caqr_sweep_elastic(
+            A0, comm, panel_width, schedule=schedule, semantics=semantics,
+            scheme=scheme)
     return FTSweepDriver(A0, comm, panel_width, schedule, scheme=scheme).run()

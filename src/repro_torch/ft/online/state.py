@@ -130,9 +130,11 @@ class SweepState:
     factors: Tuple = ()      # PanelFactors
     R_rows: Tuple = ()
     bundles: Tuple = ()      # RecoveryBundle
-    # coded checksum slots of the JAX package's MDS scheme (no lane axis);
-    # None under the XOR scheme, the only one ported. A state loaded from
-    # the wire format carries them along unchanged.
+    # coded checksum slots (``repro_torch.ft.coding``): one
+    # (f, *byte_shape) uint8 parity per protected leaf, on the state's
+    # device, re-encoded at every boundary by ``MDSScheme.refresh``; None
+    # under the XOR scheme. No lane axis (skip-axis -1 in
+    # ``state_lane_axes``, never poisoned); wire format v2 carries it.
     code: Any = None
 
     @property
@@ -415,6 +417,27 @@ def flat_arrays(state: SweepState, version: int = WIRE_VERSION
         else:
             flat[f] = v
     return flat
+
+
+def replace_arrays(state: SweepState, arrays: Dict[str, Any]) -> SweepState:
+    """``state`` with the leaves named in ``arrays`` (``flat_arrays`` keys)
+    replaced; every other leaf is kept."""
+    fields: Dict[str, Any] = {}
+    for f in _ARRAY_FIELDS:
+        v = getattr(state, f)
+        if isinstance(v, tuple):
+            entries = []
+            for i, entry in enumerate(v):
+                if isinstance(entry, (PanelFactors, RecoveryBundle)):
+                    entries.append(type(entry)(*(
+                        arrays.get(f"{f}/{i}/{fld}", x)
+                        for fld, x in zip(entry._fields, entry))))
+                else:
+                    entries.append(arrays.get(f"{f}/{i}", entry))
+            fields[f] = tuple(entries)
+        elif v is not None:
+            fields[f] = arrays.get(f, v)
+    return state.replace(**fields)
 
 
 def sweep_state_to_host(state: SweepState, version: int = WIRE_VERSION

@@ -69,6 +69,17 @@ def test_simcomm_primitives_match_reference(rng):
     np.testing.assert_array_equal(tc.axis_index().numpy(), np.asarray(jc.axis_index()))
 
 
+def test_simcomm_xor_reduce_and_lane_slice_match_reference(rng):
+    P = 8
+    x = rng.integers(0, 256, (3, P, 5), dtype=np.uint8)
+    tc, jc = T.SimComm(P), J.SimComm(P)
+    for ax, y in ((1, x), (0, np.moveaxis(x, 1, 0).copy())):
+        close(tc.xor_reduce(t(y), lane_axis=ax),
+              jc.xor_reduce(jnp.asarray(y), lane_axis=ax), exact=True)
+        close(tc.lane_slice(t(y), 5, lane_axis=ax),
+              jc.lane_slice(jnp.asarray(y), 5, lane_axis=ax), exact=True)
+
+
 # -- householder --------------------------------------------------------------
 
 
@@ -245,3 +256,69 @@ def test_block_row_layout_matches_reference(rng):
     A = rng.standard_normal((13, 5)).astype(np.float32)
     close(T.block_row_layout(A, 4, n=7, device="cpu"),
           J.block_row_layout(jnp.asarray(A), 4, n=7), exact=True)
+
+
+# -- lane heights below the panel width, two or more panels -------------------
+
+# (P, m_loc, n, b) with m_loc < b: the rows pad up to b and, from the second
+# panel on, the padded lanes hold linearly dependent rows, so the sign of a
+# reflector's x0 (and with it R's row signs) is set by round-off. The last
+# case (m_loc = b) is the control whose signs are held.
+SMALL_ROWS = [(4, 2, 8, 4), (4, 3, 16, 4), (8, 2, 16, 4), (4, 4, 16, 4)]
+
+
+def _gram_rel(A, R):
+    A64 = np.asarray(A, np.float64).reshape(-1, A.shape[-1])
+    R64 = np.asarray(R, np.float64)
+    G = A64.T @ A64
+    return np.abs(R64.T @ R64 - G).max() / np.abs(G).max()
+
+
+@pytest.mark.parametrize("geom", SMALL_ROWS, ids=lambda g: "-".join(map(str, g)))
+def test_small_lane_heights_match_reference(rng, geom):
+    """|R| and the Gram identity within tolerance of the JAX package, the
+    geometry exactly; R's row signs only where m_loc >= b."""
+    P, m_loc, n, b = geom
+    A = rng.standard_normal((P, m_loc, n)).astype(np.float32)
+    got = T.caqr_factorize(t(A), T.SimComm(P), b, collect_bundles=True,
+                           use_scan=False)
+    want = J.caqr_factorize(jnp.asarray(A), J.SimComm(P), b,
+                            collect_bundles=True, use_scan=False)
+    g = T.sweep_geometry(P, m_loc, n, b)
+    assert g == J.sweep_geometry(P, m_loc, n, b) and g.n_panels >= 2
+    R, Rj = got.R[0].numpy(), np.asarray(want.R[0])
+    close(t(np.abs(R)), np.abs(Rj))
+    assert _gram_rel(A, R) <= TOL and _gram_rel(A, Rj) <= TOL
+    if m_loc >= b:
+        close(got.R, want.R)
+    assert bool((got.R == got.R[:1]).all())
+
+
+@pytest.mark.parametrize("geom", SMALL_ROWS[:3], ids=lambda g: "-".join(map(str, g)))
+def test_small_lane_heights_kill_and_fused_bitwise(rng, geom):
+    """Inside the port, at m_loc < b: a kill at every point (three lanes)
+    recovers bit-identically to the failure-free sweep, and the fused
+    sweep equals the stepped one at every panel boundary."""
+    from repro_torch.ft import FailureSchedule, ft_caqr_sweep, iter_sweep_points
+    from repro_torch.ft.online import state as tstate
+
+    P, m_loc, n, b = geom
+    A = t(rng.standard_normal((P, m_loc, n)).astype(np.float32))
+    comm = T.SimComm(P)
+    ref = T.caqr_factorize(A, comm, b, collect_bundles=True, use_scan=False)
+    want = (ref.R, *ref.factors, *ref.bundles)
+    g = T.sweep_geometry(P, m_loc, n, b)
+    for point in iter_sweep_points(g.n_panels, g.levels):
+        for lane in (0, 3, P - 1):
+            got = ft_caqr_sweep(A, comm, b,
+                                schedule=FailureSchedule(events={point: [lane]}))
+            assert all(torch.equal(x, y) for x, y in
+                       zip((got.R, *got.factors, *got.bundles), want)), \
+                (point, lane)
+    s_f = s_s = tstate.initial_sweep_state(comm, A, b)
+    while s_f.cursor is not None:
+        s_f = tstate.run_panel_fused(comm, s_f)
+        s_s = tstate.run_steps(comm, s_s, tstate.panel_points(g))
+        a, c = tstate.flat_arrays(s_f), tstate.flat_arrays(s_s)
+        assert a.keys() == c.keys()
+        assert all(torch.equal(a[k], c[k]) for k in a), s_s.cursor

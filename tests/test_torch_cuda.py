@@ -1,6 +1,7 @@
 """The port's CUDA kernels K1-K6 against their plain PyTorch versions on
 the card, and the port's bitwise contracts there (fused == stepped, kill
-== failure-free). Needs an NVIDIA GPU with nvcc; every test skips without
+== failure-free, online == scheduled, async == sync, MDS decode ==
+failure-free, SHRINK scheduled == online). Needs an NVIDIA GPU with nvcc; every test skips without
 one.
 
 Imports neither JAX nor the JAX package, so it also runs on a machine
@@ -13,7 +14,16 @@ import pytest
 import torch
 
 from repro_torch.core import SimComm, caqr_factorize, ft_tsqr, recovery
-from repro_torch.ft import FailureSchedule, ft_caqr_sweep, sweep_point
+from repro_torch.ft import (
+    FailureSchedule,
+    MDSScheme,
+    ScriptedKiller,
+    Semantics,
+    SweepOrchestrator,
+    ft_caqr_sweep,
+    ft_caqr_sweep_online,
+    sweep_point,
+)
 from repro_torch.ft.online import state as tstate
 from repro_torch.kernels import backend, ops
 from repro_torch.kernels import panel_qr as tpanel
@@ -405,3 +415,101 @@ def test_cuda_ft_kill_recovered_bitwise(rng, cuda, point, lane):
         assert torch.equal(x, y)
     (event,) = got.events
     assert event.point == point and event.lane == lane
+
+
+def _flat(res):
+    return (res.R, *res.factors, *res.bundles)
+
+
+def _bitwise(got, want):
+    return all(torch.equal(x, y) for x, y in zip(_flat(got), _flat(want)))
+
+
+# P = 8 lanes of 32 rows at b = 8: 16 panels, the root walks lanes 0-3
+ONLINE = (8, 32, 128, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["stepped", "fused", "async"])
+def test_cuda_online_equals_scheduled(rng, cuda, path):
+    """The online path (a ScriptedKiller, found by the NaN sentinel) ==
+    the scheduled sweep with the same kills, bits and ledgers; the fused
+    path's boundaries are panel ends, so its kills sit there."""
+    P, m_loc, n, b = ONLINE
+    comm = SimComm(P)
+    A = t(rng.standard_normal((P, m_loc, n)).astype(np.float32)).to(cuda)
+    if path == "fused":
+        kills = {sweep_point(3, "trailing", 2): [1],
+                 sweep_point(9, "trailing", 2): [6]}
+        kw = dict(fused=True)
+    else:
+        kills = {sweep_point(1, "tsqr", 1): [0],
+                 sweep_point(6, "trailing", 2): [5], sweep_point(9, "leaf"): [3]}
+        kw = dict(async_segments=path == "async")
+    sched = ft_caqr_sweep(A, comm, b, schedule=FailureSchedule(events=kills))
+    backend.reset_launches()
+    got = ft_caqr_sweep_online(A, comm, b,
+                               fault_hooks=[ScriptedKiller(kills)], **kw)
+    assert _bitwise(got, sched)
+    assert [(e.point, e.lane, e.reads) for e in got.events] == \
+        [(e.point, e.lane, e.reads) for e in sched.events]
+    if path == "fused":
+        assert backend.LAUNCHES["fused_panel"] == n // b
+    else:
+        assert backend.LAUNCHES["stacked_qr"] > 0
+        assert backend.LAUNCHES["fused_panel"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_mds_joint_decode_is_bitwise(rng, cuda, fused):
+    """MDSScheme(f=2): a whole former buddy pair and a non-buddy pair
+    killed at one boundary each, decoded jointly on the card: bit-equal to
+    the failure-free sweep."""
+    P, m_loc, n, b = ONLINE
+    comm = SimComm(P)
+    A = t(rng.standard_normal((P, m_loc, n)).astype(np.float32)).to(cuda)
+    ref = caqr_factorize(A, comm, b, collect_bundles=True, use_scan=False)
+    kills = {sweep_point(4, "trailing", 2): [2, 3],
+             sweep_point(10, "trailing", 2): [1, 6]}
+    got = ft_caqr_sweep_online(A, comm, b, scheme=MDSScheme(f=2),
+                               fused=fused,
+                               fault_hooks=[ScriptedKiller(kills)])
+    assert _bitwise(got, ref)
+    assert [e.lane for e in got.events] == [2, 3, 1, 6]
+    assert all(e.reads["coded.parity1"] == P + 1 for e in got.events)
+
+
+@pytest.mark.cuda
+def test_cuda_async_equals_sync_without_kills(rng, cuda):
+    P, m_loc, n, b = ONLINE
+    comm = SimComm(P)
+    A = t(rng.standard_normal((P, m_loc, n)).astype(np.float32)).to(cuda)
+    sync = SweepOrchestrator(A, comm, b, segment_points=2).run()
+    orch = SweepOrchestrator(A, comm, b, segment_points=2,
+                             async_segments=True)
+    assert _bitwise(orch.run(), sync)
+    assert orch.segments_run == orch.boundaries
+
+
+@pytest.mark.cuda
+def test_cuda_shrink_scheduled_equals_online(rng, cuda):
+    """SHRINK at P = 8: the adopter's slice doubles, so the second epoch
+    runs K1 and K6 at twice the padded lane height; scheduled (stepped)
+    and online (fused) give the same R bits."""
+    P, m_loc, n, b = ONLINE
+    comm = SimComm(P)
+    A = t(rng.standard_normal((P, m_loc, n)).astype(np.float32)).to(cuda)
+    point = sweep_point(5, "trailing", 2)
+    sched = ft_caqr_sweep(A, comm, b, semantics=Semantics.SHRINK,
+                          schedule=FailureSchedule(events={point: [3]}))
+    online = ft_caqr_sweep_online(A, comm, b, semantics=Semantics.SHRINK,
+                                  fused=True,
+                                  fault_hooks=[ScriptedKiller({point: [3]})])
+    assert torch.equal(sched.R, online.R)
+    assert sched.transitions == online.transitions
+    assert online.world.n_live == P - 1
+    R = online.R.double().cpu()
+    A64 = A.reshape(-1, n).double().cpu()
+    G = A64.T @ A64
+    assert float((R.T @ R - G).abs().max() / G.abs().max()) < 1e-4

@@ -169,9 +169,24 @@ def test_recovery_sources_are_tree_buddies():
 
 
 @pytest.mark.parametrize("semantics", [Semantics.SHRINK, Semantics.BLANK])
-def test_elastic_semantics_are_not_ported(semantics):
-    A = torch.from_numpy(_matrix(RP, RM_LOC, RN))
-    with pytest.raises(NotImplementedError):
-        ft_caqr_sweep(A, SimComm(RP), RB, semantics=semantics)
-    assert ft_caqr_sweep(A, SimComm(RP), RB,
+def test_elastic_semantics_match_reference(semantics):
+    """SHRINK and BLANK delegate to the elastic driver in both packages:
+    the same transition records and heal ledger, R within tolerance."""
+    A = _matrix(RP, RM_LOC, RN)
+    point = sweep_point(1, "tsqr", 0)
+    got = ft_caqr_sweep(torch.from_numpy(A), SimComm(RP), RB,
+                        schedule=FailureSchedule(events={point: [2]}),
+                        semantics=semantics)
+    want = jft.ft_caqr_sweep(jnp.asarray(A), JSimComm(RP), RB,
+                             schedule=jft.FailureSchedule(events={point: [2]}),
+                             semantics=jft.Semantics(semantics.value))
+    assert [(t.kind, t.frontier, t.lanes, t.adopter) for t in got.transitions] \
+        == [(t.kind, t.frontier, t.lanes, t.adopter) for t in want.transitions]
+    assert tuple(got.world.live) == tuple(want.world.live)
+    assert [(e.point, e.lane, e.reads) for e in got.events] == \
+        [(e.point, e.lane, e.reads) for e in want.events]
+    w = np.asarray(want.R)
+    np.testing.assert_allclose(got.R.numpy(), w, rtol=RTOL,
+                               atol=ATOL * max(1.0, np.abs(w).max()))
+    assert ft_caqr_sweep(torch.from_numpy(A), SimComm(RP), RB,
                          semantics=Semantics.REBUILD).events == []

@@ -76,10 +76,40 @@ def test_numpy_entry_points_need_cuda_unless_asked_for_cpu():
         pytest.skip("this machine has CUDA; the rule is about machines without")
     for call in (lambda: T.block_row_layout(A, 4),
                  lambda: interop.to_tensor(A),
-                 lambda: interop.result_from_arrays({"R": A})):
+                 lambda: interop.result_from_arrays({"R": A}),
+                 lambda: interop.elastic_result_from_fields(A, [], [], None)):
         with pytest.raises(RuntimeError):
             call()
     assert T.block_row_layout(A, 4, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("f", [None, 2], ids=["xor", "mds"])
+def test_jax_sweep_state_with_parity_crosses_to_port(rng, f):
+    """A JAX SweepState (with MDS parity slots under f=2), as its wire
+    format: the port's state has the same cursor, geometry and parity
+    bytes, floats equal to the bit, and finishes within tolerance of the
+    JAX sweep."""
+    from repro.ft import MDSScheme as JMDS
+    from repro.ft.online import state as jstate
+    from repro_torch.ft.online import state as tstate
+
+    P, m_loc, n, b = 4, 6, 10, 4
+    A = rng.standard_normal((P, m_loc, n)).astype(np.float32)
+    jc = J.SimComm(P)
+    js = jstate.run_steps(jc, jstate.initial_sweep_state(jc, jnp.asarray(A), b), 6)
+    if f is not None:
+        js = JMDS(f=f).refresh(jc, js)
+    host = jstate.sweep_state_to_host(js)
+    ts = interop.sweep_state_from_arrays(host, device="cpu")
+    assert ts.cursor == js.cursor and tuple(ts.geom) == tuple(js.geom)
+    flat = tstate.flat_arrays(ts)
+    assert flat.keys() == {k for k in host if k != "__meta__"}
+    assert all(np.array_equal(flat[k].numpy(), host[k]) for k in flat)
+    assert (ts.code is None) == (f is None)
+    R = tstate.finalize(T.SimComm(P), tstate.run_steps(T.SimComm(P), ts))[0]
+    Rj = np.asarray(jstate.finalize(jc, jstate.run_steps(jc, js))[0])
+    np.testing.assert_allclose(R.numpy(), Rj, rtol=3e-4,
+                               atol=3e-4 * max(1.0, np.abs(Rj).max()))
 
 
 def _imports(path: pathlib.Path):
