@@ -65,7 +65,27 @@ non-zero and prints no result):
    bitwise.
 11. ragged: an unaligned 32000 x 4000 sweep checked by the Gram identity,
    and fused == stepped at every panel boundary.
-12. spread: each full-width sweep (``caqr_factorize``, the state machine
+12. serve: the QR service (``repro_torch.serve.QRService``) at P = 8,
+   b = 128, buckets (m_loc, n) = (1024, 1024) and (4096, 2048), 8 slots:
+   24 ragged requests from ``--seed`` (half drawn for each bucket, m in
+   [b, P m_loc], n in [b, n - 2], a quarter of the tall ones least
+   squares with 2 rhs columns), one submitted a tick. Three runs of that
+   traffic: failure-free, lane 2 killed at tick 2 (healed mid-batch by
+   the single-source REBUILD), and ``drain_batched`` in groups of four
+   requests. Checks: every R meets the Gram identity against its own A,
+   every lstsq x is within 1e-3 of the float64 solution (on the card),
+   kill == failure-free and drain_batched == continuous bit for bit, every
+   tenant resident at the kill healed by one single-source event, K1-K4
+   launched on each run, and K1-K4 at each bucket's shapes against their
+   plain versions (on a served tenant zero-padded into the bucket and on
+   random data: K1 at row start 0 and at the last panel's, on 8 lanes and
+   one; K2 at the first, a middle and the last window and on one lane; K3;
+   K4 at the first and the last window). Prints requests per second, p50
+   and p99 latency, ticks and the median tick, heal seconds per tenant,
+   peak memory, and, over a second failure-free drain under torch.profiler
+   and against that drain's own wall time, the card's compute share (K1-K4
+   and the other kernels) apart from its copy share (Memcpy and Memset).
+13. spread: each full-width sweep (``caqr_factorize``, the state machine
    stepped and fused, the four-kill FT sweep, the online sweeps stepped,
    fused and double-buffered) run five times: median and min-max seconds.
 
@@ -92,6 +112,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import SimComm, caqr_apply_qt, caqr_factorize, ft_tsqr  # noqa: E402
 from repro_torch.core import block_row_layout, householder, panel_geometry, recovery  # noqa: E402
+from repro_torch.core import sweep_geometry  # noqa: E402
 from repro_torch.core.lstsq import caqr_lstsq  # noqa: E402
 from repro_torch.ft import (  # noqa: E402
     FailureSchedule,
@@ -108,6 +129,8 @@ from repro_torch.kernels import fused_sweep as tfs  # noqa: E402
 from repro_torch.kernels import panel_qr as tpq  # noqa: E402
 from repro_torch.kernels import stacked_qr as tsa  # noqa: E402
 from repro_torch.kernels import wy_apply as twy  # noqa: E402
+from repro_torch.launch.serve_qr import make_requests  # noqa: E402
+from repro_torch.serve import QRService  # noqa: E402
 
 P, M_LOC, N, B = 8, 4096, 4096, 128
 L = P.bit_length() - 1
@@ -145,6 +168,15 @@ KILLS = {sweep_point(1, "leaf"): 2,
 PANEL_END_KILLS = {sweep_point(k, "trailing", L - 1): lane
                    for (k, _, _), lane in KILLS.items()}
 SPREAD_RUNS = 5
+# the serve phase: the larger bucket's tenants reach 32768 x 2046, 16 panels
+SERVE_BUCKETS = ((1024, 1024), (4096, 2048))
+SERVE_SLOTS = 8
+SERVE_REQUESTS = 24
+SERVE_LSTSQ_FRAC = 0.25
+SERVE_KILL_LANE, SERVE_KILL_TICK = 2, 2
+# requests a drain_batched call takes: four of the larger bucket's tenants
+# with their bundles are about 9 GB, twice that while the batch is stacked
+SERVE_GROUP = 4
 # launches of every kernel on every path, counters at 0 before each path
 PATH_LAUNCHES = {}
 
@@ -558,6 +590,16 @@ def profile_phase(A: torch.Tensor, sweep_seconds: float) -> None:
         caqr_factorize(A, SimComm(P), B, use_scan=False, collect_bundles=True)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel, other = device_time_by_kernel(prof)
+    busy = sum(by_kernel.values()) + other
+    emit({"profile": dict(profiled_wall_ms=wall_ms, kernel_ms=by_kernel,
+                          other_device_ms=other, device_ms=busy,
+                          device_busy_share=busy / (sweep_seconds * 1e3))})
+
+
+def device_time_by_kernel(prof):
+    """(ms of K1-K4 by name, ms of every other device op) in a
+    torch.profiler trace."""
     by_kernel = {name: 0.0 for name in STEPPED}
     other = 0.0
     for e in prof.key_averages():
@@ -570,10 +612,7 @@ def profile_phase(A: torch.Tensor, sweep_seconds: float) -> None:
             other += us / 1e3
         else:
             by_kernel[name] += us / 1e3
-    busy = sum(by_kernel.values()) + other
-    emit({"profile": dict(profiled_wall_ms=wall_ms, kernel_ms=by_kernel,
-                          other_device_ms=other, device_ms=busy,
-                          device_busy_share=busy / (sweep_seconds * 1e3))})
+    return by_kernel, other
 
 
 def fused_leaf_phase(A: torch.Tensor) -> dict:
@@ -1001,6 +1040,227 @@ def ragged_phase(rng) -> None:
                          fused_boundaries_bitwise=boundaries)})
 
 
+def serve_traffic(seed: int) -> list:
+    """The serve phase's (A, rhs) requests from ``seed`` (the launcher's
+    ``make_requests``): half drawn for each bucket, interleaved."""
+    rng = np.random.default_rng(seed)
+    halves = [make_requests(rng, SERVE_REQUESTS // 2, B, P * m_loc, n - 2,
+                            SERVE_LSTSQ_FRAC) for m_loc, n in SERVE_BUCKETS]
+    return [req for pair in zip(*halves) for req in pair]
+
+
+def serve_service() -> QRService:
+    """The serve phase's service on its default device (the card)."""
+    return QRService(SimComm(P), panel_width=B, buckets=SERVE_BUCKETS,
+                     max_slots=SERVE_SLOTS)
+
+
+def serve_run(reqs: list, kill: bool = False) -> dict:
+    """The service under ``reqs``, one request submitted a tick (the
+    launcher's ``--arrive-every 1``), a synchronise after every tick; with
+    ``kill``, lane SERVE_KILL_LANE dies at tick SERVE_KILL_TICK. Launch
+    counters at 0 before it."""
+    svc = serve_service()
+    pending = list(reqs)
+    rids, ticks, at_kill = [], [], []
+    torch.cuda.synchronize()
+    backend.reset_launches()
+    t0 = time.perf_counter()
+    while pending or svc.queue or svc.resident:
+        if pending:
+            rids.append(svc.submit(*pending.pop(0)))
+        if kill and svc.tick_count == SERVE_KILL_TICK:
+            svc.kill_lane(SERVE_KILL_LANE)
+            at_kill = [s.req.rid for s in svc.slots if s is not None]
+        t = time.perf_counter()
+        svc.tick()
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter() - t)
+    wall = time.perf_counter() - t0
+    return dict(results=svc.results, rids=rids, wall=wall, ticks=ticks,
+                at_kill=at_kill, device=svc.device,
+                launches=dict(backend.LAUNCHES))
+
+
+def serve_checks(reqs: list, run: dict) -> dict:
+    """Every tenant's R against the Gram identity of its own A and every
+    lstsq x against the float64 solution, both on the service's device."""
+    dev = run["device"]
+    gram, lst = [], []
+    for rid, (A, rhs) in zip(run["rids"], reqs):
+        r = run["results"][rid]
+        A64 = torch.from_numpy(A).to(dev).double()
+        gram.append(gram_error(A64, torch.from_numpy(r.R).to(dev)))
+        if rhs is not None:
+            x_ref = torch.linalg.lstsq(
+                A64, torch.from_numpy(rhs).to(dev).double()).solution
+            x = torch.from_numpy(r.x).to(dev).double()
+            lst.append(float((x - x_ref).norm() / x_ref.norm()))
+        del A64
+    check(max(gram) <= GRAM_TOL, f"serve Gram identity: {max(gram)} > {GRAM_TOL}")
+    check(max(lst) <= LSTSQ_TOL, f"serve lstsq vs float64: {max(lst)} > {LSTSQ_TOL}")
+    return dict(gram_rel_err_max=max(gram), lstsq_tenants=len(lst),
+                lstsq_rel_err_max=max(lst))
+
+
+def serve_kernel_check(reqs: list, run: dict) -> dict:
+    """K1-K4 at each bucket's shapes against their plain versions, on two
+    inputs a bucket: the first tenant of ``run`` that it served
+    ([A | rhs] zero-padded into the bucket, as admission pads it), and
+    seeded random data. K1 at row start 0
+    and at the bucket's last panel's row starts, on P lanes and on one
+    (the REBUILD replay); K2 on the first, a middle and the last panel's
+    window (n_b, n_b / 2 and b columns) and on one lane; K3 on a butterfly
+    pair's R factors; K4 at the first and the last window. Returns the
+    largest scaled error of each kernel at each bucket."""
+    tol = ref.tolerances(torch.float32)[0]
+    g = torch.Generator().manual_seed(2)
+    pairs = [p ^ 1 for p in range(P)]
+    out = {}
+    dev = run["device"]
+    for m_loc, n_b in SERVE_BUCKETS:
+        tenant = next(A if rhs is None else np.concatenate([A, rhs], axis=1)
+                      for rid, (A, rhs) in zip(run["rids"], reqs)
+                      if run["results"][rid].bucket == (m_loc, n_b))
+        n_last = sweep_geometry(P, m_loc, n_b, B).n_panels - 1
+        rs_last = panel_geometry(SimComm(P), n_last, B, m_loc)[2]
+        worst = {op: 0.0 for op in STEPPED}
+        for X in (block_row_layout(tenant, P, m_loc, n_b, device=dev),
+                  torch.randn(P, m_loc, n_b, generator=g).to(dev)):
+            panel = X[..., :B].contiguous()
+            Y, T, R = ops.panel_qr(panel, 0)
+            Y2, T2, _ = ops.stacked_qr(R, R[pairs].contiguous())
+            cases = [("panel_qr", (panel, 0)), ("panel_qr", (panel, rs_last)),
+                     ("panel_qr", (panel[1], 0)),
+                     ("panel_qr", (panel[0], int(rs_last[0]))),
+                     ("wy_apply", (Y[1], T[1], X[1])),
+                     ("stacked_qr", (R, R[pairs].contiguous()))]
+            cases += [("wy_apply", (Y, T, X[..., n_b - w:].contiguous()))
+                      for w in (n_b, n_b // 2, B)]
+            for w in (n_b, B):
+                Ct = X[:, :B, n_b - w:].contiguous()
+                cases.append(("stacked_apply",
+                              (Y2, T2, Ct, Ct[pairs].contiguous())))
+            for op, args in cases:
+                _, scaled = max_err(as_tuple(getattr(ops, op)(*args)),
+                                    as_tuple(getattr(ref, op)(*args)))
+                shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+                check(scaled <= tol, f"serve bucket {(m_loc, n_b)}: {op} at "
+                      f"{shapes}: scaled error {scaled} over {tol}")
+                worst[op] = max(worst[op], scaled)
+            del X, panel, Y, T, R, Y2, T2, cases
+        out[str([m_loc, n_b])] = dict(
+            team=backend.team_blocks(m_loc, B),
+            last_row_start=int(rs_last[0]), scaled_err_max=worst)
+    return out
+
+
+def serve_same(got: dict, want: dict) -> bool:
+    """Every tenant's R and x in ``got`` bit-equal to ``want``'s."""
+    return all(np.array_equal(got[rid].R, r.R) and
+               (r.x is None) == (got[rid].x is None) and
+               (r.x is None or np.array_equal(got[rid].x, r.x))
+               for rid, r in want.items())
+
+
+def serve_stats(run: dict) -> dict:
+    lat = sorted(r.latency_s for r in run["results"].values())
+    ticks = sorted(run["ticks"])
+    n = len(run["results"])
+    return dict(requests=n, seconds=run["wall"], req_per_s=n / run["wall"],
+                p50_latency_s=lat[n // 2],
+                p99_latency_s=lat[min(n - 1, int(n * 0.99))],
+                ticks=len(ticks), tick_seconds_median=ticks[len(ticks) // 2],
+                tick_seconds_max=ticks[-1], launches=run["launches"])
+
+
+def serve_phase(seed: int, card: str) -> None:
+    """The QR service at full width: failure-free, with a lane killed
+    mid-batch, and drain_batched, on the same traffic (see the module
+    docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    reqs = serve_traffic(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    clean = serve_run(reqs)
+    PATH_LAUNCHES["serve"] = clean["launches"]
+    checks = serve_checks(reqs, clean)
+    want = clean["results"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiled = serve_run(reqs)
+    by_kernel, other = device_time_by_kernel(prof)
+    # the copies and fills inside "other" (admission's host-to-device copy)
+    copies = {e.key: _device_us(e) / 1e3 for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.key.startswith(("Memcpy", "Memset"))}
+    compute = sum(by_kernel.values()) + other - sum(copies.values())
+    # both shares over the profiled drain's own wall time (the tracer
+    # slows the host, so it is longer than the first drain's)
+    prof_ms = profiled["wall"] * 1e3
+    profiled_same = serve_same(profiled["results"], want)
+    del prof, profiled
+    killed = serve_run(reqs, kill=True)
+    PATH_LAUNCHES["serve_kill"] = killed["launches"]
+    kill_same = serve_same(killed["results"], want)
+    healed = {rid: killed["results"][rid].events for rid in killed["at_kill"]}
+    heal_s = sorted(sum(e.elapsed_s for e in ev) for ev in healed.values())
+    svc = serve_service()
+    drained = {}
+    torch.cuda.synchronize()
+    backend.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(0, len(reqs), SERVE_GROUP):
+        for A, rhs in reqs[i:i + SERVE_GROUP]:
+            svc.submit(A, rhs)
+        drained.update(svc.drain_batched())
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    PATH_LAUNCHES["serve_batched"] = dict(backend.LAUNCHES)
+    drain_same = serve_same(drained, want)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    kernels = serve_kernel_check(reqs, clean)
+    emit({"serve": dict(
+        P=P, b=B, buckets=[list(bk) for bk in SERVE_BUCKETS],
+        slots=SERVE_SLOTS, requests=len(reqs),
+        lstsq_requests=sum(rhs is not None for _, rhs in reqs),
+        buckets_used={str(list(bk)): sum(r.bucket == bk for r in want.values())
+                      for bk in SERVE_BUCKETS},
+        largest=max(list(A.shape) for A, _ in reqs),
+        failure_free=serve_stats(clean), **checks,
+        profiled_wall_ms=prof_ms, compute_busy_share=compute / prof_ms,
+        copy_share=sum(copies.values()) / prof_ms,
+        profiled_kernel_ms=by_kernel,
+        profiled_other_compute_ms=other - sum(copies.values()),
+        profiled_copy_ms=copies,
+        kill=dict(lane=SERVE_KILL_LANE, tick=SERVE_KILL_TICK,
+                  **serve_stats(killed), resident_at_kill=len(healed),
+                  heal_seconds_per_tenant=heal_s,
+                  events=sum(len(ev) for ev in healed.values()),
+                  bitwise_equal_failure_free=kill_same),
+        batched=dict(seconds=drain_s, group=SERVE_GROUP,
+                     req_per_s=len(drained) / drain_s,
+                     launches=PATH_LAUNCHES["serve_batched"],
+                     bitwise_equal_continuous=drain_same),
+        bucket_kernels=kernels, peak_mem_gb_above_live=peak,
+        phase_seconds=time.perf_counter() - t_phase, card=card)})
+    check(profiled_same, "the profiled serve run differs from the first")
+    check(kill_same, "serve: a tenant's R or x differs after the kill")
+    # single source: each artifact is read from one surviving lane
+    check(bool(healed) and all(
+        len(ev) >= 1 and all(e.lane == SERVE_KILL_LANE and e.reads and
+                             SERVE_KILL_LANE not in e.reads.values()
+                             for e in ev)
+        for ev in healed.values()),
+          "serve: a tenant resident at the kill has no single-source event")
+    check(drain_same, "serve: drain_batched differs from continuous batching")
+    for path in ("serve", "serve_kill", "serve_batched"):
+        check(all(PATH_LAUNCHES[path][op] > 0 for op in STEPPED),
+              f"{path}: K1-K4 not all launched: {PATH_LAUNCHES[path]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1040,6 +1300,7 @@ def main() -> int:
     recovery_phase(A)
     square_phase(rng)
     ragged_phase(rng)
+    serve_phase(args.seed, card)
     spread_phase(A)
     for rec in records:
         rec["launches_by_path"] = {path: counts[rec["name"]]

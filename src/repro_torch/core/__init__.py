@@ -45,7 +45,9 @@ from repro_torch.core.caqr import (
     assemble_R,
     block_row_layout,
     caqr_apply_qt,
+    caqr_apply_qt_batched,
     caqr_factorize,
+    caqr_factorize_batched,
     lane_geometry,
     pad_to_geometry,
     panel_geometry,

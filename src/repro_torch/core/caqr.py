@@ -13,6 +13,8 @@ General shapes run at the zero-padded ``sweep_geometry`` (exact for every
 op in this family); wide matrices factorize the left ``min(m, n)`` columns
 and carry the rest as the ``R2`` block. ``caqr_apply_qt`` replays the
 stored per-panel factors against any conforming matrix.
+``caqr_factorize_batched`` and ``caqr_apply_qt_batched`` run a stack of
+independent same-shape problems.
 """
 from __future__ import annotations
 
@@ -278,3 +280,33 @@ def caqr_apply_qt(B_local: torch.Tensor, factors: PanelFactors, comm
                                      row_start=pf.row_start, active=pf.active,
                                      dead_threshold=tgt)
     return B
+
+
+# Batched front end -----------------------------------------------------------
+
+
+def caqr_factorize_batched(A_batch: torch.Tensor, comm, panel_width: int,
+                           **kw) -> CAQRResult:
+    """Factorize a stack of independent same-shape problems held as
+    (batch, P, m_loc, n). Every field of the returned ``CAQRResult`` gains
+    the leading batch axis, as under the JAX package's ``jax.vmap``.
+
+    Each problem runs through ``caqr_factorize`` on its own, so its bits
+    equal its solo run; one launch per kernel over batch x P lanes is not
+    done here."""
+    res = [caqr_factorize(A, comm, panel_width, **kw) for A in A_batch]
+    bundles = (None if res[0].bundles is None else
+               _stack([r.bundles for r in res], RecoveryBundle))
+    return CAQRResult(R=torch.stack([r.R for r in res]),
+                      factors=_stack([r.factors for r in res], PanelFactors),
+                      bundles=bundles)
+
+
+def caqr_apply_qt_batched(B_batch: torch.Tensor, factors: PanelFactors, comm
+                          ) -> torch.Tensor:
+    """Batched companion of ``caqr_apply_qt``: replays a stack of
+    factorizations (from ``caqr_factorize_batched``) against a conforming
+    stack of right-hand sides, one problem at a time."""
+    return torch.stack([
+        caqr_apply_qt(B, PanelFactors(*(x[i] for x in factors)), comm)
+        for i, B in enumerate(B_batch)])

@@ -1,8 +1,9 @@
 """The port's CUDA kernels K1-K6 against their plain PyTorch versions on
 the card, and the port's bitwise contracts there (fused == stepped, kill
 == failure-free, online == scheduled, async == sync, MDS decode ==
-failure-free, SHRINK scheduled == online). Needs an NVIDIA GPU with nvcc; every test skips without
-one.
+failure-free, SHRINK scheduled == online) and the QR service's (kill ==
+failure-free, drain_batched == continuous, every R == its solo sweep).
+Needs an NVIDIA GPU with nvcc; every test skips without one.
 
 Imports neither JAX nor the JAX package, so it also runs on a machine
 with the card and no JAX: ``python -m pytest -q tests/test_torch_cuda.py``.
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import SimComm, caqr_factorize, ft_tsqr, recovery
+from repro_torch.core import SimComm, block_row_layout, caqr_factorize, ft_tsqr, recovery
 from repro_torch.ft import (
     FailureSchedule,
     MDSScheme,
@@ -30,6 +31,7 @@ from repro_torch.kernels import panel_qr as tpanel
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import stacked_qr as tstacked
 from repro_torch.kernels import wy_apply as twy
+from repro_torch.serve import QRService
 
 RTOL, ATOL = tref.tolerances(torch.float32)
 
@@ -513,3 +515,57 @@ def test_cuda_shrink_scheduled_equals_online(rng, cuda):
     A64 = A.reshape(-1, n).double().cpu()
     G = A64.T @ A64
     assert float((R.T @ R - G).abs().max() / G.abs().max()) < 1e-4
+
+
+# the service at a small size: P = 4, b = 8, one bucket of 128 x 40
+SERVE_P, SERVE_B, SERVE_BUCKET = 4, 8, (32, 40)
+SERVE_SHAPES = [(100, 30), (128, 38), (20, 36), (90, 17), (60, 40)]
+
+
+def _serve(reqs, slots, kill=False, batched=False):
+    svc = QRService(SimComm(SERVE_P), panel_width=SERVE_B,
+                    buckets=[SERVE_BUCKET], max_slots=slots)
+    rids = [svc.submit(A, rhs) for A, rhs in reqs]
+    if batched:
+        return rids, svc.drain_batched()
+    if kill:
+        svc.tick()
+        svc.tick()
+        (slot, *_) = [s for s in svc.slots if s is not None]
+        assert slot.state.A.is_cuda
+        svc.kill_lane(2)
+    return rids, svc.run_until_drained()
+
+
+@pytest.mark.cuda
+def test_cuda_qr_service_kill_and_drain_bitwise(rng, cuda):
+    """The service on the card: a lane killed mid-batch heals to the
+    failure-free bits, drain_batched equals continuous batching, and every
+    R equals a solo sweep of the bucket-padded matrix; K1-K4 launched."""
+    reqs = []
+    for i, (m, n) in enumerate(SERVE_SHAPES):
+        A = rng.standard_normal((m, n)).astype(np.float32)
+        rhs = rng.standard_normal((m, 2)).astype(np.float32) if i == 0 else None
+        reqs.append((A, rhs))
+    backend.reset_launches()
+    rids, clean = _serve(reqs, 8)
+    assert all(backend.LAUNCHES[op] > 0 for op in
+               ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply"))
+    _, killed = _serve(reqs, 4, kill=True)
+    _, drained = _serve(reqs, 8, batched=True)
+    assert sum(len(r.events) for r in killed.values()) >= 1
+    for rid, (A, rhs) in zip(rids, reqs):
+        for other in (killed, drained):
+            np.testing.assert_array_equal(other[rid].R, clean[rid].R)
+            if rhs is not None:
+                np.testing.assert_array_equal(other[rid].x, clean[rid].x)
+        A_aug = A if rhs is None else np.concatenate([A, rhs], axis=1)
+        solo = caqr_factorize(
+            block_row_layout(A_aug, SERVE_P, *SERVE_BUCKET), SimComm(SERVE_P),
+            SERVE_B, use_scan=False, collect_bundles=True)
+        k, n = min(A.shape), A.shape[1]
+        np.testing.assert_array_equal(clean[rid].R, solo.R[0, :k, :n].cpu().numpy())
+    A, rhs = reqs[0]
+    x_ref, *_ = np.linalg.lstsq(A.astype(np.float64), rhs.astype(np.float64),
+                                rcond=None)
+    np.testing.assert_allclose(clean[rids[0]].x, x_ref, atol=1e-3)
