@@ -85,7 +85,32 @@ non-zero and prints no result):
    peak memory, and, over a second failure-free drain under torch.profiler
    and against that drain's own wall time, the card's compute share (K1-K4
    and the other kernels) apart from its copy share (Memcpy and Memset).
-13. spread: each full-width sweep (``caqr_factorize``, the state machine
+13. train: the FT training runtime (``repro_torch.train.ftrun``) at
+   TinyLlama-1.1B's published width (d_model 2048, 32 heads, 4 kv heads,
+   head_dim 64, d_ff 5632, vocab 32000, swiglu, bf16 params), cut to 2
+   layers, sequence 1024, global batch 8 over 4 data lanes, 4 steps
+   (``TRAIN_REDUCED``), random weights from ``--seed``: ``caqr_muon``
+   through ``FTTrainer`` with ``FTRunConfig(qr_lanes=4, panel_width=128)``,
+   so 14 full-width online FT-CAQR sweeps a step on K1-K4, under
+   ``torch.use_deterministic_algorithms(True)`` (``CUBLAS_WORKSPACE_CONFIG``
+   set before CUDA starts). Runs: failure-free twice (bit-equal: the
+   determinism check); lane 1 killed at a mid-sweep point of step 2's
+   first ``w_in`` sweep (bit-equal params and losses, one single-source
+   REBUILD event, no rewind); async double-buffered segments with the same
+   kill; suspended to disk inside step 2 and resumed with
+   ``FTTrainer.resume``; a training-level lane death at step 3 (diskless
+   restore, replay); the PowerSGD bridge (``adamw``, rank 4) for 2 steps,
+   failure-free and with a kill in its first sweep; the plain
+   ``Trainer(adamw)``. Every run bit-equal to its failure-free run. Checks
+   besides: finite losses that fall, every sweep's R of the failure-free
+   run against the Gram identity of its momentum slice, K1-K4 launched and
+   K5/K6 not on the ``train``, ``train_kill`` and ``train_psgd`` paths, and
+   K1-K4 at the path's shapes (``TRAIN_SHAPES``) against their plain
+   versions on 4 lanes and one. Prints each run's step seconds, the split
+   into grad phase, task loop (engine seconds, polls, sweeps, boundaries,
+   segments) and finish phase, heal seconds and peak memory, and device
+   time by kernel over one more step under torch.profiler.
+14. spread: each full-width sweep (``caqr_factorize``, the state machine
    stepped and fused, the four-kill FT sweep, the online sweeps stepped,
    fused and double-buffered) run five times: median and min-max seconds.
 
@@ -98,15 +123,22 @@ Needs CUDA; imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
-import numpy as np
-import torch
+# cuBLAS reads its workspace setting when CUDA starts; the train phase's
+# deterministic mode needs the fixed one
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
@@ -129,8 +161,19 @@ from repro_torch.kernels import fused_sweep as tfs  # noqa: E402
 from repro_torch.kernels import panel_qr as tpq  # noqa: E402
 from repro_torch.kernels import stacked_qr as tsa  # noqa: E402
 from repro_torch.kernels import wy_apply as twy  # noqa: E402
+from repro_torch import tree  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data.pipeline import DataConfig  # noqa: E402
 from repro_torch.launch.serve_qr import make_requests  # noqa: E402
 from repro_torch.serve import QRService  # noqa: E402
+from repro_torch.train import TrainConfig, Trainer  # noqa: E402
+from repro_torch.train.ftrun import (  # noqa: E402
+    FTRunConfig,
+    FTTrainer,
+    StepSweepKiller,
+    TrainingSuspended,
+)
+from repro_torch.train.ftrun.tasks import task_slice  # noqa: E402
 
 P, M_LOC, N, B = 8, 4096, 4096, 128
 L = P.bit_length() - 1
@@ -177,6 +220,29 @@ SERVE_KILL_LANE, SERVE_KILL_TICK = 2, 2
 # requests a drain_batched call takes: four of the larger bucket's tenants
 # with their bundles are about 9 GB, twice that while the batch is stacked
 SERVE_GROUP = 4
+# the train phase: TinyLlama-1.1B at its published width, cut in depth
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 2, 1024, 8, 4
+TRAIN_LANES, TRAIN_B = 4, 128
+TRAIN_LR, TRAIN_WARMUP = 1e-2, 1
+TRAIN_REDUCED = {
+    "n_layers": "22 -> 2: time (each layer adds 7 full-width sweeps a step)",
+    "seq_len": "2048 -> 1024: time (the grad phase is not what is held here)",
+    "global_batch": "8 rows over 4 data lanes: time",
+    "steps": "4: enough for a loss that falls, a mid-step kill at step 2, "
+             "a suspension inside step 2 and a lane death at step 3",
+}
+# the mid-sweep kill: lane 1, step 2, inside the first w_in sweep
+TRAIN_KILL = dict(at_step=2, lane=1, task="groups/l0/ffn/.w_in#0",
+                  point=sweep_point(8, "tsqr", 1))
+TRAIN_FAIL = {3: [2]}     # the training-level lane death (REBUILD replay)
+TRAIN_PSGD_RANK, TRAIN_PSGD_STEPS = 4, 2
+# K1-K4's shapes on the train path (m_loc, n, b): the Muon sweeps of w_in,
+# w_gate and w_out (5632 x 2048), of wq and wo (2048 x 2048) and of wk and
+# wv (2048 x 256), then the PowerSGD projections (m x r) of wq-like,
+# w_out-like and embedding slices
+TRAIN_SHAPES = ((1408, 2048, 128), (512, 2048, 128), (512, 256, 128),
+                (512, 4, 4), (1408, 4, 4), (8000, 4, 4))
 # launches of every kernel on every path, counters at 0 before each path
 PATH_LAUNCHES = {}
 
@@ -1103,19 +1169,47 @@ def serve_checks(reqs: list, run: dict) -> dict:
                 lstsq_rel_err_max=max(lst))
 
 
-def serve_kernel_check(reqs: list, run: dict) -> dict:
-    """K1-K4 at each bucket's shapes against their plain versions, on two
-    inputs a bucket: the first tenant of ``run`` that it served
-    ([A | rhs] zero-padded into the bucket, as admission pads it), and
-    seeded random data. K1 at row start 0
-    and at the bucket's last panel's row starts, on P lanes and on one
-    (the REBUILD replay); K2 on the first, a middle and the last panel's
-    window (n_b, n_b / 2 and b columns) and on one lane; K3 on a butterfly
-    pair's R factors; K4 at the first and the last window. Returns the
-    largest scaled error of each kernel at each bucket."""
+def stepped_kernel_check(X: torch.Tensor, b: int, rs_last, worst: dict,
+                         where: str) -> None:
+    """K1-K4 against their plain versions on a (P, m_loc, n) block-row
+    matrix ``X`` at panel width ``b``: K1 at row start 0 and at the last
+    panel's row starts ``rs_last`` (one a lane), on P lanes and on one (the
+    REBUILD replay); K2 on the first, a middle and the last panel's window
+    and on one lane; K3 on a butterfly pair's R factors; K4 at the first
+    and the last window. Raises past the tolerance; folds each kernel's
+    largest scaled error into ``worst``."""
     tol = ref.tolerances(torch.float32)[0]
-    g = torch.Generator().manual_seed(2)
+    P, _, n = X.shape
     pairs = [p ^ 1 for p in range(P)]
+    panel = X[..., :b].contiguous()
+    Y, T, R = ops.panel_qr(panel, 0)
+    Y2, T2, _ = ops.stacked_qr(R, R[pairs].contiguous())
+    cases = [("panel_qr", (panel, 0)), ("panel_qr", (panel, rs_last)),
+             ("panel_qr", (panel[1], 0)),
+             ("panel_qr", (panel[0], int(rs_last[0]))),
+             ("wy_apply", (Y[1], T[1], X[1])),
+             ("stacked_qr", (R, R[pairs].contiguous()))]
+    cases += [("wy_apply", (Y, T, X[..., n - w:].contiguous()))
+              for w in sorted({n, max(n // 2, 1), b})]
+    for w in sorted({n, b}):
+        Ct = X[:, :b, n - w:].contiguous()
+        cases.append(("stacked_apply", (Y2, T2, Ct, Ct[pairs].contiguous())))
+    for op, args in cases:
+        _, scaled = max_err(as_tuple(getattr(ops, op)(*args)),
+                            as_tuple(getattr(ref, op)(*args)))
+        shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+        check(scaled <= tol, f"{where}: {op} at {shapes}: scaled error "
+              f"{scaled} over {tol}")
+        worst[op] = max(worst.get(op, 0.0), scaled)
+
+
+def serve_kernel_check(reqs: list, run: dict) -> dict:
+    """K1-K4 at each bucket's shapes against their plain versions
+    (``stepped_kernel_check``), on two inputs a bucket: the first tenant of
+    ``run`` that it served ([A | rhs] zero-padded into the bucket, as
+    admission pads it), and seeded random data. Returns the largest scaled
+    error of each kernel at each bucket."""
+    g = torch.Generator().manual_seed(2)
     out = {}
     dev = run["device"]
     for m_loc, n_b in SERVE_BUCKETS:
@@ -1124,31 +1218,12 @@ def serve_kernel_check(reqs: list, run: dict) -> dict:
                       if run["results"][rid].bucket == (m_loc, n_b))
         n_last = sweep_geometry(P, m_loc, n_b, B).n_panels - 1
         rs_last = panel_geometry(SimComm(P), n_last, B, m_loc)[2]
-        worst = {op: 0.0 for op in STEPPED}
+        worst = {}
         for X in (block_row_layout(tenant, P, m_loc, n_b, device=dev),
                   torch.randn(P, m_loc, n_b, generator=g).to(dev)):
-            panel = X[..., :B].contiguous()
-            Y, T, R = ops.panel_qr(panel, 0)
-            Y2, T2, _ = ops.stacked_qr(R, R[pairs].contiguous())
-            cases = [("panel_qr", (panel, 0)), ("panel_qr", (panel, rs_last)),
-                     ("panel_qr", (panel[1], 0)),
-                     ("panel_qr", (panel[0], int(rs_last[0]))),
-                     ("wy_apply", (Y[1], T[1], X[1])),
-                     ("stacked_qr", (R, R[pairs].contiguous()))]
-            cases += [("wy_apply", (Y, T, X[..., n_b - w:].contiguous()))
-                      for w in (n_b, n_b // 2, B)]
-            for w in (n_b, B):
-                Ct = X[:, :B, n_b - w:].contiguous()
-                cases.append(("stacked_apply",
-                              (Y2, T2, Ct, Ct[pairs].contiguous())))
-            for op, args in cases:
-                _, scaled = max_err(as_tuple(getattr(ops, op)(*args)),
-                                    as_tuple(getattr(ref, op)(*args)))
-                shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
-                check(scaled <= tol, f"serve bucket {(m_loc, n_b)}: {op} at "
-                      f"{shapes}: scaled error {scaled} over {tol}")
-                worst[op] = max(worst[op], scaled)
-            del X, panel, Y, T, R, Y2, T2, cases
+            stepped_kernel_check(X, B, rs_last, worst,
+                                 f"serve bucket {(m_loc, n_b)}")
+            del X
         out[str([m_loc, n_b])] = dict(
             team=backend.team_blocks(m_loc, B),
             last_row_start=int(rs_last[0]), scaled_err_max=worst)
@@ -1261,6 +1336,287 @@ def serve_phase(seed: int, card: str) -> None:
               f"{path}: K1-K4 not all launched: {PATH_LAUNCHES[path]}")
 
 
+def train_configs(seed: int):
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=seed)
+    return cfg, dcfg
+
+
+def train_tcfg(ckpt_dir: str, **kw) -> TrainConfig:
+    base = dict(steps=TRAIN_STEPS, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                n_lanes=TRAIN_LANES, diskless_every=2, log_every=10 ** 9,
+                optimizer="caqr_muon", ckpt_dir=ckpt_dir)
+    base.update(kw)
+    return TrainConfig(**base)
+
+
+def train_fcfg(**kw) -> FTRunConfig:
+    return FTRunConfig(qr_lanes=TRAIN_LANES, panel_width=TRAIN_B, **kw)
+
+
+def same_tree(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(tree.leaves(a), tree.leaves(b)))
+
+
+def train_run(tr, path: str = "", schedule=None, gram: bool = False) -> dict:
+    """Run trainer ``tr`` to its end: its history, step and phase seconds,
+    the engine's stats, peak memory above what was live before it, and
+    with ``path`` the launches counted from 0 just before the run; with
+    ``gram`` every sweep's R held to the Gram identity of its momentum
+    slice (float64, on the card)."""
+    grams = []
+    if gram:
+        factorize = tr.engine.factorize
+
+        def checked(M, resume_state=None):
+            R = factorize(M, resume_state=resume_state)
+            grams.append((tr._cur_step, tr._cur_task,
+                          gram_error(M.double(), R)))
+            return R
+
+        tr.engine.factorize = checked
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    backend.reset_launches()
+    t0 = time.perf_counter()
+    hist = tr.run(schedule)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if path:
+        PATH_LAUNCHES[path] = dict(backend.LAUNCHES)
+    dts = [h["dt"] for h in hist]
+    out = dict(wall_seconds=wall, losses=[h["loss"] for h in hist],
+               steps=[h["step"] for h in hist], step_seconds=dts,
+               step_seconds_median=sorted(dts)[len(dts) // 2],
+               peak_mem_gb_above_live=(torch.cuda.max_memory_allocated() - base) / 1e9,
+               launches=dict(backend.LAUNCHES))
+    if isinstance(tr, FTTrainer):
+        e = tr.engine
+        out.update(phase_seconds=dict(tr.phase_s), sweeps=e.sweeps,
+                   boundaries=e.boundaries, segments=e.segments,
+                   engine_sweep_seconds=e.sweep_s, poll_seconds=e.poll_s,
+                   heal_seconds=e.recover_s, events=len(e.events))
+    if gram:
+        out["gram"] = grams
+    return out
+
+
+def train_kernel_check(mom, tasks: list, g: torch.Generator) -> dict:
+    """K1-K4 at the train path's shapes (TRAIN_SHAPES) against their plain
+    versions, on 4 lanes and on one (``stepped_kernel_check``): the Muon
+    shapes on a momentum slice of the failure-free run laid out as the
+    engine lays it out, and on random data; the projection shapes on random
+    data."""
+    dev = tree.leaves(mom)[0].device
+    by_shape = {}
+    for task in tasks:
+        M = task_slice(mom, task)
+        A = (M.T if task.transpose else M).float()
+        by_shape.setdefault((A.shape[0] // TRAIN_LANES, A.shape[1]), A)
+    out = {}
+    for m_loc, n, b in TRAIN_SHAPES:
+        geom = sweep_geometry(TRAIN_LANES, m_loc, n, b)
+        rs_last = panel_geometry(SimComm(TRAIN_LANES), geom.n_panels - 1, b,
+                                 m_loc)[2]
+        inputs = [torch.randn(TRAIN_LANES, m_loc, n, generator=g).to(dev)]
+        if (m_loc, n) in by_shape:
+            inputs.append(by_shape[(m_loc, n)].reshape(TRAIN_LANES, m_loc, n)
+                          .contiguous())
+        worst = {}
+        for X in inputs:
+            stepped_kernel_check(X, b, rs_last, worst,
+                                 f"train shape {(TRAIN_LANES, m_loc, n)} b={b}")
+        out[str([TRAIN_LANES, m_loc, n, b])] = dict(
+            team=backend.team_blocks(m_loc, b), inputs=len(inputs),
+            last_row_start=int(rs_last[0]), scaled_err_max=worst)
+    return out
+
+
+def train_profile(cfg, dcfg, d: str, clean: dict) -> dict:
+    """Device time by kernel over one more failure-free step under
+    torch.profiler, against the failure-free run's unprofiled step and
+    task-loop seconds (past the first step's warm-up): how much of the
+    step the card is busy, and how much of the task loop K1-K4 fill. The
+    diskless push's device-to-host copy is counted apart."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tr = FTTrainer(cfg, train_tcfg(d, steps=1), dcfg, train_fcfg())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tr.run()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel, other = device_time_by_kernel(prof)
+    copies = sum(_device_us(e) / 1e3 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.key.startswith(("Memcpy", "Memset")))
+    steps = sorted(clean["step_seconds"][1:])
+    step_ms = 1e3 * steps[len(steps) // 2]
+    tasks_ms = 1e3 * clean["phase_seconds"]["tasks"] / TRAIN_STEPS
+    kernels = sum(by_kernel.values())
+    return dict(profiled_wall_ms=wall_ms, kernel_ms=by_kernel,
+                other_compute_ms=other - copies, copy_ms=copies,
+                step_ms_median=step_ms, task_loop_ms_per_step=tasks_ms,
+                compute_busy_share=(kernels + other - copies) / step_ms,
+                k1_k4_share_of_task_loop=kernels / tasks_ms)
+
+
+def train_phase(seed: int, card: str) -> None:
+    """The FT training runtime at TinyLlama's full width (see the module
+    docstring), under torch's deterministic mode."""
+    t_phase = time.perf_counter()
+    det_before = torch.are_deterministic_algorithms_enabled()
+    fill_before = torch.utils.deterministic.fill_uninitialized_memory
+    # deterministic scatter-adds for the embedding's and the CE pick's
+    # backward; every kernel writes all of its outputs, so the fill of
+    # fresh memory the mode also turns on (a debugging aid) stays off
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            report = train_runs(seed, d, card)
+    finally:
+        torch.use_deterministic_algorithms(det_before)
+        torch.utils.deterministic.fill_uninitialized_memory = fill_before
+    report["phase_seconds"] = time.perf_counter() - t_phase
+    emit({"train": report})
+
+
+def train_runs(seed: int, d: str, card: str) -> dict:
+    cfg, dcfg = train_configs(seed)
+    muon = lambda **kw: FTTrainer(cfg, train_tcfg(d), dcfg, train_fcfg(**kw))  # noqa: E731
+    # 1. failure-free, twice: the determinism check
+    ref = muon()
+    clean = train_run(ref, "train", gram=True)
+    grams = clean.pop("gram")
+    tasks = ref._tasks
+    want_params, want_opt = ref.state.params, ref.state.opt_state
+    kernels = train_kernel_check(want_opt.mom, tasks,
+                                 torch.Generator().manual_seed(seed + 3))
+    del ref
+    profiled = train_profile(cfg, dcfg, d, clean)
+    again = muon()
+    second = train_run(again)
+    det_same = (same_tree(again.state.params, want_params)
+                and same_tree(again.state.opt_state, want_opt)
+                and second["losses"] == clean["losses"])
+    del again, want_opt
+    check(det_same, "train: two failure-free runs differ")
+    bps = clean["boundaries"] // TRAIN_STEPS
+    # 2. a lane killed mid-sweep inside step 2
+    killer = StepSweepKiller(**TRAIN_KILL)
+    tr = FTTrainer(cfg, train_tcfg(d), dcfg, train_fcfg(), qr_fault_hooks=[killer])
+    kill = train_run(tr, "train_kill")
+    ev = tr.engine.events
+    kill_same = same_tree(tr.state.params, want_params) and \
+        kill["losses"] == clean["losses"]
+    kill.update(struck=killer.struck,
+                event_reads=[{str(k): int(v) for k, v in e.reads.items()} for e in ev])
+    del tr
+    # 3. async double-buffered segments, the same kill
+    killer_a = StepSweepKiller(**TRAIN_KILL)
+    tr = FTTrainer(cfg, train_tcfg(d), dcfg, train_fcfg(async_segments=True),
+                   qr_fault_hooks=[killer_a])
+    asyn = train_run(tr)
+    async_same = same_tree(tr.state.params, want_params) and killer_a.fired
+    del tr
+    # 4. suspended inside step 2, resumed from disk in this process
+    n_suspend = 2 * bps + bps // 2
+    tr = muon(suspend_after_boundaries=n_suspend)
+    t0 = time.perf_counter()
+    try:
+        tr.run()
+        suspended = None
+    except TrainingSuspended as exc:
+        suspended = exc
+    suspend_s = time.perf_counter() - t0
+    del tr
+    check(suspended is not None and suspended.step == 2,
+          f"train: no suspension inside step 2 ({suspended})")
+    t0 = time.perf_counter()
+    resumed = FTTrainer.resume(cfg, train_tcfg(d), dcfg, train_fcfg())
+    restore_s = time.perf_counter() - t0
+    res = train_run(resumed)
+    resume_same = same_tree(resumed.state.params, want_params)
+    res.update(suspended_at=dict(boundary=n_suspend, step=suspended.step,
+                                 task=suspended.task),
+               suspend_run_seconds=suspend_s, restore_seconds=restore_s)
+    del resumed
+    # 5. a training-level lane death at step 3: diskless restore and replay
+    tr = muon()
+    rebuild = train_run(tr, schedule=FailureSchedule(events=TRAIN_FAIL))
+    rebuild_same = same_tree(tr.state.params, want_params)
+    del tr
+    # 6. the PowerSGD bridge, failure-free and with a kill in its sweep
+    psgd = lambda hooks=(): FTTrainer(  # noqa: E731
+        cfg, train_tcfg(d, optimizer="adamw", steps=TRAIN_PSGD_STEPS), dcfg,
+        train_fcfg(compression_rank=TRAIN_PSGD_RANK), qr_fault_hooks=hooks)
+    p_ref = psgd()
+    p_clean = train_run(p_ref, "train_psgd")
+    p_tasks = len(p_ref._tasks)
+    p_killer = StepSweepKiller(at_step=1, lane=2)
+    p_tr = psgd([p_killer])
+    p_kill = train_run(p_tr)
+    psgd_same = (same_tree(p_tr.state.params, p_ref.state.params)
+                 and p_kill["losses"] == p_clean["losses"] and p_killer.fired)
+    p_kill["struck"] = p_killer.struck
+    del p_ref, p_tr
+    # 7. the plain trainer (adamw), no QR
+    plain = train_run(Trainer(cfg, train_tcfg(d, optimizer="adamw"), dcfg))
+    del want_params
+    launches_ok = {path: all(PATH_LAUNCHES[path][op] > 0 for op in STEPPED)
+                   and PATH_LAUNCHES[path]["panel_qr_apply"] == 0
+                   and PATH_LAUNCHES[path]["fused_panel"] == 0
+                   for path in ("train", "train_kill", "train_psgd")}
+    gram_max = max(g for *_, g in grams)
+    report = dict(
+        arch=TRAIN_ARCH, d_model=cfg.d_model, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hdim, d_ff=cfg.d_ff,
+        vocab=cfg.vocab, dtype=cfg.dtype, n_layers=cfg.n_layers,
+        seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, data_lanes=TRAIN_LANES,
+        steps=TRAIN_STEPS, qr_lanes=TRAIN_LANES, panel_width=TRAIN_B,
+        reduced=TRAIN_REDUCED, tasks_per_step=len(tasks),
+        deterministic="torch.use_deterministic_algorithms(True), "
+                      "CUBLAS_WORKSPACE_CONFIG=" + os.environ["CUBLAS_WORKSPACE_CONFIG"],
+        failure_free=clean, second_bitwise_equal=det_same,
+        profiled_step=profiled,
+        gram_checked=len(grams), gram_rel_err_max=gram_max,
+        kill=dict(**kill, bitwise_equal_failure_free=kill_same),
+        async_segments=dict(**asyn, bitwise_equal_failure_free=async_same),
+        suspend_resume=dict(**res, bitwise_equal_failure_free=resume_same),
+        rebuild=dict(**rebuild, fail=TRAIN_FAIL,
+                     bitwise_equal_failure_free=rebuild_same),
+        psgd=dict(rank=TRAIN_PSGD_RANK, tasks_per_step=p_tasks,
+                  failure_free=p_clean, kill=p_kill,
+                  bitwise_equal_failure_free=psgd_same),
+        plain_adamw=plain, kernels=kernels, launches_ok=launches_ok,
+        card=card)
+    losses = clean["losses"]
+    check(all(np.isfinite(x) for x in losses), f"train: a loss is not finite {losses}")
+    check(losses[-1] < losses[0], f"train: the loss did not fall {losses}")
+    check(gram_max <= GRAM_TOL, f"train Gram identity: {gram_max} > {GRAM_TOL}")
+    check(len({s for s, *_ in grams}) == TRAIN_STEPS,
+          "train: a step without a Gram-checked sweep")
+    check(kill_same, "train: the mid-sweep kill changed params or losses")
+    check(killer.struck is not None and killer.struck[:2] == (
+        TRAIN_KILL["at_step"], TRAIN_KILL["task"]), f"train: kill struck {killer.struck}")
+    check(len(ev) == 1 and ev[0].lane == TRAIN_KILL["lane"] and ev[0].reads
+          and TRAIN_KILL["lane"] not in ev[0].reads.values(),
+          f"train: not one single-source REBUILD event: {ev}")
+    check(kill["steps"] == list(range(TRAIN_STEPS)),
+          f"train: the kill rewound training: steps {kill['steps']}")
+    check(async_same, "train: async segments differ from sync")
+    check(resume_same, "train: suspend/resume differs from the uninterrupted run")
+    check(rebuild_same and rebuild["steps"] == [0, 1, 2, 2, 3],
+          f"train: the REBUILD replay differs (steps {rebuild['steps']})")
+    check(psgd_same, "train: the PowerSGD-bridge kill differs from failure-free")
+    check(all(launches_ok.values()), f"train: launches {launches_ok}")
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1301,6 +1657,7 @@ def main() -> int:
     square_phase(rng)
     ragged_phase(rng)
     serve_phase(args.seed, card)
+    train_phase(args.seed, card)
     spread_phase(A)
     for rec in records:
         rec["launches_by_path"] = {path: counts[rec["name"]]

@@ -10,7 +10,7 @@
   can restore the last boundary state and resume.
 
 States are trees (dicts, lists, tuples) of tensors or numpy arrays, kept on
-the host as numpy arrays.
+the host as numpy arrays (bfloat16 tensors as float32).
 """
 from __future__ import annotations
 
@@ -38,7 +38,12 @@ def _tree_map(fn: Callable, tree, *rest):
 
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach()
+        # numpy has no bfloat16: widen to float32, which is exact (the
+        # restoring side narrows back to its template's dtype)
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.cpu().numpy()
     return np.asarray(x)
 
 

@@ -15,6 +15,13 @@ slots included: ``sweep_state_from_arrays`` builds the port's
 ``SweepState`` from one. An elastic outcome crosses as its fields:
 ``elastic_result_from_fields`` takes R as numpy and the event, transition
 and world records as any objects with the reference's attributes.
+
+A model and its optimizer cross as flat dicts keyed by the JAX package's
+flattened path strings (``repro.ckpt.save._flatten``, e.g.
+``groups/l0/attn/.wq``; the optimizer's ``.step``, ``.mom/embed``):
+``params_from_arrays`` and ``opt_state_from_arrays`` build the port's
+trees from them, ``params_to_arrays`` and ``opt_state_to_arrays`` are the
+inverse. The checkpoint files of ``ckpt/save.py`` hold the same keys.
 """
 from __future__ import annotations
 
@@ -23,12 +30,17 @@ from typing import Dict, Iterable, Mapping
 import numpy as np
 import torch
 
+from repro_torch import tree
+from repro_torch.ckpt.save import _flatten, fill
 from repro_torch.core.caqr import CAQRResult, PanelFactors
 from repro_torch.core.trailing import RecoveryBundle
 from repro_torch.ft.driver import RecoveryEvent
 from repro_torch.ft.elastic import ElasticSweepResult, LaneWorld, TransitionEvent
 from repro_torch.ft.online.state import SweepState, sweep_state_from_host
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.models.transformer import param_template
+from repro_torch.optim.adamw import adamw
+from repro_torch.optim.caqr_muon import caqr_muon
 
 
 def to_tensor(x, device="cuda") -> torch.Tensor:
@@ -94,6 +106,37 @@ def elastic_result_from_fields(R, events: Iterable, transitions: Iterable,
             world_before=_world(t.world_before),
             world_after=_world(t.world_after)) for t in transitions],
         world=_world(world))
+
+
+def params_from_arrays(flat: Mapping[str, np.ndarray], cfg, device="cuda"):
+    """The port's parameter tree for ``cfg`` from arrays keyed by the JAX
+    package's path strings (``save._flatten(params)`` of a JAX tree)."""
+    return fill(param_template(cfg), flat, resolve_device(device))
+
+
+def params_to_arrays(params) -> Dict[str, np.ndarray]:
+    """Numpy arrays of a parameter tree keyed by path string (bfloat16
+    widened to float32)."""
+    return _flatten(params)
+
+
+def opt_state_from_arrays(flat: Mapping[str, np.ndarray], params,
+                          optimizer: str = "adamw", device=None):
+    """The port's ``AdamWState`` (``optimizer="adamw"``) or ``MuonState``
+    (``"caqr_muon"``) for ``params`` from arrays keyed by the JAX
+    package's path strings (``save._flatten(opt_state)``); on the
+    parameters' device unless ``device`` is given."""
+    opt = {"adamw": adamw, "caqr_muon": caqr_muon}[optimizer]()
+    # moments on the meta device take ``dev``; the step count stays on the host
+    like = opt.init(tree.map(lambda p: torch.empty_like(p, device="meta"), params))
+    dev = (resolve_device(device) if device is not None
+           else tree.leaves(params)[0].device)
+    return fill(like, flat, dev)
+
+
+def opt_state_to_arrays(opt_state) -> Dict[str, np.ndarray]:
+    """Numpy arrays of an optimizer state keyed by path string."""
+    return _flatten(opt_state)
 
 
 def _from_numpy(x, dev: torch.device) -> torch.Tensor:

@@ -1,0 +1,269 @@
+"""LM assembly for the dense family (port of
+``src/repro/models/transformer.py``): parameter construction, the layer
+stack and the training forward with the chunked cross-entropy loss.
+
+The parameter tree keeps the JAX package's structure: a dict whose layer
+groups are stacked on a leading ``(G, ...)`` axis (as ``jax.vmap`` stacks
+``group_params``), attention and MLP weights in the ``AttnParams`` and
+``MLPParams`` NamedTuples, so its flattened key paths
+(``repro_torch.tree.flatten_with_path``) are those of
+``repro.ckpt.save._flatten`` letter for letter, e.g.
+``groups/l0/attn/.wq``. The scan over layer groups is a Python loop over
+the unbound group slices; ``remat="layer"`` runs each checkpoint span
+under ``torch.utils.checkpoint`` (memory only, the values are the same).
+
+Ported kinds: mixer 'G' and ffn 'D' (with 'N'). Mixers 'L', 'M' and 'R',
+ffn 'E', the encoder and the VLM stub raise ``NotImplementedError``
+(``ROADMAP.md`` queue 1, item 10), and so do the prefill and decode modes
+(item 8).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import tree
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import mlp as mlpm
+from repro_torch.models.common import embed, normal_init, rms_norm, softcap
+
+_FAMILIES = "ROADMAP.md queue 1, item 10"
+
+
+def _unported(what: str):
+    return NotImplementedError(f"{what} waits for its model family's port "
+                               f"({_FAMILIES})")
+
+
+# ---------------------------------------------------------------------------
+# Parameter construction
+# ---------------------------------------------------------------------------
+
+# make(shape, dtype) -> a normal(0, 0.02) draw; zeros(shape, dtype)
+Maker = Callable[[Tuple[int, ...], torch.dtype], torch.Tensor]
+
+
+def _init_attn(make: Maker, cfg: ModelConfig, dtype) -> attn.AttnParams:
+    D, H, Kv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hdim
+    return attn.AttnParams(
+        wq=make((D, H * Dh), dtype), wk=make((D, Kv * Dh), dtype),
+        wv=make((D, Kv * Dh), dtype), wo=make((H * Dh, D), dtype))
+
+
+def _init_mlp(make: Maker, zeros: Maker, cfg: ModelConfig, dtype) -> mlpm.MLPParams:
+    D, F = cfg.d_model, cfg.d_ff
+    gated = cfg.activation in ("swiglu", "geglu")
+    return mlpm.MLPParams(
+        w_in=make((D, F), dtype),
+        w_gate=make((D, F), dtype) if gated else zeros((1, 1), dtype),
+        w_out=make((F, D), dtype))
+
+
+def _init_layer(make: Maker, zeros: Maker, cfg: ModelConfig, mixer: str,
+                ffn: str, dtype) -> Dict:
+    D = cfg.d_model
+    lp: Dict[str, Any] = {"norm1": zeros((D,), dtype)}
+    if mixer == "G":
+        lp["attn"] = _init_attn(make, cfg, dtype)
+    else:
+        raise _unported(f"mixer {mixer!r}")
+    if ffn == "D":
+        lp["norm2"] = zeros((D,), dtype)
+        lp["ffn"] = _init_mlp(make, zeros, cfg, dtype)
+    elif ffn != "N":
+        raise _unported(f"ffn {ffn!r}")
+    if cfg.post_norms:
+        lp["post_norm1"] = zeros((D,), dtype)
+        if ffn != "N":
+            lp["post_norm2"] = zeros((D,), dtype)
+    return lp
+
+
+def _groups(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(period, n_groups, n_rem): layers = n_groups*period + n_rem."""
+    if not cfg.scan_layers:
+        return 1, 0, cfg.n_layers
+    period = cfg.pattern_period
+    return period, cfg.n_layers // period, cfg.n_layers % period
+
+
+def _build(cfg: ModelConfig, make: Maker, zeros: Maker) -> Dict:
+    if cfg.encoder is not None or cfg.vlm is not None:
+        raise _unported("the encoder / VLM stub")
+    dtype = cfg.torch_dtype
+    period, n_groups, n_rem = _groups(cfg)
+    params: Dict[str, Any] = {
+        "embed": make((cfg.vocab, cfg.d_model), dtype),
+        "final_norm": zeros((cfg.d_model,), dtype),
+    }
+    if n_groups:
+        groups = [{f"l{i}": _init_layer(make, zeros, cfg, cfg.mixer_at(i),
+                                        cfg.ffn_at(i), dtype)
+                   for i in range(period)} for _ in range(n_groups)]
+        params["groups"] = tree.map(lambda *xs: torch.stack(xs), *groups)
+    for r in range(n_rem):
+        li = n_groups * period + r
+        params[f"rem{r}"] = _init_layer(make, zeros, cfg, cfg.mixer_at(li),
+                                        cfg.ffn_at(li), dtype)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = make((cfg.d_model, cfg.vocab), dtype)
+    return params
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict:
+    """Random parameters drawn from ``gen`` on its device (N(0, 0.02^2)
+    weights, zero norm scales). The draws differ from the JAX package's
+    (its keys are JAX's); shapes, dtypes and paths are the same."""
+    dev = gen.device
+    return _build(cfg, lambda s, dt: normal_init(gen, s, dt),
+                  lambda s, dt: torch.zeros(s, dtype=dt, device=dev))
+
+
+def param_template(cfg: ModelConfig) -> Dict:
+    """The parameter tree on the meta device: shapes, dtypes and paths
+    without storage."""
+    meta = lambda s, dt: torch.empty(s, dtype=dt, device="meta")  # noqa: E731
+    return _build(cfg, meta, meta)
+
+
+# ---------------------------------------------------------------------------
+# Layer application
+# ---------------------------------------------------------------------------
+
+
+def _apply_layer(cfg: ModelConfig, mixer: str, ffn: str, lp: Dict,
+                 x: torch.Tensor, *, positions) -> torch.Tensor:
+    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    if mixer != "G":
+        raise _unported(f"mixer {mixer!r}")
+    chunked = x.shape[1] >= cfg.attn_chunk_threshold
+    h = attn.attn_forward(
+        lp["attn"], h,
+        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hdim,
+        rope_theta=cfg.rope_theta, causal=True, window=None,
+        cap=cfg.attn_softcap, positions=positions, chunked=chunked,
+        q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk,
+        schedule=cfg.attn_schedule,
+    )
+    if cfg.post_norms:
+        h = rms_norm(h, lp["post_norm1"], cfg.norm_eps)
+    x = x + h
+    if ffn != "N":
+        if ffn != "D":
+            raise _unported(f"ffn {ffn!r}")
+        h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        h2 = mlpm.mlp_forward(lp["ffn"], h2, cfg.activation)
+        if cfg.post_norms:
+            h2 = rms_norm(h2, lp["post_norm2"], cfg.norm_eps)
+        x = x + h2
+    return x
+
+
+def _apply_stack(cfg: ModelConfig, params, x: torch.Tensor, *, positions,
+                 mode: str) -> torch.Tensor:
+    period, n_groups, n_rem = _groups(cfg)
+
+    def group_body(x, gp):
+        for i in range(period):
+            x = _apply_layer(cfg, cfg.mixer_at(i), cfg.ffn_at(i), gp[f"l{i}"],
+                             x, positions=positions)
+        return x
+
+    if n_groups:
+        K = cfg.remat_group if (mode == "train" and n_groups % cfg.remat_group == 0) else 1
+        paths = tree.flatten_with_path(params["groups"])
+        # one unbind per stacked leaf: its gradient is a single stack
+        slices = {path: torch.unbind(leaf) for path, leaf in paths}
+        gps = [tree.unflatten_like(params["groups"],
+                                   {p: s[g] for p, s in slices.items()})
+               for g in range(n_groups)]
+        remat = cfg.remat == "layer" and mode == "train" and torch.is_grad_enabled()
+
+        def span(x, *chunk):
+            for gp in chunk:
+                x = group_body(x, gp)
+            return x
+
+        for g0 in range(0, n_groups, K):
+            chunk = gps[g0:g0 + K]
+            if remat:
+                x = checkpoint(span, x, *chunk, use_reentrant=False)
+            else:
+                x = span(x, *chunk)
+    for r in range(n_rem):
+        li = n_groups * period + r
+        x = _apply_layer(cfg, cfg.mixer_at(li), cfg.ffn_at(li),
+                         params[f"rem{r}"], x, positions=positions)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+
+
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
+            patch_embeds: Optional[torch.Tensor] = None,
+            enc_frames: Optional[torch.Tensor] = None,
+            mode: str = "train", caches=None, pos=None):
+    """Returns (hidden (B,S,D), new_caches (None), aux_loss)."""
+    if mode != "train" or caches is not None or pos is not None:
+        raise NotImplementedError(
+            "prefill and decode wait for the LLM engine's port "
+            "(ROADMAP.md queue 1, item 8)")
+    if patch_embeds is not None or enc_frames is not None:
+        raise _unported("the encoder / VLM stub")
+    x = embed(tokens, params["embed"], scale=cfg.embed_scale)
+    S = tokens.shape[1]
+    positions = torch.arange(S, device=x.device)[None]
+    x = _apply_stack(cfg, params, x, positions=positions, mode=mode)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, None, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _table(cfg: ModelConfig, params) -> torch.Tensor:
+    return params["embed"] if cfg.tie_embeddings else params["lm_head"].T
+
+
+def logits_fn(cfg: ModelConfig, params, hidden: torch.Tensor) -> torch.Tensor:
+    logits = hidden @ _table(cfg, params).to(hidden.dtype).T
+    return softcap(logits.float(), cfg.logit_softcap)
+
+
+def loss_fn(cfg: ModelConfig, params, batch: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Chunked-CE training loss. batch: tokens (B,S), labels (B,S)."""
+    hidden, _, aux = forward(
+        cfg, params, batch["tokens"],
+        patch_embeds=batch.get("patch_embeds"),
+        enc_frames=batch.get("enc_frames"), mode="train")
+    B, S, D = hidden.shape
+    table = _table(cfg, params)
+
+    N = B * S
+    hf = hidden.reshape(N, D)
+    lf = batch["labels"].reshape(N).long()
+    chunk = min(cfg.loss_chunk, N)
+    n_chunks = max(N // chunk, 1)
+    assert N % chunk == 0 or n_chunks == 1, (N, chunk)
+
+    def ce_chunk(h, lab):
+        logits = h @ table.to(h.dtype).T
+        logits = softcap(logits.float(), cfg.logit_softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        # gather's gradient is deterministic on CUDA under
+        # torch.use_deterministic_algorithms(True)
+        picked = torch.gather(logits, -1, lab[:, None])[:, 0]
+        return torch.sum(lse - picked)
+
+    if n_chunks == 1:
+        total = ce_chunk(hf, lf)
+    else:
+        total = torch.zeros((), dtype=torch.float32, device=hf.device)
+        for c in range(n_chunks):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            total = total + ce_chunk(hf[sl], lf[sl])
+    loss = total / N + 0.01 * aux
+    return loss, {"ce": total / N, "aux": aux}

@@ -10,12 +10,19 @@ with the card and no JAX: ``python -m pytest -q tests/test_torch_cuda.py``.
 Tolerance: the f32 pair of ``repro_torch.kernels.ref.tolerances``, as
 ``atol = 3e-4 * max(1, max|plain|)``.
 """
-import numpy as np
-import pytest
-import torch
+import os
 
-from repro_torch.core import SimComm, block_row_layout, caqr_factorize, ft_tsqr, recovery
-from repro_torch.ft import (
+# cuBLAS reads its workspace setting when CUDA starts; the training tests'
+# deterministic mode needs the fixed one
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch import tree  # noqa: E402
+from repro_torch.core import SimComm, block_row_layout, caqr_factorize, ft_tsqr, recovery  # noqa: E402
+from repro_torch.ft import (  # noqa: E402
     FailureSchedule,
     MDSScheme,
     ScriptedKiller,
@@ -25,13 +32,13 @@ from repro_torch.ft import (
     ft_caqr_sweep_online,
     sweep_point,
 )
-from repro_torch.ft.online import state as tstate
-from repro_torch.kernels import backend, ops
-from repro_torch.kernels import panel_qr as tpanel
-from repro_torch.kernels import ref as tref
-from repro_torch.kernels import stacked_qr as tstacked
-from repro_torch.kernels import wy_apply as twy
-from repro_torch.serve import QRService
+from repro_torch.ft.online import state as tstate  # noqa: E402
+from repro_torch.kernels import backend, ops  # noqa: E402
+from repro_torch.kernels import panel_qr as tpanel  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import stacked_qr as tstacked  # noqa: E402
+from repro_torch.kernels import wy_apply as twy  # noqa: E402
+from repro_torch.serve import QRService  # noqa: E402
 
 RTOL, ATOL = tref.tolerances(torch.float32)
 
@@ -569,3 +576,69 @@ def test_cuda_qr_service_kill_and_drain_bitwise(rng, cuda):
     x_ref, *_ = np.linalg.lstsq(A.astype(np.float64), rhs.astype(np.float64),
                                 rcond=None)
     np.testing.assert_allclose(clean[rids[0]].x, x_ref, atol=1e-3)
+
+
+@pytest.fixture
+def deterministic(cuda):
+    """torch's deterministic mode (the scatter-adds of the embedding's and
+    the loss's backward), restored afterwards."""
+    before = torch.are_deterministic_algorithms_enabled()
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    yield
+    torch.use_deterministic_algorithms(before)
+    torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+@pytest.mark.cuda
+def test_cuda_ftrun_failure_free_twice_and_kill_bitwise(deterministic):
+    """The smoke config's FTTrainer (caqr_muon, 4 lanes, b = 16) on the
+    card: two failure-free runs bit-equal, and a lane killed inside step
+    2's first sweep healed to the same bits; K1-K4 launched, K5/K6 not."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.ftrun import FTTrainer, StepSweepKiller
+
+    cfg = get_smoke("tinyllama-1.1b")
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8, seed=1)
+    tcfg = TrainConfig(steps=4, lr=1e-2, warmup=2, n_lanes=4, diskless_every=2,
+                       log_every=100, optimizer="caqr_muon")
+    backend.reset_launches()
+    runs = [FTTrainer(cfg, tcfg, dcfg) for _ in range(2)]
+    hists = [tr.run() for tr in runs]
+    assert all(backend.LAUNCHES[op] > 0 for op in
+               ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply"))
+    assert backend.LAUNCHES["panel_qr_apply"] == backend.LAUNCHES["fused_panel"] == 0
+    killer = StepSweepKiller(at_step=2, lane=1)
+    killed = FTTrainer(cfg, tcfg, dcfg, qr_fault_hooks=[killer])
+    hists.append(killed.run())
+    runs.append(killed)
+    assert killer.fired and len(killed.engine.events) == 1
+    for tr, hist in zip(runs[1:], hists[1:]):
+        assert [h["loss"] for h in hist] == [h["loss"] for h in hists[0]]
+        assert all(torch.equal(a, b) for a, b in
+                   zip(tree.leaves(tr.state.params), tree.leaves(runs[0].state.params)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_loc,n,b", [(1408, 128, 128), (512, 128, 128), (512, 4, 4)])
+def test_cuda_kernels_at_train_shapes_match_plain(rng, cuda, m_loc, n, b):
+    """K1-K4 at the FT trainer's sweep shapes (TinyLlama's w_in and wq
+    sweeps over 4 lanes, and a rank-4 PowerSGD projection), on 4 lanes and
+    one lane (the REBUILD replay)."""
+    P = 4
+    X = t(rng.standard_normal((P, m_loc, n)).astype(np.float32)).to(cuda)
+    panel = X[..., :b].contiguous()
+    pairs = [p ^ 1 for p in range(P)]
+    for args in ((panel, 0), (panel, m_loc - b), (panel[2], 0)):
+        close(ops.panel_qr(*args), tref.panel_qr(*args))
+    Y, T, R = ops.panel_qr(panel, 0)
+    for args in ((Y, T, X), (Y[1], T[1], X[1])):
+        close(ops.wy_apply(*args), tref.wy_apply(*args))
+    close(ops.stacked_qr(R, R[pairs].contiguous()), tref.stacked_qr(R, R[pairs].contiguous()))
+    Y2, T2, _ = ops.stacked_qr(R, R[pairs].contiguous())
+    Ct = X[:, :b].contiguous()
+    args = (Y2, T2, Ct, Ct[pairs].contiguous())
+    close(ops.stacked_apply(*args), tref.stacked_apply(*args))

@@ -1,0 +1,154 @@
+"""The port's dense transformer (``repro_torch.models``) against the JAX
+package's, on CPU tensors at the ``tinyllama`` smoke config (f32).
+
+Exactly: the parameter tree's flattened paths (the checkpoint keys, the
+Muon task names), shapes and dtypes, in JAX's leaf order. Within the f32
+pair of ``repro.kernels.ref.tolerances``: with JAX's parameters carried
+across (``interop.params_from_arrays``), the loss and every gradient
+leaf, for one and two microbatches and for the chunked CE; ``rope``,
+``rms_norm`` and ``full_attention`` on the same numpy inputs.
+"""
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.ckpt.save import _flatten as j_flatten
+from repro.configs import get_smoke as j_get_smoke
+from repro.data.pipeline import DataConfig, make_batch
+from repro.kernels.ref import tolerances
+from repro.models import attention as j_attn
+from repro.models import common as j_common
+from repro.models import transformer as j_tf
+from repro.train.step import make_loss_and_grads as j_loss_and_grads
+from repro_torch import interop, tree
+from repro_torch.configs import get_smoke
+from repro_torch.models import attention as t_attn
+from repro_torch.models import common as t_common
+from repro_torch.models import transformer as t_tf
+from repro_torch.train.step import make_loss_and_grads
+
+RTOL, ATOL = tolerances(np.float32)
+ARCH = "tinyllama-1.1b"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_jax_executables():
+    yield
+    jax.clear_caches()
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    return j_tf.init_params(j_get_smoke(ARCH), jax.random.key(0))
+
+
+def _batch(cfg, step=0):
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8, seed=1)
+    return make_batch(dcfg, step)
+
+
+def test_init_paths_shapes_and_dtypes_equal_jax(jax_params):
+    want = [(k, v.shape, str(v.dtype)) for k, v in j_flatten(jax_params).items()]
+    for params in (t_tf.init_params(get_smoke(ARCH), torch.Generator().manual_seed(0)),
+                   t_tf.param_template(get_smoke(ARCH))):
+        got = [(p, tuple(x.shape), str(x.dtype).removeprefix("torch."))
+               for p, x in tree.flatten_with_path(params)]
+        assert got == want
+    assert "groups/l0/attn/.wq" in dict((k, 0) for k, *_ in want)
+
+
+def test_full_width_template_matches_published_shapes():
+    from repro.configs import get_config as j_get_config
+    from repro_torch.configs import get_config
+
+    abstract = jax.eval_shape(lambda k: j_tf.init_params(j_get_config(ARCH), k),
+                              jax.random.key(0))
+    want = [("/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path),
+             tuple(leaf.shape))
+            for path, leaf in jax.tree_util.tree_flatten_with_path(abstract)[0]]
+    got = [(p, tuple(x.shape))
+           for p, x in tree.flatten_with_path(t_tf.param_template(get_config(ARCH)))]
+    assert got == want
+    assert dict(got)["groups/l0/ffn/.w_in"] == (22, 2048, 5632)
+
+
+@pytest.mark.parametrize("grad_accum,loss_chunk", [(1, 8192), (2, 8192), (1, 64)],
+                         ids=["one-chunk", "accum2", "chunked-ce"])
+def test_loss_and_every_gradient_leaf_within_tolerance(jax_params, grad_accum,
+                                                       loss_chunk):
+    jcfg = dataclasses.replace(j_get_smoke(ARCH), loss_chunk=loss_chunk)
+    tcfg = dataclasses.replace(get_smoke(ARCH), loss_chunk=loss_chunk)
+    batch = _batch(jcfg)
+    jl, jg = jax.jit(j_loss_and_grads(jcfg, grad_accum))(
+        jax_params, {k: jnp.asarray(v) for k, v in batch.items()})
+    params = interop.params_from_arrays(j_flatten(jax_params), tcfg, device="cpu")
+    tl, tg = make_loss_and_grads(tcfg, grad_accum)(
+        params, {k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(tl), float(jl), rtol=RTOL, atol=ATOL)
+    want = j_flatten(jg)
+    got = dict(tree.flatten_with_path(tg))
+    assert list(got) == list(want)
+    for path, g in want.items():
+        np.testing.assert_allclose(got[path].numpy(), g, rtol=RTOL, atol=ATOL,
+                                   err_msg=path)
+
+
+def test_remat_changes_no_value(jax_params):
+    cfg = get_smoke(ARCH)
+    params = interop.params_from_arrays(j_flatten(jax_params), cfg, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, 3).items()}
+    la, ga = make_loss_and_grads(cfg)(params, batch)
+    lb, gb = make_loss_and_grads(dataclasses.replace(cfg, remat="none"))(params, batch)
+    assert torch.equal(la, lb)
+    assert all(torch.equal(a, b) for a, b in zip(tree.leaves(ga), tree.leaves(gb)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_and_rope_match_jax(rng, dtype):
+    tol = tolerances(np.float32 if dtype == "float32" else jnp.bfloat16)
+    x = rng.standard_normal((2, 16, 4, 8)).astype(np.float32)
+    scale = rng.standard_normal((8,)).astype(np.float32)
+    pos = np.arange(16)[None].repeat(2, 0)
+    jx = jnp.asarray(x, dtype)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = t_common.rms_norm(tx, torch.from_numpy(scale).to(tx.dtype), 1e-6)
+    want = j_common.rms_norm(jx, jnp.asarray(scale, dtype), 1e-6)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol[0], atol=tol[1])
+    got = t_common.rope(tx, torch.from_numpy(pos), 10_000.0)
+    want = j_common.rope(jx, jnp.asarray(pos), 10_000.0)
+    assert got.dtype == tx.dtype
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.parametrize("window,cap", [(None, None), (5, 30.0)])
+def test_full_attention_matches_jax(rng, window, cap):
+    B, S, H, Kv, Dh = 2, 12, 8, 2, 8
+    q = rng.standard_normal((B, S, H, Dh)).astype(np.float32)
+    k = rng.standard_normal((B, S, Kv, Dh)).astype(np.float32)
+    v = rng.standard_normal((B, S, Kv, Dh)).astype(np.float32)
+    want = j_attn.full_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 n_kv=Kv, window=window, cap=cap)
+    got = t_attn.full_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), n_kv=Kv, window=window,
+                                cap=cap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+def test_unported_paths_raise():
+    cfg = get_smoke(ARCH)
+    p = t_tf.param_template(cfg)["groups"]["l0"]["attn"]
+    x = torch.zeros(1, 4, cfg.d_model)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        t_attn.attn_forward(p, x, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                            head_dim=cfg.hdim, rope_theta=1e4, chunked=True)
+    for bad in (dict(mixer_pattern="M"), dict(ffn_pattern="E")):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            t_tf.param_template(dataclasses.replace(cfg, **bad))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        t_tf.forward(cfg, {}, torch.zeros(1, 4, dtype=torch.int32), mode="decode")
