@@ -110,7 +110,31 @@ non-zero and prints no result):
    into grad phase, task loop (engine seconds, polls, sweeps, boundaries,
    segments) and finish phase, heal seconds and peak memory, and device
    time by kernel over one more step under torch.profiler.
-14. spread: each full-width sweep (``caqr_factorize``, the state machine
+14. train_moe: the FT training runtime on mixtral-8x22b at its published
+   width (d_model 6144, 48 heads, 8 kv heads, head_dim 128, 8 experts top-2,
+   d_ff_expert 16384, vocab 32768, window 4096, rope theta 1e6, bf16
+   params), cut to 1 layer, sequence 1024, global batch 8 over 4 data
+   lanes, 3 steps (``MOE_REDUCED``), random weights from ``--seed``:
+   ``caqr_muon`` through ``FTTrainer`` with ``FTRunConfig(qr_lanes=4,
+   panel_width=128)``, so 29 full-width online FT-CAQR sweeps a step on
+   K1-K4 (24 expert slices of 16384 x 6144, wq and wo 6144 x 6144, wk and
+   wv 6144 x 1024, the router 6144 x 8), under torch's deterministic mode.
+   Runs: failure-free twice (params bit-equal, optimizer states with equal
+   digests, equal losses); lane 1 killed at a mid-sweep point of step 2
+   inside the fourth w_gate expert's sweep (the same bits, one
+   single-source REBUILD event, no rewind). Checks: finite losses, every
+   sweep's R of the first run against the Gram identity of its momentum
+   slice, K1-K4 launched and K5/K6 not on the ``train_moe`` and
+   ``train_moe_kill`` paths, and K1-K4 at the path's shapes
+   (``MOE_SHAPES``) against their plain versions on 4 lanes and one (on
+   random data and on a momentum slice; the router's has rank 7, since
+   softmax's logit gradients sum to zero over the experts, so there K1's
+   and K3's outputs are held where the first 7 reflectors fix them). Prints
+   each run's step seconds and their split, the engine's sweeps,
+   boundaries, poll and heal seconds, peak memory, the share of token
+   assignments dropped at capacity, and the column norms of the router
+   sweep's Q.
+15. spread: each full-width sweep (``caqr_factorize``, the state machine
    stepped and fused, the four-kill FT sweep, the online sweeps stepped,
    fused and double-buffered) run five times: median and min-max seconds.
 
@@ -123,7 +147,9 @@ Needs CUDA; imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
 import os
 import pathlib
@@ -165,6 +191,7 @@ from repro_torch import tree  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.pipeline import DataConfig  # noqa: E402
 from repro_torch.launch.serve_qr import make_requests  # noqa: E402
+from repro_torch.models import moe as t_moe  # noqa: E402
 from repro_torch.serve import QRService  # noqa: E402
 from repro_torch.train import TrainConfig, Trainer  # noqa: E402
 from repro_torch.train.ftrun import (  # noqa: E402
@@ -182,6 +209,10 @@ PEAK_BYTES = 3.35e12  # B/s, H100 SXM HBM3
 GRAM_TOL = 1e-3       # relative, float64 Gram identity R^T R = A^T A
 QTA_TOL = 1e-3        # relative to max |R|
 LSTSQ_TOL = 1e-3      # relative to the normal-equations solution
+# a panel column whose pivot is below this share of the largest depends on
+# the columns before it to within f32 round-off over the f32 tolerance
+# (1.2e-7 / 3e-4): its reflector is not fixed by the data
+DEPENDENT_PIVOT = 4e-4
 
 KERNELS = {
     "panel_qr": ("src/repro_torch/csrc/panel_qr.cu",
@@ -243,6 +274,31 @@ TRAIN_PSGD_RANK, TRAIN_PSGD_STEPS = 4, 2
 # w_out-like and embedding slices
 TRAIN_SHAPES = ((1408, 2048, 128), (512, 2048, 128), (512, 256, 128),
                 (512, 4, 4), (1408, 4, 4), (8000, 4, 4))
+# the MoE phase: mixtral-8x22b at its published width, cut in depth
+MOE_ARCH = "mixtral-8x22b"
+MOE_LAYERS, MOE_SEQ, MOE_BATCH, MOE_STEPS = 1, 1024, 8, 3
+MOE_REDUCED = {
+    "n_layers": "56 -> 1: memory and time (one layer's expert banks, 2.4 G "
+                "parameters, with their float32 momentum and second moment "
+                "and the trainer's step fill most of the card; each layer "
+                "adds 29 full-width sweeps a step)",
+    "seq_len": "4096 (the train_4k shape) -> 1024: time (the window of 4096 "
+               "then masks nothing; the CPU tests hold the window)",
+    "global_batch": "8 rows over 4 data lanes: time",
+    "steps": "3: a kill inside step 2 and a step after it",
+}
+# the mid-sweep kill: lane 1, step 2, inside the fourth w_gate expert's sweep
+# (48 panels), after panel 20's last butterfly level
+MOE_KILL = dict(at_step=2, lane=1, task="groups/l0/ffn/.w_gate#3",
+                point=sweep_point(20, "tsqr", 1))
+# K1-K4's shapes on the MoE path (m_loc, n, b): the expert slices (16384 x
+# 6144: w_gate and w_in transposed, w_out as it is), wq and wo (6144 x
+# 6144), wk and wv (6144 x 1024), and the router (6144 x 8), whose sweep is
+# one panel as wide as the matrix (the engine clamps b to n)
+MOE_SHAPES = ((4096, 6144, 128), (1536, 6144, 128), (1536, 1024, 128),
+              (1536, 8, 8))
+MOE_ROUTER = "groups/l0/ffn/.w_router#0"   # the router's sweep task
+MOE_SWEEPS = 29                            # sweeps a step (the tasks)
 # launches of every kernel on every path, counters at 0 before each path
 PATH_LAUNCHES = {}
 
@@ -1169,14 +1225,40 @@ def serve_checks(reqs: list, run: dict) -> dict:
                 lstsq_rel_err_max=max(lst))
 
 
+def leading_rank(X: torch.Tensor, b: int) -> int:
+    """How many leading columns of the first panel ``X[..., :b]`` of a
+    (P, m_loc, n) block-row matrix are numerically independent on every
+    lane: the columns before the first whose float64 pivot |R_jj| falls
+    below DEPENDENT_PIVOT of the lane's largest."""
+    d = torch.linalg.qr(X[..., :b].double(), mode="r").R.diagonal(
+        dim1=-2, dim2=-1).abs()
+    ok = d >= DEPENDENT_PIVOT * d.amax(-1, keepdim=True)
+    return int(torch.cumprod(ok.int(), -1).sum(-1).min())
+
+
+def determined(op: str, outs: tuple, rank: int) -> tuple:
+    """The outputs of a panel QR (K1's Y, T, R; K3's Y2, T, R) that its
+    first ``rank`` reflectors fix: a reflector past the rank of the columns
+    before it is round-off in any QR, and so are the entries of Y and T
+    that depend on it and the rows of R it makes. Other kernels' outputs
+    are all fixed by their inputs."""
+    if op not in ("panel_qr", "stacked_qr"):
+        return outs
+    Y, T, R = outs
+    return Y[..., :rank], T[..., :rank, :rank], R[..., :rank, :]
+
+
 def stepped_kernel_check(X: torch.Tensor, b: int, rs_last, worst: dict,
-                         where: str) -> None:
+                         where: str, rank: int = 0) -> None:
     """K1-K4 against their plain versions on a (P, m_loc, n) block-row
     matrix ``X`` at panel width ``b``: K1 at row start 0 and at the last
     panel's row starts ``rs_last`` (one a lane), on P lanes and on one (the
     REBUILD replay); K2 on the first, a middle and the last panel's window
     and on one lane; K3 on a butterfly pair's R factors; K4 at the first
-    and the last window. Raises past the tolerance; folds each kernel's
+    and the last window. With ``0 < rank < b`` (the first panel's leading
+    columns past ``rank`` depend on those before them), K1's and K3's
+    outputs are held where the first ``rank`` reflectors fix them
+    (``determined``). Raises past the tolerance; folds each kernel's
     largest scaled error into ``worst``."""
     tol = ref.tolerances(torch.float32)[0]
     P, _, n = X.shape
@@ -1194,9 +1276,10 @@ def stepped_kernel_check(X: torch.Tensor, b: int, rs_last, worst: dict,
     for w in sorted({n, b}):
         Ct = X[:, :b, n - w:].contiguous()
         cases.append(("stacked_apply", (Y2, T2, Ct, Ct[pairs].contiguous())))
+    r = rank if 0 < rank < b else b
     for op, args in cases:
-        _, scaled = max_err(as_tuple(getattr(ops, op)(*args)),
-                            as_tuple(getattr(ref, op)(*args)))
+        _, scaled = max_err(determined(op, as_tuple(getattr(ops, op)(*args)), r),
+                            determined(op, as_tuple(getattr(ref, op)(*args)), r))
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
         check(scaled <= tol, f"{where}: {op} at {shapes}: scaled error "
               f"{scaled} over {tol}")
@@ -1359,13 +1442,16 @@ def same_tree(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(tree.leaves(a), tree.leaves(b)))
 
 
-def train_run(tr, path: str = "", schedule=None, gram: bool = False) -> dict:
+def train_run(tr, path: str = "", schedule=None, gram: bool = False,
+              watch: str = "") -> dict:
     """Run trainer ``tr`` to its end: its history, step and phase seconds,
-    the engine's stats, peak memory above what was live before it, and
-    with ``path`` the launches counted from 0 just before the run; with
-    ``gram`` every sweep's R held to the Gram identity of its momentum
-    slice (float64, on the card)."""
-    grams = []
+    the engine's stats, peak memory (above what was live before it, and in
+    all), and with ``path`` the launches counted from 0 just before the
+    run; with ``gram`` every sweep's R held to the Gram identity of its
+    momentum slice (float64, on the card), and the column norms of the Q
+    that the sweeps of task ``watch`` give (``A R^-1``, as the engine forms
+    it)."""
+    grams, watched = [], []
     if gram:
         factorize = tr.engine.factorize
 
@@ -1373,6 +1459,9 @@ def train_run(tr, path: str = "", schedule=None, gram: bool = False) -> dict:
             R = factorize(M, resume_state=resume_state)
             grams.append((tr._cur_step, tr._cur_task,
                           gram_error(M.double(), R)))
+            if tr._cur_task == watch:
+                Q = torch.linalg.solve_triangular(R, M, upper=True, left=False)
+                watched.append(Q.norm(dim=0).tolist())
             return R
 
         tr.engine.factorize = checked
@@ -1391,6 +1480,7 @@ def train_run(tr, path: str = "", schedule=None, gram: bool = False) -> dict:
                steps=[h["step"] for h in hist], step_seconds=dts,
                step_seconds_median=sorted(dts)[len(dts) // 2],
                peak_mem_gb_above_live=(torch.cuda.max_memory_allocated() - base) / 1e9,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                launches=dict(backend.LAUNCHES))
     if isinstance(tr, FTTrainer):
         e = tr.engine
@@ -1400,15 +1490,18 @@ def train_run(tr, path: str = "", schedule=None, gram: bool = False) -> dict:
                    heal_seconds=e.recover_s, events=len(e.events))
     if gram:
         out["gram"] = grams
+    if watch:
+        out["watch"] = watched
     return out
 
 
-def train_kernel_check(mom, tasks: list, g: torch.Generator) -> dict:
-    """K1-K4 at the train path's shapes (TRAIN_SHAPES) against their plain
-    versions, on 4 lanes and on one (``stepped_kernel_check``): the Muon
-    shapes on a momentum slice of the failure-free run laid out as the
-    engine lays it out, and on random data; the projection shapes on random
-    data."""
+def train_kernel_check(mom, tasks: list, g: torch.Generator,
+                       shapes=TRAIN_SHAPES) -> dict:
+    """K1-K4 at a train path's shapes ((m_loc, n, b), TRAIN_SHAPES by
+    default) against their plain versions, on 4 lanes and on one
+    (``stepped_kernel_check``): the Muon shapes on a momentum slice of the
+    failure-free run laid out as the engine lays it out, and on random
+    data; the projection shapes on random data."""
     dev = tree.leaves(mom)[0].device
     by_shape = {}
     for task in tasks:
@@ -1416,7 +1509,7 @@ def train_kernel_check(mom, tasks: list, g: torch.Generator) -> dict:
         A = (M.T if task.transpose else M).float()
         by_shape.setdefault((A.shape[0] // TRAIN_LANES, A.shape[1]), A)
     out = {}
-    for m_loc, n, b in TRAIN_SHAPES:
+    for m_loc, n, b in shapes:
         geom = sweep_geometry(TRAIN_LANES, m_loc, n, b)
         rs_last = panel_geometry(SimComm(TRAIN_LANES), geom.n_panels - 1, b,
                                  m_loc)[2]
@@ -1424,13 +1517,16 @@ def train_kernel_check(mom, tasks: list, g: torch.Generator) -> dict:
         if (m_loc, n) in by_shape:
             inputs.append(by_shape[(m_loc, n)].reshape(TRAIN_LANES, m_loc, n)
                           .contiguous())
-        worst = {}
+        worst, ranks = {}, []
         for X in inputs:
+            ranks.append(leading_rank(X, b))
             stepped_kernel_check(X, b, rs_last, worst,
-                                 f"train shape {(TRAIN_LANES, m_loc, n)} b={b}")
+                                 f"train shape {(TRAIN_LANES, m_loc, n)} b={b}",
+                                 rank=ranks[-1])
         out[str([TRAIN_LANES, m_loc, n, b])] = dict(
             team=backend.team_blocks(m_loc, b), inputs=len(inputs),
-            last_row_start=int(rs_last[0]), scaled_err_max=worst)
+            leading_rank=ranks, last_row_start=int(rs_last[0]),
+            scaled_err_max=worst)
     return out
 
 
@@ -1464,23 +1560,30 @@ def train_profile(cfg, dcfg, d: str, clean: dict) -> dict:
                 k1_k4_share_of_task_loop=kernels / tasks_ms)
 
 
+@contextlib.contextmanager
+def deterministic_mode():
+    """torch's deterministic mode for a training phase, restored after it:
+    deterministic scatter-adds for the embedding's and the CE pick's
+    backward (and the MoE dispatch's and combine's); every kernel writes all
+    of its outputs, so the fill of fresh memory the mode also turns on (a
+    debugging aid) stays off."""
+    det_before = torch.are_deterministic_algorithms_enabled()
+    fill_before = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(det_before)
+        torch.utils.deterministic.fill_uninitialized_memory = fill_before
+
+
 def train_phase(seed: int, card: str) -> None:
     """The FT training runtime at TinyLlama's full width (see the module
     docstring), under torch's deterministic mode."""
     t_phase = time.perf_counter()
-    det_before = torch.are_deterministic_algorithms_enabled()
-    fill_before = torch.utils.deterministic.fill_uninitialized_memory
-    # deterministic scatter-adds for the embedding's and the CE pick's
-    # backward; every kernel writes all of its outputs, so the fill of
-    # fresh memory the mode also turns on (a debugging aid) stays off
-    torch.use_deterministic_algorithms(True)
-    torch.utils.deterministic.fill_uninitialized_memory = False
-    try:
-        with tempfile.TemporaryDirectory() as d:
-            report = train_runs(seed, d, card)
-    finally:
-        torch.use_deterministic_algorithms(det_before)
-        torch.utils.deterministic.fill_uninitialized_memory = fill_before
+    with deterministic_mode(), tempfile.TemporaryDirectory() as d:
+        report = train_runs(seed, d, card)
     report["phase_seconds"] = time.perf_counter() - t_phase
     emit({"train": report})
 
@@ -1617,6 +1720,169 @@ def train_runs(seed: int, d: str, card: str) -> dict:
     return report
 
 
+def moe_configs(seed: int):
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=MOE_SEQ,
+                      global_batch=MOE_BATCH, seed=seed)
+    return cfg, dcfg
+
+
+class RoutingCount:
+    """Counts the token assignments that the MoE layers route, and those
+    dropped at capacity, while it is entered (it wraps
+    ``models.moe.route``; the forward that the backward's checkpoint
+    recomputes counts again, which leaves the share as it is)."""
+
+    def __enter__(self):
+        self.dropped, self.total = [], 0
+        self._route = t_moe.route
+
+        def counted(probs, top_k, capacity_factor):
+            r, ids = self._route(probs, top_k, capacity_factor)
+            self.dropped.append((~r.keep).sum())
+            self.total += r.keep.numel()
+            return r, ids
+
+        t_moe.route = counted
+        return self
+
+    def __exit__(self, *exc):
+        t_moe.route = self._route
+
+    def share(self) -> float:
+        return float(torch.stack(self.dropped).sum()) / self.total
+
+
+def tree_digest(t) -> list:
+    """One int64 a tensor leaf: its bits read as integers, weighted by
+    their position and summed (wrapping) in chunks on the leaf's device. Two
+    trees with the same bits give the same digests; no second copy of the
+    tree is made."""
+    out, chunk = [], 1 << 26
+    for leaf in tree.leaves(t):
+        flat = leaf.reshape(-1)
+        bits = flat.view({2: torch.int16, 4: torch.int32}[flat.element_size()])
+        acc = torch.zeros((), dtype=torch.int64, device=flat.device)
+        for i in range(0, bits.numel(), chunk):
+            c = bits[i:i + chunk].to(torch.int64)
+            w = torch.arange(i, i + c.numel(), device=c.device) % 1000003 + 1
+            acc += torch.sum(c * w)
+        out.append(int(acc))
+    return out
+
+
+def same_as_host(t, host) -> bool:
+    """Every leaf of tree ``t`` bit-equal to ``host``'s (a host copy)."""
+    return all(torch.equal(x.cpu(), y)
+               for x, y in zip(tree.leaves(t), tree.leaves(host)))
+
+
+def moe_phase(seed: int, card: str) -> None:
+    """The FT training runtime on mixtral-8x22b at its published width (see
+    the module docstring), under torch's deterministic mode."""
+    t_phase = time.perf_counter()
+    # what earlier phases left in reference cycles goes before the trainers
+    gc.collect()
+    torch.cuda.empty_cache()
+    with deterministic_mode(), tempfile.TemporaryDirectory() as d:
+        report = moe_runs(seed, d, card)
+    report["phase_seconds"] = time.perf_counter() - t_phase
+    emit({"train_moe": report})
+
+
+def moe_runs(seed: int, d: str, card: str) -> dict:
+    cfg, dcfg = moe_configs(seed)
+    # the loop pushes its diskless checkpoint at step 0 whatever the period;
+    # a period past the last step pushes no other
+    tcfg = train_tcfg(d, steps=MOE_STEPS, diskless_every=MOE_STEPS + 1)
+    make = lambda hooks=(): FTTrainer(  # noqa: E731
+        cfg, tcfg, dcfg, train_fcfg(), qr_fault_hooks=hooks)
+    # two trainers do not fit on the card together: each run's trainer is
+    # dropped (and its reference cycles collected: hooks and the Gram
+    # check hold the trainer) before the next, keeping a host copy of the
+    # first run's params and a digest of its optimizer state
+    # 1. failure-free, every sweep's R held to the Gram identity
+    tr = make()
+    tasks = tr._tasks
+    shapes = sorted({(t.rows, t.cols) for t in tasks}, reverse=True)
+    with RoutingCount() as routed:
+        clean = train_run(tr, "train_moe", gram=True, watch=MOE_ROUTER)
+    grams, router_q = clean.pop("gram"), clean.pop("watch")
+    want_params = tree.map(lambda x: x.cpu(), tr.state.params)
+    want_opt = tree_digest(tr.state.opt_state)
+    kernels = train_kernel_check(tr.state.opt_state.mom, tasks,
+                                 torch.Generator().manual_seed(seed + 5),
+                                 MOE_SHAPES)
+    del tr
+    gc.collect()
+    # 2. failure-free again: the determinism check (and the step seconds
+    # without the Gram checks)
+    tr = make()
+    second = train_run(tr)
+    det_same = (same_as_host(tr.state.params, want_params)
+                and tree_digest(tr.state.opt_state) == want_opt
+                and second["losses"] == clean["losses"])
+    del tr
+    gc.collect()
+    check(det_same, "train_moe: two failure-free runs differ")
+    # 3. lane 1 killed mid-sweep inside an expert bank's sweep of step 2
+    killer = StepSweepKiller(**MOE_KILL)
+    tr = make([killer])
+    kill = train_run(tr, "train_moe_kill")
+    ev = tr.engine.events
+    kill_same = (same_as_host(tr.state.params, want_params)
+                 and kill["losses"] == clean["losses"])
+    kill_opt_same = tree_digest(tr.state.opt_state) == want_opt
+    kill.update(struck=killer.struck,
+                event_reads=[{str(k): int(v) for k, v in e.reads.items()} for e in ev])
+    del tr, want_params
+    gc.collect()
+    launches_ok = {path: all(PATH_LAUNCHES[path][op] > 0 for op in STEPPED)
+                   and PATH_LAUNCHES[path]["panel_qr_apply"] == 0
+                   and PATH_LAUNCHES[path]["fused_panel"] == 0
+                   for path in ("train_moe", "train_moe_kill")}
+    gram_max = max(g for *_, g in grams)
+    m = cfg.moe
+    N = MOE_BATCH * MOE_SEQ
+    report = dict(
+        arch=MOE_ARCH, d_model=cfg.d_model, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hdim, n_experts=m.n_experts,
+        top_k=m.top_k, d_ff_expert=m.d_ff_expert, vocab=cfg.vocab,
+        sliding_window=cfg.sliding_window, rope_theta=cfg.rope_theta,
+        dtype=cfg.dtype, n_layers=cfg.n_layers, seq_len=MOE_SEQ,
+        global_batch=MOE_BATCH, data_lanes=TRAIN_LANES, steps=MOE_STEPS,
+        qr_lanes=TRAIN_LANES, panel_width=TRAIN_B, reduced=MOE_REDUCED,
+        tasks_per_step=len(tasks), sweep_shapes=shapes,
+        capacity=t_moe.capacity(N, m.top_k, m.n_experts, m.capacity_factor),
+        dropped_share=routed.share(),
+        deterministic="torch.use_deterministic_algorithms(True), "
+                      "CUBLAS_WORKSPACE_CONFIG=" + os.environ["CUBLAS_WORKSPACE_CONFIG"],
+        failure_free=clean, second=second, second_bitwise_equal=det_same,
+        gram_checked=len(grams), gram_rel_err_max=gram_max,
+        router_q_column_norms=router_q,
+        kill=dict(**kill, bitwise_equal_failure_free=kill_same,
+                  opt_state_equal_failure_free=kill_opt_same),
+        kernels=kernels, launches_ok=launches_ok, card=card)
+    losses = clean["losses"]
+    check(all(np.isfinite(x) for x in losses), f"train_moe: a loss is not finite {losses}")
+    check(len(tasks) == MOE_SWEEPS,
+          f"train_moe: {len(tasks)} sweeps a step, not {MOE_SWEEPS}")
+    check(gram_max <= GRAM_TOL, f"train_moe Gram identity: {gram_max} > {GRAM_TOL}")
+    check(len(grams) == MOE_STEPS * len(tasks),
+          f"train_moe: {len(grams)} Gram-checked sweeps")
+    check(kill_same and kill_opt_same,
+          "train_moe: the mid-sweep kill changed params, optimizer state or losses")
+    check(killer.struck is not None and killer.struck[:2] == (
+        MOE_KILL["at_step"], MOE_KILL["task"]), f"train_moe: kill struck {killer.struck}")
+    check(len(ev) == 1 and ev[0].lane == MOE_KILL["lane"] and ev[0].reads
+          and MOE_KILL["lane"] not in ev[0].reads.values(),
+          f"train_moe: not one single-source REBUILD event: {ev}")
+    check(kill["steps"] == list(range(MOE_STEPS)),
+          f"train_moe: the kill rewound training: steps {kill['steps']}")
+    check(all(launches_ok.values()), f"train_moe: launches {launches_ok}")
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1658,6 +1924,7 @@ def main() -> int:
     ragged_phase(rng)
     serve_phase(args.seed, card)
     train_phase(args.seed, card)
+    moe_phase(args.seed, card)
     spread_phase(A)
     for rec in records:
         rec["launches_by_path"] = {path: counts[rec["name"]]

@@ -1,21 +1,24 @@
-"""LM assembly for the dense family (port of
-``src/repro/models/transformer.py``): parameter construction, the layer
-stack and the training forward with the chunked cross-entropy loss.
+"""LM assembly (port of ``src/repro/models/transformer.py``): parameter
+construction, the layer stack and the training forward with the chunked
+cross-entropy loss, for the dense and MoE families.
 
 The parameter tree keeps the JAX package's structure: a dict whose layer
 groups are stacked on a leading ``(G, ...)`` axis (as ``jax.vmap`` stacks
-``group_params``), attention and MLP weights in the ``AttnParams`` and
-``MLPParams`` NamedTuples, so its flattened key paths
+``group_params``), attention, MLP and MoE weights in the ``AttnParams``,
+``MLPParams`` and ``MoEParams`` NamedTuples, so its flattened key paths
 (``repro_torch.tree.flatten_with_path``) are those of
 ``repro.ckpt.save._flatten`` letter for letter, e.g.
-``groups/l0/attn/.wq``. The scan over layer groups is a Python loop over
-the unbound group slices; ``remat="layer"`` runs each checkpoint span
-under ``torch.utils.checkpoint`` (memory only, the values are the same).
+``groups/l0/attn/.wq``, ``groups/l0/ffn/.w_gate``. The scan over layer
+groups is a Python loop over the unbound group slices; ``remat="layer"``
+runs each checkpoint span under ``torch.utils.checkpoint`` (memory only,
+the values are the same). The MoE layers' aux losses are summed as the
+reference sums them: per group over its layers, then over the groups in
+order, then the remainder layers.
 
-Ported kinds: mixer 'G' and ffn 'D' (with 'N'). Mixers 'L', 'M' and 'R',
-ffn 'E', the encoder and the VLM stub raise ``NotImplementedError``
-(``ROADMAP.md`` queue 1, item 10), and so do the prefill and decode modes
-(item 8).
+Ported kinds: mixers 'G' and 'L' (attention with ``window =
+cfg.sliding_window``), ffn 'D', 'E' and 'N'. Mixers 'M' and 'R', the
+encoder and the VLM stub raise ``NotImplementedError`` (``ROADMAP.md``
+queue 1, item 10), and so do the prefill and decode modes (item 8).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
+from repro_torch.models import moe as moem
 from repro_torch.models.common import embed, normal_init, rms_norm, softcap
 
 _FAMILIES = "ROADMAP.md queue 1, item 10"
@@ -62,19 +66,27 @@ def _init_mlp(make: Maker, zeros: Maker, cfg: ModelConfig, dtype) -> mlpm.MLPPar
         w_out=make((F, D), dtype))
 
 
+def _init_moe(make: Maker, cfg: ModelConfig, dtype) -> moem.MoEParams:
+    D = cfg.d_model
+    E, F = cfg.moe.n_experts, cfg.moe.d_ff_expert
+    return moem.MoEParams(
+        w_router=make((D, E), torch.float32),
+        w_gate=make((E, D, F), dtype), w_in=make((E, D, F), dtype),
+        w_out=make((E, F, D), dtype))
+
+
 def _init_layer(make: Maker, zeros: Maker, cfg: ModelConfig, mixer: str,
                 ffn: str, dtype) -> Dict:
     D = cfg.d_model
     lp: Dict[str, Any] = {"norm1": zeros((D,), dtype)}
-    if mixer == "G":
+    if mixer in ("G", "L"):
         lp["attn"] = _init_attn(make, cfg, dtype)
     else:
         raise _unported(f"mixer {mixer!r}")
-    if ffn == "D":
+    if ffn != "N":
         lp["norm2"] = zeros((D,), dtype)
-        lp["ffn"] = _init_mlp(make, zeros, cfg, dtype)
-    elif ffn != "N":
-        raise _unported(f"ffn {ffn!r}")
+        lp["ffn"] = (_init_moe(make, cfg, dtype) if ffn == "E"
+                     else _init_mlp(make, zeros, cfg, dtype))
     if cfg.post_norms:
         lp["post_norm1"] = zeros((D,), dtype)
         if ffn != "N":
@@ -135,15 +147,18 @@ def param_template(cfg: ModelConfig) -> Dict:
 
 
 def _apply_layer(cfg: ModelConfig, mixer: str, ffn: str, lp: Dict,
-                 x: torch.Tensor, *, positions) -> torch.Tensor:
+                 x: torch.Tensor, *, positions
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns ``(x, aux_loss)``."""
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-    if mixer != "G":
+    if mixer not in ("G", "L"):
         raise _unported(f"mixer {mixer!r}")
     chunked = x.shape[1] >= cfg.attn_chunk_threshold
     h = attn.attn_forward(
         lp["attn"], h,
         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hdim,
-        rope_theta=cfg.rope_theta, causal=True, window=None,
+        rope_theta=cfg.rope_theta, causal=True,
+        window=cfg.sliding_window if mixer == "L" else None,
         cap=cfg.attn_softcap, positions=positions, chunked=chunked,
         q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk,
         schedule=cfg.attn_schedule,
@@ -151,26 +166,35 @@ def _apply_layer(cfg: ModelConfig, mixer: str, ffn: str, lp: Dict,
     if cfg.post_norms:
         h = rms_norm(h, lp["post_norm1"], cfg.norm_eps)
     x = x + h
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn != "N":
-        if ffn != "D":
-            raise _unported(f"ffn {ffn!r}")
         h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        h2 = mlpm.mlp_forward(lp["ffn"], h2, cfg.activation)
+        if ffn == "E":
+            h2, aux = moem.moe_forward(
+                lp["ffn"], h2, top_k=cfg.moe.top_k,
+                capacity_factor=cfg.moe.capacity_factor,
+                activation=cfg.activation, shards=cfg.moe_shards)
+        else:
+            h2 = mlpm.mlp_forward(lp["ffn"], h2, cfg.activation)
         if cfg.post_norms:
             h2 = rms_norm(h2, lp["post_norm2"], cfg.norm_eps)
         x = x + h2
-    return x
+    return x, aux
 
 
 def _apply_stack(cfg: ModelConfig, params, x: torch.Tensor, *, positions,
-                 mode: str) -> torch.Tensor:
+                 mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns ``(x, aux_total)``."""
     period, n_groups, n_rem = _groups(cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def group_body(x, gp):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(period):
-            x = _apply_layer(cfg, cfg.mixer_at(i), cfg.ffn_at(i), gp[f"l{i}"],
-                             x, positions=positions)
-        return x
+            x, a = _apply_layer(cfg, cfg.mixer_at(i), cfg.ffn_at(i),
+                                gp[f"l{i}"], x, positions=positions)
+            aux = aux + a
+        return x, aux
 
     if n_groups:
         K = cfg.remat_group if (mode == "train" and n_groups % cfg.remat_group == 0) else 1
@@ -183,21 +207,25 @@ def _apply_stack(cfg: ModelConfig, params, x: torch.Tensor, *, positions,
         remat = cfg.remat == "layer" and mode == "train" and torch.is_grad_enabled()
 
         def span(x, *chunk):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for gp in chunk:
-                x = group_body(x, gp)
-            return x
+                x, a = group_body(x, gp)
+                aux = aux + a
+            return x, aux
 
         for g0 in range(0, n_groups, K):
             chunk = gps[g0:g0 + K]
             if remat:
-                x = checkpoint(span, x, *chunk, use_reentrant=False)
+                x, aux = checkpoint(span, x, *chunk, use_reentrant=False)
             else:
-                x = span(x, *chunk)
+                x, aux = span(x, *chunk)
+            aux_total = aux_total + aux
     for r in range(n_rem):
         li = n_groups * period + r
-        x = _apply_layer(cfg, cfg.mixer_at(li), cfg.ffn_at(li),
-                         params[f"rem{r}"], x, positions=positions)
-    return x
+        x, a = _apply_layer(cfg, cfg.mixer_at(li), cfg.ffn_at(li),
+                            params[f"rem{r}"], x, positions=positions)
+        aux_total = aux_total + a
+    return x, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -219,9 +247,9 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     x = embed(tokens, params["embed"], scale=cfg.embed_scale)
     S = tokens.shape[1]
     positions = torch.arange(S, device=x.device)[None]
-    x = _apply_stack(cfg, params, x, positions=positions, mode=mode)
+    x, aux = _apply_stack(cfg, params, x, positions=positions, mode=mode)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, None, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, None, aux
 
 
 def _table(cfg: ModelConfig, params) -> torch.Tensor:

@@ -248,7 +248,9 @@ class FTTrainer(Trainer):
         @torch.no_grad()
         def finish(state: TrainState, mom, nu, lr, ostep, qs):
             def orth(path, m):
-                q = qs.get(path)
+                # each Q is used once: dropping it as it is used keeps the
+                # finish phase's peak at one leaf's Q above the deltas
+                q = qs.pop(path, None)
                 return _orth(m) if q is None else q
 
             updates = muon_deltas(state.params, mom, nu, lr, ostep.float(),
@@ -280,6 +282,7 @@ class FTTrainer(Trainer):
         self._cur_task = None
         t = self._clock("tasks", t)
         qs = assemble_leaves(mom, per_task, self._tasks)
+        del per_task
         self.state = self._finish_fn(self.state, mom, nu, lr, ostep, qs)
         self._clock("finish", t)
         return {"loss": loss, "lr": lr, "gnorm": gnorm}

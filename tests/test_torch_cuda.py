@@ -22,6 +22,7 @@ import torch  # noqa: E402
 
 from repro_torch import tree  # noqa: E402
 from repro_torch.core import SimComm, block_row_layout, caqr_factorize, ft_tsqr, recovery  # noqa: E402
+from repro_torch.core import panel_geometry, sweep_geometry  # noqa: E402
 from repro_torch.ft import (  # noqa: E402
     FailureSchedule,
     MDSScheme,
@@ -637,6 +638,72 @@ def test_cuda_kernels_at_train_shapes_match_plain(rng, cuda, m_loc, n, b):
     Y, T, R = ops.panel_qr(panel, 0)
     for args in ((Y, T, X), (Y[1], T[1], X[1])):
         close(ops.wy_apply(*args), tref.wy_apply(*args))
+    close(ops.stacked_qr(R, R[pairs].contiguous()), tref.stacked_qr(R, R[pairs].contiguous()))
+    Y2, T2, _ = ops.stacked_qr(R, R[pairs].contiguous())
+    Ct = X[:, :b].contiguous()
+    args = (Y2, T2, Ct, Ct[pairs].contiguous())
+    close(ops.stacked_apply(*args), tref.stacked_apply(*args))
+
+
+@pytest.mark.cuda
+def test_cuda_moe_ftrun_failure_free_twice_and_expert_kill_bitwise(deterministic):
+    """mixtral's smoke config (sliding window, 4 experts top-2) through the
+    FTTrainer (caqr_muon, 4 lanes, b = 16) on the card: two failure-free
+    runs bit-equal, and a lane killed mid-sweep inside an expert bank's
+    sweep healed to the same bits by one single-source event; K1-K4
+    launched, K5/K6 not."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.ftrun import FTTrainer, StepSweepKiller
+
+    cfg = get_smoke("mixtral-8x22b")
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8, seed=1)
+    tcfg = TrainConfig(steps=3, lr=1e-2, warmup=2, n_lanes=4, diskless_every=2,
+                       log_every=100, optimizer="caqr_muon")
+    backend.reset_launches()
+    runs = [FTTrainer(cfg, tcfg, dcfg) for _ in range(2)]
+    hists = [tr.run() for tr in runs]
+    assert len(runs[0]._tasks) == 24
+    assert all(backend.LAUNCHES[op] > 0 for op in
+               ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply"))
+    assert backend.LAUNCHES["panel_qr_apply"] == backend.LAUNCHES["fused_panel"] == 0
+    killer = StepSweepKiller(at_step=2, lane=1, task="groups/l0/ffn/.w_gate#3",
+                             point=sweep_point(2, "tsqr", 1))
+    killed = FTTrainer(cfg, tcfg, dcfg, qr_fault_hooks=[killer])
+    hists.append(killed.run())
+    runs.append(killed)
+    ev = killed.engine.events
+    assert killer.fired and len(ev) == 1 and ev[0].reads and 1 not in ev[0].reads.values()
+    for tr, hist in zip(runs[1:], hists[1:]):
+        assert [h["loss"] for h in hist] == [h["loss"] for h in hists[0]]
+        for a, b in ((tr.state.params, runs[0].state.params),
+                     (tr.state.opt_state, runs[0].state.opt_state)):
+            assert all(torch.equal(x, y) for x, y in zip(tree.leaves(a), tree.leaves(b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_loc,n,b", [(4096, 6144, 128), (1536, 6144, 128),
+                                       (1536, 1024, 128), (1536, 8, 8)])
+def test_cuda_kernels_at_moe_shapes_match_plain(rng, cuda, m_loc, n, b):
+    """K1-K4 at the shapes of mixtral-8x22b's sweeps over 4 lanes (an expert
+    slice, wq, wk and the router, whose one panel is as wide as the
+    matrix), on 4 lanes and one lane (the REBUILD replay): K1 at row start
+    0 and at the last panel's, K2 over the whole window, a middle one and
+    the last panel's."""
+    P = 4
+    X = t(rng.standard_normal((P, m_loc, n)).astype(np.float32)).to(cuda)
+    panel = X[..., :b].contiguous()
+    pairs = [p ^ 1 for p in range(P)]
+    k_last = sweep_geometry(P, m_loc, n, b).n_panels - 1
+    last = panel_geometry(SimComm(P), k_last, b, m_loc)[2]
+    for args in ((panel, 0), (panel, last), (panel[2], 0), (panel[0], int(last[0]))):
+        close(ops.panel_qr(*args), tref.panel_qr(*args))
+    Y, T, R = ops.panel_qr(panel, 0)
+    for w in sorted({n, max(n // 2, 1), b}):
+        C = X[..., n - w:].contiguous()
+        close(ops.wy_apply(Y, T, C), tref.wy_apply(Y, T, C))
+    close(ops.wy_apply(Y[1], T[1], X[1]), tref.wy_apply(Y[1], T[1], X[1]))
     close(ops.stacked_qr(R, R[pairs].contiguous()), tref.stacked_qr(R, R[pairs].contiguous()))
     Y2, T2, _ = ops.stacked_qr(R, R[pairs].contiguous())
     Ct = X[:, :b].contiguous()

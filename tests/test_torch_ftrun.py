@@ -56,6 +56,20 @@ def _drop_jax_executables():
     jax.clear_caches()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while this module runs: the port's
+    trainers run many small ops, and with several test processes on one
+    host, each op's thread team spins against the other processes'
+    threads (six processes of eight threads ran a 2-step trainer 50x
+    slower than with one thread each). The results are compared run
+    against run inside the module, all under the same setting."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _kw(**kw):
     base = dict(steps=4, lr=1e-2, warmup=2, n_lanes=4, diskless_every=2,
                 log_every=100)

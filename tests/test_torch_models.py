@@ -147,7 +147,7 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="item 8"):
         t_attn.attn_forward(p, x, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                             head_dim=cfg.hdim, rope_theta=1e4, chunked=True)
-    for bad in (dict(mixer_pattern="M"), dict(ffn_pattern="E")):
+    for bad in (dict(mixer_pattern="M"), dict(mixer_pattern="R")):
         with pytest.raises(NotImplementedError, match="item 10"):
             t_tf.param_template(dataclasses.replace(cfg, **bad))
     with pytest.raises(NotImplementedError, match="item 8"):
