@@ -134,12 +134,43 @@ non-zero and prints no result):
    boundaries, poll and heal seconds, peak memory, the share of token
    assignments dropped at capacity, and the column norms of the router
    sweep's Q.
-15. spread: each full-width sweep (``caqr_factorize``, the state machine
+15. wide: K1-K4 above 128 columns, through the blocked routes of
+   ``repro_torch.kernels.wide`` (K1's team on sub-panels of 128 columns,
+   the products of ``csrc/wide.cu`` between them and in the T join).
+   Against their plain versions, timed (events, device time, bound, plain,
+   ``torch.geqrf`` or the ``torch.matmul`` chain): K1 on (8, 4096, 256) at
+   row start 0 and at the last b = 256 panel's, at the plain CAQR-Muon
+   path's shapes (2048, 2048), (5632, 2048), (512, 256) and (768, 256), and
+   on a ragged (1000, 200) at row start 37; K2 on Y (8, 4096, 256) and C
+   (8, 4096, 4096) with Y's T and with a random upper-triangular T; K3 on
+   two (8, 256, 256) R factors; K4 with C' (8, 256, 4096) and a random T;
+   the products' kernel alone. Bitwise at b = 256: one lane == eight lanes
+   (K1, K2, K4), the two lanes of a butterfly pair (K3), two column tiles
+   (K2, K4); K5 and K6 raise ``ValueError``. The sweep of the tall matrix at
+   b = 256 (16 panels, counters at 0 before it; path ``wide``): R
+   replicated bitwise, the Gram identity, Q^T A = [R; 0], least squares,
+   K1-K4 launched and K5/K6 not; ``ft_caqr_sweep`` with two kills (a leaf
+   point and a trailing point of the root lane; path ``wide_kill``),
+   bit-equal to failure-free, one single-source event a kill; five runs of
+   each (median, min-max). Then the plain ``Trainer(caqr_muon)`` at
+   ``TRAIN_REDUCED`` for 3 steps, twice, under torch's deterministic mode
+   (path ``muon``): params and losses bit-equal, finite losses, every
+   full-rank momentum slice's Q orthonormal within 1e-3 at step 0, K1 at
+   the path's shapes on momentum slices against its plain version (within
+   the tolerance on the leading columns whose condition number is at most
+   1 / DEPENDENT_PIVOT) and against the float64 plain version (no worse
+   than four times the f32 plain version, on the columns ``leading_rank``
+   keeps), K1 launched; step seconds, each ``_orth2d`` shape's share of the
+   step, peak memory.
+16. spread: each full-width sweep (``caqr_factorize``, the state machine
    stepped and fused, the four-kill FT sweep, the online sweeps stepped,
    fused and double-buffered) run five times: median and min-max seconds.
 
 The kernels line gives each kernel's launches on every path above, each
-counted from 0 just before the path ran.
+counted from 0 just before the path ran; its ``wide_gemm`` record counts
+the products' kernel's launches inside the wide calls
+(``backend.SUB_LAUNCHES``). The line before it holds the wide phase's
+records of K1-K4.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Needs CUDA; imports neither JAX nor the JAX package.
@@ -186,6 +217,7 @@ from repro_torch.kernels import backend, build, ops, ref  # noqa: E402
 from repro_torch.kernels import fused_sweep as tfs  # noqa: E402
 from repro_torch.kernels import panel_qr as tpq  # noqa: E402
 from repro_torch.kernels import stacked_qr as tsa  # noqa: E402
+from repro_torch.kernels import wide  # noqa: E402
 from repro_torch.kernels import wy_apply as twy  # noqa: E402
 from repro_torch import tree  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -299,8 +331,23 @@ MOE_SHAPES = ((4096, 6144, 128), (1536, 6144, 128), (1536, 1024, 128),
               (1536, 8, 8))
 MOE_ROUTER = "groups/l0/ffn/.w_router#0"   # the router's sweep task
 MOE_SWEEPS = 29                            # sweeps a step (the tasks)
+# the wide phase: K1-K4 above 128 columns (the blocked routes of
+# kernels/wide.py) on the tall cell's matrix at b = 256 (16 panels)
+WIDE_B = 256
+# the wide FT sweep's two kills {point: lane}: a leaf point and a trailing
+# point of the panel's root lane, mid-sweep
+WIDE_KILLS = {sweep_point(3, "leaf"): 5, sweep_point(9, "trailing", 1): 0}
+# K1 at the plain CAQR-Muon path's shapes at TinyLlama's width (m, b): wq and
+# wo (one leaf), the MLP matrices made tall (one leaf), and wk and wv's
+# leaf and chain steps ([R; tile] of 256 + 512 rows)
+MUON_K1 = {"wq": (2048, 2048), "w_mlp": (5632, 2048), "wk_leaf": (512, 256),
+           "wk_step": (768, 256)}
+MUON_STEPS = 3
 # launches of every kernel on every path, counters at 0 before each path
 PATH_LAUNCHES = {}
+# the wide paths' launches of the kernels inside a wide call
+# (backend.SUB_LAUNCHES), from the same runs
+PATH_SUB = {}
 
 
 def emit(obj) -> None:
@@ -845,14 +892,15 @@ def state_machine_phase(A: torch.Tensor, want: tuple) -> dict:
     return launch_f
 
 
-def kill_check(A: torch.Tensor, comm, kills: dict, want: tuple) -> dict:
-    """ft_caqr_sweep under ``kills`` ({point: lane}); bit-equal to
-    ``want``, one single-source event per kill."""
+def kill_check(A: torch.Tensor, comm, kills: dict, want: tuple,
+               b: int = B) -> dict:
+    """ft_caqr_sweep at panel width ``b`` under ``kills`` ({point: lane});
+    bit-equal to ``want``, one single-source event per kill."""
     sched = FailureSchedule(events={pt: [lane] for pt, lane in kills.items()})
     torch.cuda.synchronize()
     backend.reset_launches()
     t0 = time.perf_counter()
-    got = ft_caqr_sweep(A, comm, B, schedule=sched)
+    got = ft_caqr_sweep(A, comm, b, schedule=sched)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     same = same_bits(flat_result(got), want)
@@ -1883,6 +1931,378 @@ def moe_runs(seed: int, d: str, card: str) -> dict:
     return report
 
 
+def wide_record(op: str, args: tuple, cost: tuple, lib, reps: int) -> dict:
+    """One kernel above 128 columns against its plain version (within the
+    tolerance, scaled as ``max_err`` scales it): events' time, device time
+    (every kernel of the blocked route, glue included), bound, plain time
+    (one call) and the library call's time."""
+    run = lambda: getattr(ops, op)(*args)  # noqa: E731
+    got = as_tuple(run())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = as_tuple(getattr(ref, op)(*args))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, scaled = max_err(got, want)
+    del got, want
+    tol = ref.tolerances(torch.float32)[0]
+    shapes = [list(a.shape) for a in args if torch.is_tensor(a)]
+    check(scaled <= tol, f"wide {op} at {shapes}: scaled error {scaled} over {tol}")
+    bms, by = bound_ms(*cost)
+    rs = args[1] if op == "panel_qr" else None
+    source, replaces = KERNELS[op]
+    return dict(name=op, route="cuda", source=source,
+                blocked_route="src/repro_torch/kernels/wide.py",
+                replaces=replaces, shapes=shapes,
+                row_start=rs.tolist() if torch.is_tensor(rs) else rs,
+                max_abs_err=err, scaled_err=scaled, tolerance=tol,
+                ms=time_ms(run, reps), device_ms=device_ms(run, reps),
+                bound_ms=bms, bound_by=by, plain_ms=plain_ms,
+                library_ms=time_ms(lib, reps),
+                library_device_ms=device_ms(lib, reps))
+
+
+def wide_kernels(A: torch.Tensor, g: torch.Generator) -> tuple:
+    """K1-K4 at b = 256 on the tall cell's first panel and at the Muon
+    path's K1 shapes, against their plain versions and timed; the bitwise
+    contracts at b = 256. Returns (records, contracts)."""
+    b, dev, f = WIDE_B, A.device, 4.0
+    panel = A[..., :b].contiguous()
+    k_last = N // b - 1
+    rs_last = panel_geometry(SimComm(P), k_last, b, M_LOC)[2]
+    recs = [wide_record("panel_qr", (panel, 0), leaf_cost(P, M_LOC, b, 0),
+                        lambda: torch.geqrf(panel), 5)]
+    rs0 = int(rs_last[0])
+    # the last panel: lane 0 from row rs0, the others from row 0
+    late = [leaf_cost(1, M_LOC, b, int(r)) for r in rs_last]
+    recs.append(wide_record(
+        "panel_qr", (panel, rs_last), tuple(map(sum, zip(*late))),
+        lambda: (torch.geqrf(panel[1:]), torch.geqrf(panel[0, rs0:])), 10))
+    for name, (m, bb) in MUON_K1.items():
+        X = torch.randn(m, bb, generator=g).to(dev)
+        rec = wide_record("panel_qr", (X, 0), leaf_cost(1, m, bb, 0),
+                          lambda: torch.geqrf(X), 3 if bb > 1024 else 10)
+        recs.append(dict(rec, muon_matrix=name))
+        del X
+    X = torch.randn(1000, 200, generator=g).to(dev)
+    recs.append(wide_record("panel_qr", (X, 37), leaf_cost(1, 1000, 200, 37),
+                            lambda: torch.geqrf(X[37:]), 10))
+    Y, T, R = ops.panel_qr(panel, 0)
+    Tr = (torch.randn(P, b, b, generator=g) / 16).triu().to(dev)
+    for T_, which in ((T, "T of Y"), (Tr, "random upper-triangular T")):
+        rec = wide_record("wy_apply", (Y, T_, A), wy_cost(P, M_LOC, b, N),
+                          lambda: wy_library(Y, T_, A), 5)
+        recs.append(dict(rec, t_factor=which))
+    pairs = [p ^ 1 for p in range(P)]
+    R_bot = R[pairs].contiguous()
+    stack = torch.cat([R, R_bot], dim=1)
+    recs.append(wide_record("stacked_qr", (R, R_bot),
+                            (P * float(b ** 3), f * P * 5 * b * b),
+                            lambda: torch.geqrf(stack), 10))
+    Y2, T2, _ = ops.stacked_qr(R, R_bot)
+    Ct = ops.wy_apply(Y, T, A)[:, :b].contiguous()
+    Cb = Ct[pairs].contiguous()
+    rec = wide_record("stacked_apply", (Y2, Tr, Ct, Cb), sa_cost(P, b, N),
+                      lambda: sa_library(Y2, Tr, Ct, Cb), 10)
+    recs.append(dict(rec, t_factor="random upper-triangular T"))
+    # the bitwise contracts at b = 256
+    k = P - 3
+    one_k1 = same_bits(tuple(x[k] for x in ops.panel_qr(panel, rs_last)),
+                       ops.panel_qr(panel[k], int(rs_last[k])))
+    one_k2 = torch.equal(ops.wy_apply(Y, Tr, A)[k], ops.wy_apply(Y[k], Tr[k], A[k]))
+    one_k4 = all(torch.equal(a[k], o) for a, o in zip(
+        ops.stacked_apply(Y2, Tr, Ct, Cb), ops.stacked_apply(Y2[k], Tr[k], Ct[k], Cb[k])))
+    pair = ops.stacked_qr(R[[p & ~1 for p in range(P)]].contiguous(),
+                          R[[p | 1 for p in range(P)]].contiguous())
+    pair_k3 = all(torch.equal(x[p], x[p ^ 1]) for x in pair for p in range(P))
+    bn_k2 = same_bits(twy.wy_apply(Y, Tr, A, bn=32), twy.wy_apply(Y, Tr, A, bn=128))
+    bn_k4 = same_bits(tsa.stacked_apply(Y2, Tr, Ct, Cb, bn=32),
+                      tsa.stacked_apply(Y2, Tr, Ct, Cb, bn=128))
+    contracts = dict(one_lane_k1=one_k1, one_lane_k2=one_k2, one_lane_k4=one_k4,
+                     pair_k3=pair_k3, bn_k2=bn_k2, bn_k4=bn_k4)
+    check(all(contracts.values()), f"wide: bitwise contracts {contracts}")
+    # K5/K6 keep their limit: a ValueError, no fallback
+    for call in (lambda: ops.panel_qr_apply(A, 0, b),
+                 lambda: ops.fused_panel(A, 0, b=b, m_loc_pad=M_LOC, levels=L)):
+        try:
+            call()
+            check(False, "wide: K5/K6 ran at b = 256")
+        except ValueError:
+            pass
+    return recs, contracts
+
+
+def wide_sweeps(A: torch.Tensor, rng) -> dict:
+    """The windowed sweep at b = 256 (launch counters at 0 before it): R
+    replicated bitwise, the Gram identity, Q^T A = [R; 0], a least-squares
+    solve, K1-K4 launched and K5/K6 not; the FT sweep with WIDE_KILLS,
+    bit-equal to failure-free; five runs of each (median, min-max)."""
+    b, comm = WIDE_B, SimComm(P)
+    backend.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = caqr_factorize(A, comm, b, use_scan=False, collect_bundles=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(backend.LAUNCHES)
+    sub = dict(backend.SUB_LAUNCHES)
+    PATH_LAUNCHES["wide"] = launches
+    PATH_SUB["wide"] = sub
+    check(all(launches[op] > 0 for op in STEPPED)
+          and launches["panel_qr_apply"] == launches["fused_panel"] == 0
+          and sub["wide_gemm_kernel"] > 0, f"wide sweep launches {launches} {sub}")
+    probe = backend.probe_report()
+    check(all(probe[op]["engine"] == backend.ENGINE_CUDA for op in STEPPED),
+          f"wide: an op did not run its kernels: {probe}")
+    check(bool((res.R == res.R[:1]).all()), "wide: R is not replicated bitwise")
+    A64 = A.reshape(-1, N).double()
+    R0 = res.R[0]
+    gram = gram_error(A64, R0)
+    check(gram <= GRAM_TOL, f"wide Gram identity: {gram} > {GRAM_TOL}")
+    QtA = caqr_apply_qt(A, res.factors, comm).reshape(-1, N)
+    rmax = float(R0.abs().max())
+    top = float((QtA[:N] - R0).abs().max()) / rmax
+    rest = float(QtA[N:].abs().max()) / rmax
+    del QtA
+    check(max(top, rest) <= QTA_TOL, f"wide: Q^T A != [R; 0]: {top}, {rest}")
+    rhs = block_row_layout(rng.standard_normal((P * M_LOC, 1)).astype(np.float32), P)
+    x = caqr_lstsq(A, rhs, comm, b, result=res._replace(bundles=None)).double()
+    b64 = rhs.reshape(-1, 1).double()
+    x_ne = torch.linalg.solve(A64.T @ A64, A64.T @ b64)
+    lst = float((x - x_ne).norm() / x_ne.norm())
+    check(lst <= LSTSQ_TOL, f"wide lstsq vs normal equations: {lst}")
+    del A64, x, x_ne
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = flat_result(res)
+    del res
+    kill = kill_check(A, comm, WIDE_KILLS, want, b=b)
+    PATH_LAUNCHES["wide_kill"] = kill["launches"]
+    PATH_SUB["wide_kill"] = kill["sub_launches"] = dict(backend.SUB_LAUNCHES)
+    del kill["ledger"], want
+    sched = FailureSchedule(events={pt: [lane] for pt, lane in WIDE_KILLS.items()})
+    spread = {}
+    for name, fn in (("caqr_factorize", lambda: caqr_factorize(
+                          A, comm, b, use_scan=False, collect_bundles=True)),
+                     ("ft_sweep_two_kills", lambda: ft_caqr_sweep(
+                          A, comm, b, schedule=sched))):
+        times = []
+        for _ in range(SPREAD_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del out
+        times.sort()
+        spread[name] = dict(median_s=times[len(times) // 2], min_s=times[0],
+                            max_s=times[-1], runs=times)
+    m = P * M_LOC
+    return dict(shape=[m, N], P=P, b=b, panels=N // b, levels=L,
+                seconds=seconds,
+                gflops=(2.0 * m * N * N - 2.0 * N ** 3 / 3.0) / seconds / 1e9,
+                launches=launches, sub_launches=sub, gram_rel_err=gram,
+                qta_top_rel_err=top, qta_rest_rel=rest, lstsq_rel_err=lst,
+                peak_mem_gb=peak, kill=kill, spread=spread)
+
+
+def muon_run(cfg, dcfg, d: str, orths: list, keep: dict) -> tuple:
+    """The plain ``Trainer(caqr_muon)`` for MUON_STEPS steps; every
+    ``_orth2d`` call timed (synchronised around it) into ``orths`` as
+    (step, shape, seconds), and step 0's momentum slices and their Q kept in
+    ``keep``. Returns (trainer, run record)."""
+    from repro_torch.optim import caqr_muon as t_muon
+
+    orth2d = t_muon._orth2d
+    tr = Trainer(cfg, train_tcfg(d, steps=MUON_STEPS), dcfg)
+
+    def timed(M, tile_rows=512):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Q = orth2d(M, tile_rows)
+        torch.cuda.synchronize()
+        step = len(tr.history)
+        orths.append((step, tuple(M.shape), time.perf_counter() - t0))
+        if step == 0:
+            keep.setdefault(tuple(M.shape), []).append((M.clone(), Q.clone()))
+        return Q
+
+    t_muon._orth2d = timed
+    try:
+        return tr, train_run(tr)
+    finally:
+        t_muon._orth2d = orth2d
+
+
+def muon_runs(seed: int, d: str) -> dict:
+    """The plain CAQR-Muon trainer at TinyLlama's full width (2 layers),
+    twice: bit-equal params and losses, finite losses, every full-rank
+    momentum slice's Q orthonormal, K1 at the path's shapes against its
+    plain version on momentum slices, K1 launched."""
+    cfg, dcfg = train_configs(seed)
+    backend.reset_launches()
+    orths, keep = [], {}
+    tr, first = muon_run(cfg, dcfg, d, orths, keep)
+    PATH_LAUNCHES["muon"] = dict(first["launches"])
+    PATH_SUB["muon"] = sub = dict(backend.SUB_LAUNCHES)
+    params = tr.state.params
+    del tr
+    tr2, second = muon_run(cfg, dcfg, d, [], {})
+    same = same_tree(tr2.state.params, params) and second["losses"] == first["losses"]
+    del tr2, params
+    check(same, "muon: two runs differ")
+    check(all(np.isfinite(x) for x in first["losses"]),
+          f"muon: a loss is not finite {first['losses']}")
+    check(first["launches"]["panel_qr"] > 0 and sub["wide_gemm_kernel"] > 0,
+          f"muon: K1's wide route not launched {first['launches']} {sub}")
+    # Q orthonormal for every full-rank momentum slice of step 0; K1 at the
+    # path's shapes against its plain version on those slices
+    orth_err, full_rank, k1 = 0.0, 0, {}
+    for shape, pairs in keep.items():
+        for M, Q in pairs:
+            A = M if M.shape[0] >= M.shape[1] else M.T
+            Qt = Q if Q.shape[0] >= Q.shape[1] else Q.T
+            n = A.shape[1]
+            if leading_rank(A[None], n) < n:
+                continue
+            full_rank += 1
+            G = Qt.double().T @ Qt.double()
+            orth_err = max(orth_err, float((G - torch.eye(n, device=G.device,
+                                                          dtype=G.dtype)).abs().max()))
+        M = pairs[0][0]
+        A = (M if M.shape[0] >= M.shape[1] else M.T).contiguous()
+        m, n = A.shape
+        for name, (mm, bb) in MUON_K1.items():
+            if bb != n or name in k1:
+                continue
+            tile = MUON_K1["wk_leaf"][0]  # the chain's tile rows
+            if name == "wk_step":
+                X = torch.cat([ops.panel_qr(A[:tile], 0)[2], A[tile:2 * tile]])
+            elif name == "wk_leaf":
+                X = A[:tile].contiguous()
+            elif mm == m:
+                X = A
+            else:
+                continue
+            k1[name] = muon_k1_check(X)
+    check(full_rank > 0 and orth_err <= 1e-3,
+          f"muon: Q^T Q off I by {orth_err} over {full_rank} full-rank slices")
+    check(set(k1) == set(MUON_K1), f"muon: K1 held at {sorted(k1)} only")
+    steps = first["step_seconds"]
+    by_step = {}
+    for step, shape, sec in orths:
+        key = str(list(shape))
+        by_step.setdefault(step, {}).setdefault(key, 0.0)
+        by_step[step][key] += sec
+    share = {step: {k: v / steps[step] for k, v in per.items()}
+             for step, per in by_step.items()}
+    return dict(arch=TRAIN_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                d_ff=cfg.d_ff, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                steps=MUON_STEPS, reduced=TRAIN_REDUCED, first=first,
+                second=second, bitwise_equal=same, sub_launches=sub,
+                orth2d_calls_per_step=len(orths) // MUON_STEPS,
+                orth2d_seconds_by_step_and_shape=by_step,
+                orth2d_share_of_step=share,
+                full_rank_slices=full_rank, qtq_max_err=orth_err, k1=k1)
+
+
+def conditioned_rank(X: torch.Tensor, limit: float) -> int:
+    """How many leading columns of X (m, n) have a float64 condition number
+    of at most ``limit`` (it grows with the columns, so a bisection on the
+    leading blocks of X's R factor finds it)."""
+    R = torch.linalg.qr(X.double(), mode="r").R
+    lo, hi = 0, X.shape[1]
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        s = torch.linalg.svdvals(R[:mid, :mid])
+        lo, hi = (mid, hi) if s[0] <= limit * s[-1] else (lo, mid - 1)
+    return lo
+
+
+def muon_k1_check(X: torch.Tensor) -> dict:
+    """K1 on a Muon path's panel X (a momentum slice or a chain step)
+    against its plain version. A momentum's trailing columns can be near
+    dependent: f32 round-off then moves its reflectors in any QR, by up to
+    eps cond. So K1 is held within the tolerance on the leading columns
+    whose condition number is at most 1 / DEPENDENT_PIVOT (eps times it
+    stays under the tolerance), and on the columns ``leading_rank`` keeps
+    it is held against the float64 plain version no worse than four times
+    the f32 plain version's own error there."""
+    tol = ref.tolerances(torch.float32)[0]
+    n = X.shape[1]
+    got = as_tuple(ops.panel_qr(X, 0))
+    want = as_tuple(ref.panel_qr(X, 0))
+    cond_rank = conditioned_rank(X, 1 / DEPENDENT_PIVOT)
+    pivot_rank = leading_rank(X[None], n)
+    _, held = max_err(determined("panel_qr", got, cond_rank),
+                      determined("panel_qr", want, cond_rank))
+    want64 = as_tuple(ref.panel_qr(X.double(), 0))
+    _, err_k = max_err(determined("panel_qr", got, pivot_rank),
+                       determined("panel_qr", want64, pivot_rank))
+    _, err_p = max_err(determined("panel_qr", want, pivot_rank),
+                       determined("panel_qr", want64, pivot_rank))
+    del got, want, want64
+    check(held <= tol, f"muon: K1 at {tuple(X.shape)}: scaled error {held} "
+          f"over the first {cond_rank} columns")
+    check(err_k <= max(4 * err_p, tol), f"muon: K1 at {tuple(X.shape)}: "
+          f"{err_k} from float64 against the plain version's {err_p}")
+    return dict(shape=list(X.shape), conditioned_rank=cond_rank,
+                scaled_err=held, leading_rank=pivot_rank,
+                float64_err_kernel=err_k, float64_err_plain=err_p)
+
+
+def wide_phase(A: torch.Tensor, rng, seed: int, card: str) -> list:
+    """K1-K4 above 128 columns: their records at b = 256 and at the Muon
+    path's shapes, the bitwise contracts, the b = 256 sweep and FT sweep,
+    and the plain CAQR-Muon trainer at TinyLlama's width (see the module
+    docstring). Returns the kernel records."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator().manual_seed(seed + 5)
+    recs, contracts = wide_kernels(A, g)
+    gemm_rec = gemm_record(A, g)
+    sweeps = wide_sweeps(A, rng)
+    emit({"wide": dict(**sweeps, contracts=contracts, card=card)})
+    with deterministic_mode(), tempfile.TemporaryDirectory() as d:
+        muon = muon_runs(seed, d)
+    muon["phase_seconds"] = time.perf_counter() - t_phase
+    emit({"muon": dict(**muon, card=card)})
+    return recs, gemm_rec
+
+
+def gemm_record(A: torch.Tensor, g: torch.Generator) -> dict:
+    """The products' kernel of the wide routes (csrc/wide.cu) alone, at the
+    b = 256 sweep's first leaf apply: Z = Y^T C, Y (8, 4096, 256), C the
+    (8, 4096, 4096) window, against its plain version and torch.matmul,
+    and bit-equal at two column tiles. Its launches are counted inside the
+    wide calls (backend.SUB_LAUNCHES)."""
+    Y = torch.randn(P, M_LOC, WIDE_B, generator=g).to(A.device)
+    run = lambda: wide.gemm(Y.mT, A)  # noqa: E731
+    got = run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = wide.gemm_plain(Y.mT, A)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, scaled = max_err((got,), (want,))
+    tol = ref.tolerances(torch.float32)[0]
+    check(scaled <= tol, f"wide_gemm: scaled error {scaled} over {tol}")
+    check(torch.equal(got, wide.gemm(Y.mT, A, bn=32)), "wide_gemm: bn changes bits")
+    del got, want
+    bms, by = bound_ms(2.0 * P * WIDE_B * M_LOC * N,
+                       4.0 * P * (M_LOC * WIDE_B + M_LOC * N + WIDE_B * N))
+    return dict(name="wide_gemm", route="cuda", source="src/repro_torch/csrc/wide.cu",
+                replaces=KERNELS["wy_apply"][1],
+                also_inside=[KERNELS["panel_qr"][1], KERNELS["stacked_apply"][1]],
+                shapes=[[P, WIDE_B, M_LOC], [P, M_LOC, N]], launches=0,
+                max_abs_err=err, scaled_err=scaled, tolerance=tol,
+                ms=time_ms(run, 10), device_ms=device_ms(run, 10, "wide_gemm"),
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=time_ms(lambda: Y.mT @ A, 10),
+                ptxas=ptxas("src/repro_torch/csrc/wide.cu", "wide_gemm_kernel"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1925,10 +2345,18 @@ def main() -> int:
     serve_phase(args.seed, card)
     train_phase(args.seed, card)
     moe_phase(args.seed, card)
+    wide_records, gemm_rec = wide_phase(A, rng, args.seed, card)
     spread_phase(A)
     for rec in records:
         rec["launches_by_path"] = {path: counts[rec["name"]]
                                    for path, counts in PATH_LAUNCHES.items()}
+    gemm_rec["launches"] = PATH_SUB["wide"]["wide_gemm_kernel"]
+    gemm_rec["launches_by_path"] = {path: counts["wide_gemm_kernel"]
+                                    for path, counts in PATH_SUB.items()}
+    check(all(gemm_rec["launches_by_path"].values()),
+          f"wide_gemm not launched on a wide path: {gemm_rec['launches_by_path']}")
+    records.append(gemm_rec)
+    emit({"wide_kernels": wide_records})
     print(card, flush=True)
     emit({"kernels": records})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -6,8 +6,8 @@ continue. The port's sweep driver (``repro_torch.ft.driver``) implements
 REBUILD, the mode the paper's recovery algorithm (§III-B/III-C) is written
 for: the respawned rank's state is reconstructed from its re-read input
 slice plus one surviving buddy per artifact. SHRINK and BLANK (the elastic
-continuations) raise ``NotImplementedError`` there until ``ft/elastic.py``
-is ported.
+continuations) it hands to the elastic driver
+(``repro_torch.ft.elastic.ft_caqr_sweep_elastic``).
 
 >>> Semantics.REBUILD.value
 'rebuild'

@@ -24,21 +24,33 @@ ENGINE_PLAIN = "plain"
 OPS = ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply",
        "panel_qr_apply", "fused_panel")
 
-# Kernel launches per op; each wrapper adds one where it launches.
+# Kernel launches per op; each wrapper adds one where it launches. A call
+# at a panel width above 128 (the blocked routes of ``kernels/wide.py``)
+# counts as one launch of its op, and the kernels it launches are counted
+# in SUB_LAUNCHES, by kernel.
 LAUNCHES: Dict[str, int] = {op: 0 for op in OPS}
+SUB_KERNELS = ("panel_qr_kernel", "wide_gemm_kernel")
+SUB_LAUNCHES: Dict[str, int] = {k: 0 for k in SUB_KERNELS}
 # The engine that ran each op's most recent call ("cuda" or "plain").
 _LAST_ENGINE: Dict[str, str] = {}
 
 
 def reset_launches() -> None:
-    """Set every launch counter to 0."""
+    """Set every launch counter to 0 (SUB_LAUNCHES too)."""
     for op in OPS:
         LAUNCHES[op] = 0
+    for k in SUB_KERNELS:
+        SUB_LAUNCHES[k] = 0
 
 
 def count_launch(op: str) -> None:
     LAUNCHES[op] += 1
     _LAST_ENGINE[op] = ENGINE_CUDA
+
+
+def count_sub(kernel: str) -> None:
+    """One launch of ``kernel`` inside a wide call."""
+    SUB_LAUNCHES[kernel] += 1
 
 
 def note_plain(op: str) -> None:

@@ -24,7 +24,7 @@ from typing import Dict, Iterable, List
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("panel_qr", "wy_apply", "stacked_qr", "fused_sweep")
+SOURCES = ("panel_qr", "wy_apply", "stacked_qr", "fused_sweep", "wide")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -25,8 +25,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import backend, build
-from repro_torch.kernels.panel_qr import MAX_B
+from repro_torch.kernels import backend, build, wide
 from repro_torch.kernels.ref import panel_qr_apply as panel_qr_apply_ref  # noqa: F401
 
 # Kernel-output field order of the fused panel (the SweepState in-flight
@@ -38,6 +37,11 @@ FUSED_FIELDS = (
 )
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+# The widest panel K5 and K6 take: their leaf and butterfly phases run the
+# b <= 128 bodies of csrc/qr_common.cuh. K1-K4 take any b (the blocked
+# routes of kernels/wide.py); lifting this limit is ROADMAP queue 2 item 1.
+FUSED_MAX_B = wide.NB
 
 
 def fused_panel_math(comm, window: torch.Tensor, k: int, *, b: int,
@@ -151,8 +155,12 @@ def blocks_per_sm(m: int, b: int, bn: int) -> int:
 
 
 def _check(op: str, m: int, w: int, b: int, bn: int) -> None:
-    if not 1 <= b <= MAX_B or m < b or w < b or m * max(b, w) >= 2 ** 31:
-        raise ValueError(f"{op}: needs 1 <= b <= {MAX_B} and m, w >= b, got "
+    if b > FUSED_MAX_B:
+        raise ValueError(f"{op}: the fused kernel takes b <= {FUSED_MAX_B}, got "
+                         f"b={b}; wider panels run stepped on K1-K4 until "
+                         "ROADMAP queue 2 item 1 (K5/K6 at b > 128) lands")
+    if b < 1 or m < b or w < b or m * max(b, w) >= 2 ** 31:
+        raise ValueError(f"{op}: needs b >= 1 and m, w >= b, got "
                          f"m={m}, w={w}, b={b}")
     smem = smem_bytes(m, b, bn)
     if smem > backend.SMEM_LIMIT:

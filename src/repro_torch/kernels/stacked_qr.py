@@ -2,8 +2,11 @@
 combine (port of ``src/repro/kernels/stacked_qr.py``).
 
 ``stacked_qr`` and ``stacked_apply`` launch the CUDA kernels of
-``csrc/stacked_qr.cu`` over the lane axis; ``stacked_qr_plain`` and
-``stacked_apply_plain`` are their plain PyTorch versions.
+``csrc/stacked_qr.cu`` over the lane axis for b up to ``MAX_B``, and the
+routes of ``kernels/wide.py`` for a wider b (K3: K1's blocked route on the
+stacked triangles; K4: the products of ``csrc/wide.cu``);
+``stacked_qr_plain`` and ``stacked_apply_plain`` are their plain PyTorch
+versions.
 """
 from __future__ import annotations
 
@@ -13,12 +16,15 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import backend, build
+from repro_torch.kernels import backend, build, wide
+from repro_torch.kernels import panel_qr as _panel
 from repro_torch.kernels.ref import (  # noqa: F401
     stacked_apply as stacked_apply_plain,
     stacked_qr as stacked_qr_plain,
 )
 
+# The widest b of K3's one-block body (its stack in shared memory) and of
+# K4's tile engine; a wider b takes the routes of kernels/wide.py.
 MAX_B = 128
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -45,13 +51,14 @@ def smem_bytes(b: int) -> int:
 
 
 def _b(b: int, op: str) -> None:
-    if not 1 <= b <= MAX_B:
-        raise ValueError(f"{op}: needs 1 <= b <= {MAX_B}, got {b}")
+    if b < 1:
+        raise ValueError(f"{op}: needs b >= 1, got {b}")
 
 
 def stacked_qr(R_top: torch.Tensor, R_bot: torch.Tensor):
     """(Y2, T, R) of QR([R_top; R_bot]) for contiguous CUDA f32 tensors
-    (P, b, b) or (b, b)."""
+    (P, b, b) or (b, b), any b >= 1 (above MAX_B through
+    ``wide.stacked_qr_wide``)."""
     squeeze = R_top.dim() == 2
     Rt = backend.contiguous_lanes(R_top, "stacked_qr")
     Rb = backend.contiguous_lanes(R_bot, "stacked_qr")
@@ -60,10 +67,15 @@ def stacked_qr(R_top: torch.Tensor, R_bot: torch.Tensor):
         raise ValueError(f"stacked_qr: shapes {tuple(R_top.shape)} and "
                          f"{tuple(R_bot.shape)} are not two (P, b, b)")
     _b(b, "stacked_qr")
-    Y2, T, R = (torch.empty_like(Rt) for _ in range(3))
-    err = _qr_kernel()(Rt.data_ptr(), Rb.data_ptr(), Y2.data_ptr(),
-                       T.data_ptr(), R.data_ptr(), P, b, backend.stream_ptr(Rt))
-    build.check(err, "stacked_qr")
+    if b <= MAX_B:
+        Y2, T, R = (torch.empty_like(Rt) for _ in range(3))
+        err = _qr_kernel()(Rt.data_ptr(), Rb.data_ptr(), Y2.data_ptr(),
+                           T.data_ptr(), R.data_ptr(), P, b,
+                           backend.stream_ptr(Rt))
+        build.check(err, "stacked_qr")
+    else:
+        Y2, T, R = wide.stacked_qr_wide(Rt, Rb, qr=_panel.sub_qr,
+                                        apply=wide.cuda_apply, gemm=wide.gemm)
     backend.count_launch("stacked_qr")
     if squeeze:
         return Y2[0], T[0], R[0]
@@ -74,8 +86,10 @@ def stacked_apply(Y2: torch.Tensor, T: torch.Tensor, C_top: torch.Tensor,
                   C_bot: torch.Tensor, bn: Optional[int] = None):
     """(C_top - W, C_bot - Y2 W, W) with W = T^T (C_top + Y2^T C_bot), for
     contiguous CUDA f32 tensors: Y2, T (P, b, b), upper triangular as
-    ``stacked_qr`` makes them (the kernel skips their zero triangles);
-    C_top, C_bot (P, b, n); or the same without the lane axis. ``bn`` is
+    ``stacked_qr`` makes them (up to MAX_B the kernel skips their zero
+    triangles; above it ``wide.stacked_apply_wide`` reads all of them, as
+    the plain version does); C_top, C_bot (P, b, n); or the same without
+    the lane axis. ``bn`` is
     the kernel's column tile (32, 64 or 128; by default
     ``backend.tile_bn``); it does not change the result's bits."""
     squeeze = C_top.dim() == 2
@@ -89,12 +103,18 @@ def stacked_apply(Y2: torch.Tensor, T: torch.Tensor, C_top: torch.Tensor,
                          f"{[tuple(x.shape) for x in (Y2, T, C_top, C_bot)]}")
     _b(b, "stacked_apply")
     bn = backend.launch_bn(P, n, Ct, bn)
-    ot, ob, W = (torch.empty_like(Ct) for _ in range(3))
+    if b > MAX_B:
+        ot, ob, W = wide.stacked_apply_wide(Y3, T3, Ct, Cb, gemm=wide.gemm,
+                                            bn=bn)
+    else:
+        ot, ob, W = (torch.empty_like(Ct) for _ in range(3))
+        if n:
+            err = _apply_kernel()(Y3.data_ptr(), T3.data_ptr(), Ct.data_ptr(),
+                                  Cb.data_ptr(), ot.data_ptr(), ob.data_ptr(),
+                                  W.data_ptr(), P, b, n, bn,
+                                  backend.stream_ptr(Ct))
+            build.check(err, "stacked_apply")
     if n:
-        err = _apply_kernel()(Y3.data_ptr(), T3.data_ptr(), Ct.data_ptr(),
-                              Cb.data_ptr(), ot.data_ptr(), ob.data_ptr(),
-                              W.data_ptr(), P, b, n, bn, backend.stream_ptr(Ct))
-        build.check(err, "stacked_apply")
         backend.count_launch("stacked_apply")
     if squeeze:
         return ot[0], ob[0], W[0]

@@ -1,0 +1,193 @@
+"""K1-K4 at panel widths above 128: the blocked routes (counterpart of the
+reference's kernels at any b: ``src/repro/kernels/panel_qr.py`` takes any
+(m, b) in one block, and ``src/repro/kernels/ops.py`` pads b for K2-K4).
+
+The port's b <= 128 bodies (``csrc/qr_common.cuh``) fix their thread
+layouts at 128 columns. A wider call is composed of launches of
+hand-written kernels, never of ``torch.matmul`` or ``torch.geqrf``:
+
+* K1 (``panel_qr_blocked``): the panel in sub-panels of at most
+  ``NB = 128`` columns, each through K1's team body at row start
+  ``row_start + c0``, each sub-panel's Q^T applied to the columns right of
+  it by K2's wide route below (not K2's b <= 128 engine, whose one
+  sequential chain over the m rows moved the later reflectors of an
+  ill-conditioned Muon momentum by 0.14; ``csrc/wide.cu`` sums in three
+  levels), T joined block by block as
+  ``T[:c0, c0:] = -T[:c0, :c0] (Y[:, :c0]^T Y_j) T_j`` (the products in
+  ``csrc/wide.cu``), and R taken from rows ``[rs', rs' + b)`` of the
+  updated panel, ``rs' = clamp(row_start, 0, m - b)`` as the reference
+  clamps it;
+* K2 (``wy_apply_wide``): ``Z = Y^T C``, ``W = T^T Z``, ``out = C - Y W``,
+  three products of ``csrc/wide.cu`` that read all of T, so any T gives
+  the function of the plain version, not only Y's own;
+* K3 (``stacked_qr_wide``): K1's blocked route on the stacked triangles
+  ``[triu(R_top); triu(R_bot)]`` at row start 0, whose reflectors keep the
+  stack's exact zeros, so ``Y[:b]`` is I and ``Y2 = Y[b:]`` upper
+  triangular (twice the FLOPs of a structured QR);
+* K4 (``stacked_apply_wide``): ``inner = C_top + Y2^T C_bot``, then
+  ``W = T^T inner`` and ``C_top - W`` from one product (its epilogue
+  stores both), ``C_bot - Y2 W``.
+
+Each route is a function of its sub-kernels (``qr``, ``apply``, ``gemm``),
+so the CPU tests run the composition with the plain bodies (``PLAIN``)
+against the unblocked plain versions. On the card the wrappers in
+``panel_qr.py``, ``wy_apply.py`` and ``stacked_qr.py`` pass the CUDA
+bodies. Every sub-kernel's sums run in a fixed order that depends on the
+shape alone (each sub-panel's team is ``backend.team_blocks(m, 128)``), so
+a lane's bits are the same in any launch, and a wide call counts as one
+launch of its op in ``backend.LAUNCHES``; its kernels' launches are in
+``backend.SUB_LAUNCHES``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import backend, build, ref
+
+# The widest panel of K1's team body (QR_MAX_B in csrc/qr_common.cuh):
+# the columns of a sub-panel of the blocked K1 (panel_qr.MAX_B is this).
+NB = 128
+
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+
+@functools.cache
+def _kernel():
+    return build.bind("wide", "wide_gemm_f32",
+                      [_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L,
+                       _P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L,
+                       _I, _I, _I, _I, _I, _I, _P])
+
+
+def _as3(x: torch.Tensor, what: str) -> torch.Tensor:
+    if x.device.type != "cuda" or x.dtype != torch.float32 or x.dim() not in (2, 3):
+        raise ValueError(f"wide_gemm: {what} must be a CUDA float32 tensor of "
+                         f"rank 2 or 3, got {x.dtype} {tuple(x.shape)} on {x.device}")
+    return x.unsqueeze(0) if x.dim() == 2 else x
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    """An operand's pointer and (lane, row, column) strides; null for None."""
+    return (None, 0, 0, 0) if x is None else (x.data_ptr(), *x.stride())
+
+
+def gemm(A: torch.Tensor, B: torch.Tensor, D: Optional[torch.Tensor] = None,
+         *, sub: bool = False, out: Optional[torch.Tensor] = None,
+         bn: Optional[int] = None, minuend: Optional[torch.Tensor] = None):
+    """``D -/+ A B`` per lane on the card (``csrc/wide.cu``): A (P, M, K),
+    B (P, K, N), D (P, M, N) or None (then ``-/+ A B``), or the same
+    without the lane axis; any strides, so ``Y.mT`` or a column block is
+    passed without a copy. Writes into ``out`` (a view, any strides) when
+    given, else into a new contiguous tensor. ``bn`` is the column tile
+    (``backend.TILE_BNS``); it does not change a bit. With ``minuend`` E
+    (shaped as D) it returns ``(out, E - A B)``, the second from the same
+    sum by a second store of the kernel's epilogue."""
+    A3, B3 = _as3(A, "A"), _as3(B, "B")
+    P, M, K = A3.shape
+    N = B3.shape[-1]
+    if B3.shape != (P, K, N):
+        raise ValueError(f"wide_gemm: shapes {tuple(A.shape)} and "
+                         f"{tuple(B.shape)} do not conform")
+    if out is None:
+        out = torch.empty(*A.shape[:-1], N, device=A.device, dtype=A.dtype)
+    O3 = _as3(out, "out")
+    D3 = None if D is None else _as3(D, "D")
+    E3 = None if minuend is None else _as3(minuend, "minuend")
+    diff = None if minuend is None else torch.empty_like(out)
+    O23 = None if diff is None else _as3(diff, "out2")
+    for x in (O3, D3, E3, O23):
+        if x is not None and x.shape != (P, M, N):
+            raise ValueError(f"wide_gemm: an output-shaped operand is "
+                             f"{tuple(x.shape)}, not {(P, M, N)}")
+    bn = backend.launch_bn(P, N, A3, bn)
+    if M and N:
+        err = _kernel()(*_ptr(A3), *_ptr(B3), *_ptr(D3), *_ptr(O3), *_ptr(E3),
+                        *_ptr(O23), P, M, N, K, int(sub), bn,
+                        backend.stream_ptr(A3))
+        build.check(err, "wide_gemm")
+        backend.count_sub("wide_gemm_kernel")
+    return out if diff is None else (out, diff)
+
+
+def gemm_plain(A, B, D=None, *, sub=False, out=None, bn=None, minuend=None):
+    """The plain version of ``gemm``."""
+    AB = A @ B
+    res = (D - AB if sub else D + AB) if D is not None else (-AB if sub else AB)
+    if out is not None:
+        res = out.copy_(res)
+    return res if minuend is None else (res, minuend - AB)
+
+
+def panel_qr_blocked(A: torch.Tensor, rs: torch.Tensor, *, qr, apply, gemm):
+    """(Y, T, R) of the masked panel QR of A (P, m, b), m >= b, row starts
+    ``rs`` (P,) integers, in sub-panels of at most ``NB`` columns:
+    ``qr(A_j, rs_j)`` the QR of a sub-panel, ``apply(Y_j, T_j, C)`` its Q^T
+    on the columns right of it, ``gemm`` the T join's products."""
+    P, m, b = A.shape
+    rs = rs.to(torch.int64).reshape(-1).expand(P)
+    # R's rows, rs' = clamp(rs, 0, m - b) on
+    rows = rs.clamp(0, m - b)[:, None] + torch.arange(b, device=A.device)
+    Y = A.new_empty(P, m, b)
+    T = A.new_zeros(P, b, b)
+    R = A.new_empty(P, b, b)
+    cur = A  # columns [c0, b) of the panel as the sub-panels before c0 left them
+    for c0 in range(0, b, NB):
+        bj = min(NB, b - c0)
+        rs_j = rs + c0
+        Yj, Tj, Rj = qr(cur[..., :bj], rs_j)
+        # R's columns [c0, c0 + bj): a row above this sub-panel's first pivot
+        # keeps what the sub-panels before it left there; the others are
+        # rows of the sub-panel's own R, whose start it clamps to m - bj
+        kept = cur[..., :bj].gather(-2, rows[..., None].expand(P, b, bj))
+        own = (rows - rs_j.clamp(0, m - bj)[:, None]).clamp(0, bj - 1)
+        made = Rj.gather(-2, own[..., None].expand(P, b, bj))
+        R[..., c0:c0 + bj] = torch.where((rows < rs_j[:, None])[..., None],
+                                         kept, made)
+        Y[..., c0:c0 + bj] = Yj
+        T[..., c0:c0 + bj, c0:c0 + bj] = Tj
+        if c0:  # T[:c0, c0:c0+bj] = -T[:c0, :c0] (Y[:, :c0]^T Y_j) T_j
+            G = gemm(Y[..., :c0].mT, Yj)
+            gemm(T[..., :c0, :c0], gemm(G, Tj), sub=True,
+                 out=T[..., :c0, c0:c0 + bj])
+        if c0 + bj < b:
+            cur = apply(Yj, Tj, cur[..., bj:])
+    return Y, T, R.triu()
+
+
+def wy_apply_wide(Y, T, C, *, gemm, bn=None):
+    """Q^T C = C - Y (T^T (Y^T C)) for any b; Y (P, m, b), T (P, b, b),
+    C (P, m, n)."""
+    W = gemm(T.mT, gemm(Y.mT, C, bn=bn), bn=bn)
+    return gemm(Y, W, C, sub=True, bn=bn)
+
+
+def cuda_apply(Y, T, C):
+    """Q^T C between two sub-panels of the blocked K1 on the card: K2's wide
+    route, the three-level sums of ``csrc/wide.cu``."""
+    return wy_apply_wide(Y, T, C, gemm=gemm)
+
+
+def stacked_qr_wide(R_top, R_bot, *, qr, apply, gemm):
+    """(Y2, T, R) of QR([triu(R_top); triu(R_bot)]) for any b, through the
+    blocked K1 at row start 0."""
+    P, b, _ = R_top.shape
+    S = torch.cat([R_top.triu(), R_bot.triu()], dim=-2)
+    Y, T, R = panel_qr_blocked(S, torch.zeros(P, dtype=torch.int64,
+                                              device=S.device),
+                               qr=qr, apply=apply, gemm=gemm)
+    return Y[..., b:, :].triu(), T, R
+
+
+def stacked_apply_wide(Y2, T, C_top, C_bot, *, gemm, bn=None):
+    """(C_top - W, C_bot - Y2 W, W), W = T^T (C_top + Y2^T C_bot), for any
+    b; every entry of Y2 and T is read, as the plain version reads it."""
+    W, top = gemm(T.mT, gemm(Y2.mT, C_bot, C_top, bn=bn), bn=bn, minuend=C_top)
+    return top, gemm(Y2, W, C_bot, sub=True, bn=bn), W
+
+
+# The plain bodies: the blocked routes composed of the plain versions.
+PLAIN = dict(qr=ref.panel_qr, apply=ref.wy_apply, gemm=gemm_plain)

@@ -2,7 +2,9 @@
 ``src/repro/kernels/wy_apply.py``).
 
 ``wy_apply`` launches the CUDA kernel of ``csrc/wy_apply.cu`` over the lane
-axis; ``wy_apply_plain`` is its plain PyTorch version.
+axis for b up to ``MAX_B``, and the three products of ``csrc/wide.cu``
+(``wide.wy_apply_wide``) for a wider b; ``wy_apply_plain`` is its plain
+PyTorch version.
 """
 from __future__ import annotations
 
@@ -12,9 +14,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import backend, build
+from repro_torch.kernels import backend, build, wide
 from repro_torch.kernels.ref import wy_apply as wy_apply_plain  # noqa: F401
 
+# The widest b of the tile engine (TILE_M in csrc/qr_common.cuh); a wider b
+# takes the route of wide.wy_apply_wide.
 MAX_B = 128
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -29,9 +33,10 @@ def _kernel():
 def wy_apply(Y: torch.Tensor, T: torch.Tensor, C: torch.Tensor,
              bn: Optional[int] = None) -> torch.Tensor:
     """Q^T C for CUDA f32 tensors: Y (P, m, b), T (P, b, b), C (P, m, n), or
-    the same without the lane axis. C may be a strided view (unit column
-    stride), such as the sweep's live window; the result is contiguous.
-    ``bn`` is the kernel's column tile (32, 64 or 128; by default
+    the same without the lane axis; any b >= 1, and T need not be Y's own
+    (all of it is read). C may be a strided view (unit column stride),
+    such as the sweep's live window; the result is contiguous. ``bn`` is
+    the kernel's column tile (32, 64 or 128; by default
     ``backend.tile_bn``); it does not change the result's bits."""
     squeeze = C.dim() == 2
     Y3 = backend.contiguous_lanes(Y, "wy_apply")
@@ -42,14 +47,18 @@ def wy_apply(Y: torch.Tensor, T: torch.Tensor, C: torch.Tensor,
     if T3.shape != (P, b, b) or C3.shape[:2] != (P, m):
         raise ValueError(f"wy_apply: shapes Y {tuple(Y.shape)}, T "
                          f"{tuple(T.shape)}, C {tuple(C.shape)} do not conform")
-    if not 1 <= b <= MAX_B:
-        raise ValueError(f"wy_apply: needs 1 <= b <= {MAX_B}, got {b}")
+    if b < 1:
+        raise ValueError(f"wy_apply: needs b >= 1, got {b}")
     bn = backend.launch_bn(P, n, C3, bn)
-    out = torch.empty(P, m, n, device=C3.device, dtype=C3.dtype)
+    if b > MAX_B:
+        out = wide.wy_apply_wide(Y3, T3, C3, gemm=wide.gemm, bn=bn)
+    else:
+        out = torch.empty(P, m, n, device=C3.device, dtype=C3.dtype)
+        if m and n:
+            err = _kernel()(Y3.data_ptr(), T3.data_ptr(), C3.data_ptr(),
+                            C3.stride(0), C3.stride(1), out.data_ptr(),
+                            P, m, b, n, bn, backend.stream_ptr(C3))
+            build.check(err, "wy_apply")
     if m and n:
-        err = _kernel()(Y3.data_ptr(), T3.data_ptr(), C3.data_ptr(),
-                        C3.stride(0), C3.stride(1), out.data_ptr(),
-                        P, m, b, n, bn, backend.stream_ptr(C3))
-        build.check(err, "wy_apply")
         backend.count_launch("wy_apply")
     return out[0] if squeeze else out

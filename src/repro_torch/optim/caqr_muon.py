@@ -3,9 +3,9 @@
 
 The momentum of each 2-D weight is replaced by the thin-QR Q of the
 port's sequential TSQR chain (``core.tsqr.tsqr_orthonormalize``; on a
-CUDA tensor its leaf QR is K1, with K1's limit of b <= 128 columns: a
-slice whose short side is wider raises K1's ``ValueError``, it does not
-fall back). Embeddings, the LM head and non-2-D parameters take
+CUDA tensor its leaf QR and chain steps are K1 at b = the slice's short
+side, which above 128 columns runs K1's blocked route,
+``kernels/wide.py``). Embeddings, the LM head and non-2-D parameters take
 Adam-style scaling; stacked groups ``(G, m, n)`` are orthogonalized per
 slice. Paths are ``repro_torch.tree`` path strings, the JAX package's
 letter for letter, so both packages route the same leaves.

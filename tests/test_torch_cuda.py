@@ -35,6 +35,7 @@ from repro_torch.ft import (  # noqa: E402
 )
 from repro_torch.ft.online import state as tstate  # noqa: E402
 from repro_torch.kernels import backend, ops  # noqa: E402
+from repro_torch.kernels import fused_sweep as tfused  # noqa: E402
 from repro_torch.kernels import panel_qr as tpanel  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import stacked_qr as tstacked  # noqa: E402
@@ -709,3 +710,126 @@ def test_cuda_kernels_at_moe_shapes_match_plain(rng, cuda, m_loc, n, b):
     Ct = X[:, :b].contiguous()
     args = (Y2, T2, Ct, Ct[pairs].contiguous())
     close(ops.stacked_apply(*args), tref.stacked_apply(*args))
+
+
+# -- panel widths above 128: the blocked routes of kernels/wide.py ----------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,b,row_start", [
+    (512, 256, 0),      # two full sub-panels
+    (1000, 200, 37),    # a ragged last sub-panel (128 + 72), odd row start
+    (4096, 256, 3840),  # the last panel's row start of the b = 256 sweep
+    (600, 300, 500),    # row start past m - b: R's rows clamped to [300, 600)
+])
+def test_cuda_wide_panel_qr_matches_plain(rng, cuda, m, b, row_start):
+    """K1 above 128 columns within tolerance of the plain version, through
+    the blocked route (K1's team on sub-panels, K2 between them, the T join
+    of csrc/wide.cu), with no torch.matmul or geqrf on it; one call counts
+    as one launch of panel_qr."""
+    A = _panels(rng, 2, m, b).to(cuda)
+    backend.reset_launches()
+    got = ops.panel_qr(A, row_start)
+    assert backend.LAUNCHES["panel_qr"] == 1 and backend.LAUNCHES["wy_apply"] == 0
+    assert backend.SUB_LAUNCHES["panel_qr_kernel"] == -(-b // 128)
+    assert backend.SUB_LAUNCHES["wide_gemm_kernel"] > 0
+    assert backend.probe_report()["panel_qr"]["engine"] == "cuda"
+    close(got, tref.panel_qr(A, row_start))
+
+
+@pytest.mark.cuda
+def test_cuda_wide_one_lane_equals_eight(rng, cuda):
+    """At b = 256 a one-lane launch (a REBUILD replay) gives each lane the
+    bits of an 8-lane launch: K1 (row starts 0 and the last panel's), K2
+    and K4."""
+    P, m, b, n = 8, 1024, 256, 600
+    A = _panels(rng, P, m, b).to(cuda)
+    rs = torch.tensor([768, 0, 0, 0, 0, 0, 0, 0], dtype=torch.int32)
+    k1 = tpanel.panel_qr(A, rs)
+    C = t(rng.standard_normal((P, m, n)).astype(np.float32)).to(cuda)
+    k2 = twy.wy_apply(k1[0], k1[1], C)
+    R = t(np.stack([qr_factor(rng, b) for _ in range(2 * P)])).to(cuda)
+    Y2, T2, _ = tstacked.stacked_qr(R[:P].contiguous(), R[P:].contiguous())
+    Ct = C[:, :b].contiguous()
+    Cb = C[:, b:2 * b].contiguous()
+    k4 = tstacked.stacked_apply(Y2, T2, Ct, Cb)
+    for k in range(P):
+        assert all(torch.equal(w[k], o) for w, o in
+                   zip(k1, tpanel.panel_qr(A[k], int(rs[k])))), k
+        assert torch.equal(k2[k], twy.wy_apply(k1[0][k], k1[1][k], C[k])), k
+        assert all(torch.equal(w[k], o) for w, o in
+                   zip(k4, tstacked.stacked_apply(Y2[k], T2[k], Ct[k], Cb[k]))), k
+
+
+@pytest.mark.cuda
+def test_cuda_wide_apply_with_random_t(rng, cuda):
+    """K2 and K4 at b = 256 read all of T: a random upper-triangular T (not
+    Y's own) gives the plain version's function, and the column tile does
+    not change a bit. K4's C_top - W comes from the kernel's second store,
+    with the bits of that subtraction."""
+    P, m, b, n = 2, 700, 256, 300
+    Y = t(rng.standard_normal((P, m, b)).astype(np.float32)).to(cuda)
+    T = t(np.triu(rng.standard_normal((P, b, b))).astype(np.float32) / 16).to(cuda)
+    C = t(rng.standard_normal((P, m, n)).astype(np.float32)).to(cuda)
+    got = twy.wy_apply(Y, T, C)
+    close(got, tref.wy_apply(Y, T, C))
+    Y2 = t(np.triu(rng.standard_normal((P, b, b))).astype(np.float32) / 16).to(cuda)
+    Ct = t(rng.standard_normal((P, b, n)).astype(np.float32)).to(cuda)
+    Cb = t(rng.standard_normal((P, b, n)).astype(np.float32)).to(cuda)
+    got4 = tstacked.stacked_apply(Y2, T, Ct, Cb)
+    close(got4, tref.stacked_apply(Y2, T, Ct, Cb))
+    assert torch.equal(got4[0], Ct - got4[2])
+    for bn in backend.TILE_BNS:
+        assert torch.equal(got, twy.wy_apply(Y, T, C, bn=bn)), bn
+        assert all(torch.equal(a, o) for a, o in
+                   zip(got4, tstacked.stacked_apply(Y2, T, Ct, Cb, bn=bn))), bn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STACKED_EDGES)
+def test_cuda_wide_stacked_qr_pair_bits(rng, cuda, case):
+    """K3 at b = 256 (K1's blocked route on the stack) within tolerance of
+    the plain version on the edge inputs, Y2 exactly upper triangular, and
+    the two lanes of a butterfly pair, which stack the same two R factors,
+    bit-equal."""
+    b = 256
+    R1, R2 = stacked_edge_pair(rng, case, b)
+    Rt = t(np.stack([R1, R1])).to(cuda)
+    Rb = t(np.stack([R2, R2])).to(cuda)
+    got = ops.stacked_qr(Rt, Rb)
+    close(got, tref.stacked_qr(Rt, Rb))
+    assert torch.equal(got[0], got[0].triu())
+    assert all(torch.equal(x[0], x[1]) for x in got)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_kernels_refuse_wide_panels(rng, cuda):
+    """K5 and K6 keep their limit of 128 columns: at b = 256 they raise
+    ValueError naming the ROADMAP entry, with no plain fallback."""
+    P, m, b = 2, 512, 256
+    W = t(rng.standard_normal((P, m, 2 * b)).astype(np.float32)).to(cuda)
+    backend.reset_launches()
+    with pytest.raises(ValueError, match="queue 2 item 1"):
+        ops.panel_qr_apply(W, 0, b)
+    with pytest.raises(ValueError, match="queue 2 item 1"):
+        ops.fused_panel(W, 0, b=b, m_loc_pad=m, levels=1)
+    assert tfused.FUSED_MAX_B == 128
+    assert backend.LAUNCHES["panel_qr_apply"] == backend.LAUNCHES["fused_panel"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_wide_sweep_matches_cpu(rng, cuda):
+    """A b = 256 sweep on the card within tolerance of the same sweep on
+    the CPU, K1-K4 launched, R replicated bitwise."""
+    P, m_loc, n, b = 4, 512, 768, 256
+    A = t(rng.standard_normal((P, m_loc, n)).astype(np.float32))
+    want = caqr_factorize(A, SimComm(P), b, use_scan=False, collect_bundles=True)
+    backend.reset_launches()
+    got = caqr_factorize(A.to(cuda), SimComm(P), b, use_scan=False,
+                         collect_bundles=True)
+    stepped = ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply")
+    assert all(backend.LAUNCHES[op] > 0 for op in stepped), backend.LAUNCHES
+    assert backend.LAUNCHES["panel_qr_apply"] == backend.LAUNCHES["fused_panel"] == 0
+    close(got.R, want.R)
+    close(tuple(got.bundles[:3]), tuple(want.bundles[:3]))
+    assert bool((got.R == got.R[:1]).all())
