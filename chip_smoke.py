@@ -144,15 +144,27 @@ non-zero and prints no result):
    on a ragged (1000, 200) at row start 37; K2 on Y (8, 4096, 256) and C
    (8, 4096, 4096) with Y's T and with a random upper-triangular T; K3 on
    two (8, 256, 256) R factors; K4 with C' (8, 256, 4096) and a random T;
-   the products' kernel alone. Bitwise at b = 256: one lane == eight lanes
-   (K1, K2, K4), the two lanes of a butterfly pair (K3), two column tiles
-   (K2, K4); K5 and K6 raise ``ValueError``. The sweep of the tall matrix at
-   b = 256 (16 panels, counters at 0 before it; path ``wide``): R
-   replicated bitwise, the Gram identity, Q^T A = [R; 0], least squares,
-   K1-K4 launched and K5/K6 not; ``ft_caqr_sweep`` with two kills (a leaf
-   point and a trailing point of the root lane; path ``wide_kill``),
-   bit-equal to failure-free, one single-source event a kill; five runs of
-   each (median, min-max). Then the plain ``Trainer(caqr_muon)`` at
+   the products' kernel alone. Every product inside those records' first
+   calls is held bit for bit to the oracle of its summation order
+   (``wide.gemm_order``) and to K5/K6's in-block instantiation of the same
+   tile routine (``fused_sweep.gemm_in_block``). Bitwise at b = 256: one
+   lane == eight lanes (K1, K2, K4), the two lanes of a butterfly pair
+   (K3), two column tiles (K2, K4), K5 == K1 then K2. K5 and K6 at b = 256
+   on the first window (one cooperative launch each), against their plain
+   versions, timed beside their bound and the stepped wide route. The
+   sweep of the tall matrix at b = 256 (16 panels, counters at 0 before
+   it; path ``wide``): R replicated bitwise, the Gram identity, Q^T A =
+   [R; 0], least squares, K1-K4 launched and K5/K6 not; ``ft_caqr_sweep``
+   with two kills (a leaf point and a trailing point of the root lane;
+   path ``wide_kill``), bit-equal to failure-free, one single-source event
+   a kill; ``run_panel_fused`` over the 16 panels (path ``wide_fused``, K6
+   only), bit-equal to failure-free and to the stepped state machine at
+   every panel boundary; the online sweep with fused segments and the same
+   lanes killed at those panels' ends (path ``wide_online_fused``),
+   bit-equal to failure-free and to the stepped online sweep, with the
+   scheduled run's ledger; five runs of ``caqr_factorize``, the two-kill
+   FT sweep and the fused state machine (median, min-max). Then the plain
+   ``Trainer(caqr_muon)`` at
    ``TRAIN_REDUCED`` for 3 steps, twice, under torch's deterministic mode
    (path ``muon``): params and losses bit-equal, finite losses, every
    full-rank momentum slice's Q orthonormal within 1e-3 at step 0, K1 at
@@ -337,6 +349,9 @@ WIDE_B = 256
 # the wide FT sweep's two kills {point: lane}: a leaf point and a trailing
 # point of the panel's root lane, mid-sweep
 WIDE_KILLS = {sweep_point(3, "leaf"): 5, sweep_point(9, "trailing", 1): 0}
+# the same lanes killed at those panels' ends, for the fused online sweep
+WIDE_END_KILLS = {sweep_point(3, "trailing", L - 1): 5,
+                  sweep_point(9, "trailing", L - 1): 0}
 # K1 at the plain CAQR-Muon path's shapes at TinyLlama's width (m, b): wq and
 # wo (one leaf), the MLP matrices made tall (one leaf), and wk and wv's
 # leaf and chain steps ([R; tile] of 256 + 512 rows)
@@ -813,12 +828,12 @@ def states_equal(a: sm.SweepState, b: sm.SweepState) -> bool:
                     for k in fa))
 
 
-def lockstep(A: torch.Tensor) -> int:
-    """Fused and stepped sweeps side by side; checks the states bit for bit
-    at every panel boundary and the finalized outputs; returns the number
-    of boundaries compared."""
+def lockstep(A: torch.Tensor, b: int = B) -> int:
+    """Fused and stepped sweeps at panel width ``b`` side by side; checks
+    the states bit for bit at every panel boundary and the finalized
+    outputs; returns the number of boundaries compared."""
     comm = SimComm(P)
-    s_f = s_s = sm.initial_sweep_state(comm, A, B)
+    s_f = s_s = sm.initial_sweep_state(comm, A, b)
     pts = sm.panel_points(s_s.geom)
     n = 0
     while s_f.cursor is not None:
@@ -838,12 +853,13 @@ def flat_result(res) -> tuple:
     return (R, *factors, *bundles)
 
 
-def timed_sweep(A: torch.Tensor, fused: bool):
-    """One state-machine sweep to completion with finalize, counters and
-    peak memory reset before it; returns (result, seconds, launches, GB):
-    the peak is counted above what was allocated before the sweep."""
+def timed_sweep(A: torch.Tensor, fused: bool, b: int = B):
+    """One state-machine sweep at panel width ``b`` to completion with
+    finalize, counters and peak memory reset before it; returns (result,
+    seconds, launches, GB): the peak is counted above what was allocated
+    before the sweep."""
     comm = SimComm(P)
-    s = sm.initial_sweep_state(comm, A, B)
+    s = sm.initial_sweep_state(comm, A, b)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -961,11 +977,11 @@ class TimedScheme:
         return self.inner.decode_lanes(comm, state, newly, dead)
 
 
-def online_run(A: torch.Tensor, kills: dict, **kw):
-    """``ft_caqr_sweep_online`` on the tall cell with a ``ScriptedKiller``
-    at ``kills`` ({point: [lanes]}), launch counters at 0 just before it
-    and peak memory counted above what was live; returns (result, the
-    orchestrator's statistics, seconds, launches, peak GB)."""
+def online_run(A: torch.Tensor, kills: dict, b: int = B, **kw):
+    """``ft_caqr_sweep_online`` on the tall cell at panel width ``b`` with a
+    ``ScriptedKiller`` at ``kills`` ({point: [lanes]}), launch counters at 0
+    just before it and peak memory counted above what was live; returns
+    (result, the orchestrator's statistics, seconds, launches, peak GB)."""
     seen = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -973,7 +989,7 @@ def online_run(A: torch.Tensor, kills: dict, **kw):
     backend.reset_launches()
     t0 = time.perf_counter()
     res = ft_caqr_sweep_online(
-        A, SimComm(P), B, fault_hooks=[ScriptedKiller(kills)],
+        A, SimComm(P), b, fault_hooks=[ScriptedKiller(kills)],
         boundary_hooks=[lambda orch: seen.append(orch)], **kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -1937,7 +1953,8 @@ def wide_record(op: str, args: tuple, cost: tuple, lib, reps: int) -> dict:
     (every kernel of the blocked route, glue included), bound, plain time
     (one call) and the library call's time."""
     run = lambda: getattr(ops, op)(*args)  # noqa: E731
-    got = as_tuple(run())
+    with OrderOracle() as oracle:
+        got = as_tuple(run())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = as_tuple(getattr(ref, op)(*args))
@@ -1955,6 +1972,7 @@ def wide_record(op: str, args: tuple, cost: tuple, lib, reps: int) -> dict:
                 blocked_route="src/repro_torch/kernels/wide.py",
                 replaces=replaces, shapes=shapes,
                 row_start=rs.tolist() if torch.is_tensor(rs) else rs,
+                products_held_to_oracle=oracle.summary(),
                 max_abs_err=err, scaled_err=scaled, tolerance=tol,
                 ms=time_ms(run, reps), device_ms=device_ms(run, reps),
                 bound_ms=bms, bound_by=by, plain_ms=plain_ms,
@@ -2021,15 +2039,113 @@ def wide_kernels(A: torch.Tensor, g: torch.Generator) -> tuple:
     contracts = dict(one_lane_k1=one_k1, one_lane_k2=one_k2, one_lane_k4=one_k4,
                      pair_k3=pair_k3, bn_k2=bn_k2, bn_k4=bn_k4)
     check(all(contracts.values()), f"wide: bitwise contracts {contracts}")
-    # K5/K6 keep their limit: a ValueError, no fallback
-    for call in (lambda: ops.panel_qr_apply(A, 0, b),
-                 lambda: ops.fused_panel(A, 0, b=b, m_loc_pad=M_LOC, levels=L)):
-        try:
-            call()
-            check(False, "wide: K5/K6 ran at b = 256")
-        except ValueError:
-            pass
+    # K5 and K6 at b = 256: one launch each, bit-equal to the stepped wide
+    # route, timed beside their plain versions and the stepped route
+    C = ops.wy_apply(Y, T, A)
+    contracts["k5_equals_k1_k2"] = same_bits(ops.panel_qr_apply(A, 0, b),
+                                             (Y, T, R, C, C[:, :b]))
+    check(contracts["k5_equals_k1_k2"], "wide: K5 differs from K1 then K2")
+    del C
+    recs += fused_wide_records(A)
     return recs, contracts
+
+
+class OrderOracle:
+    """Holds every ``wide.gemm`` call inside it to the oracle of the
+    summation order (``wide.gemm_order``) and to K5/K6's in-block
+    instantiation (``fused_sweep.gemm_in_block``) on the same operands, bit
+    for bit; the calls run unchanged."""
+
+    def __init__(self):
+        self.shapes = {}
+
+    def __enter__(self):
+        self.gemm = wide.gemm
+
+        def checked(A, B, D=None, *, sub=False, out=None, bn=None,
+                    minuend=None, kbs=None):
+            res = self.gemm(A, B, D, sub=sub, out=out, bn=bn, minuend=minuend,
+                            kbs=kbs)
+            kw = dict(sub=sub, minuend=minuend)
+            want = as_tuple(wide.gemm_order(A, B, D, **kw))
+            fused = as_tuple(tfs.gemm_in_block(A, B, D, **kw))
+            key = str([list(A.shape), list(B.shape), D is not None, sub,
+                       minuend is not None])
+            check(same_bits(res, want) and same_bits(fused, want),
+                  f"wide_gemm or the in-block routine differs from the order "
+                  f"oracle at {key}")
+            self.shapes[key] = self.shapes.get(key, 0) + 1
+            return res
+
+        wide.gemm = checked
+        return self
+
+    def __exit__(self, *exc):
+        wide.gemm = self.gemm
+
+    def summary(self) -> dict:
+        return dict(products=sum(self.shapes.values()), shapes=len(self.shapes))
+
+
+def fused_wide_records(A: torch.Tensor) -> list:
+    """K5 and K6 at b = 256 on the tall cell's first window: within the
+    tolerance of their plain versions, timed (events, device time) beside
+    their bound, the plain version and the stepped wide route doing the
+    same work, with the wide kernel's shared memory, blocks per SM and
+    registers. The bound counts K6's FLOPs as the kernel's b = 128 record
+    counts them."""
+    b, comm, f = WIDE_B, SimComm(P), 4.0
+    tol = ref.tolerances(torch.float32)[0]
+    leaf_f = leaf_cost(1, M_LOC, b, 0)[0]
+    apply_f = 4.0 * M_LOC * b * N + b * b * N
+
+    def k1_k2():
+        Yl, Tl, _ = ops.panel_qr(A[..., :b], 0)
+        return ops.wy_apply(Yl, Tl, A)
+
+    s0 = sm.initial_sweep_state(comm, A, b)
+    pts = sm.panel_points(s0.geom)
+    cases = {
+        "panel_qr_apply": dict(
+            run=lambda: ops.panel_qr_apply(A, 0, b),
+            plain=lambda: ref.panel_qr_apply(A, 0, b), stepped=k1_k2,
+            stepped_route="K1+K2 wide (panel_qr, wy_apply)", levels=0,
+            flops=P * (leaf_f + apply_f),
+            nbytes=f * P * (2 * M_LOC * N + M_LOC * b + 2 * b * b + b * N)),
+        "fused_panel": dict(
+            run=lambda: ops.fused_panel(A, 0, b=b, m_loc_pad=M_LOC, levels=L),
+            plain=lambda: ref.fused_panel(A, 0, b=b, m_loc_pad=M_LOC, levels=L),
+            stepped=lambda: sm.run_steps(comm, s0, pts),
+            stepped_route="the stepped wide panel (K1, 3 x K3, K2, 3 x K4)",
+            levels=L,
+            flops=P * (leaf_f + apply_f + L * (b ** 3 + 3.0 * b * b * N)),
+            nbytes=f * P * (2 * M_LOC * N + M_LOC * b + (3 + 2 * L) * b * b
+                            + (1 + 3 * L) * b * N)),
+    }
+    recs = []
+    for name, c in cases.items():
+        got = as_tuple(c["run"]())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = as_tuple(c["plain"]())
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err, scaled = max_err(got, want)
+        del got, want
+        check(scaled <= tol, f"wide {name}: scaled error {scaled} over {tol}")
+        bms, by = bound_ms(c["flops"], c["nbytes"])
+        source, replaces = KERNELS[name]
+        recs.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            shapes=[list(A.shape)], b=b, max_abs_err=err, scaled_err=scaled,
+            tolerance=tol, ms=time_ms(c["run"], 5),
+            device_ms=device_ms(c["run"], 5, "fused_wide_kernel"),
+            bound_ms=bms, bound_by=by, plain_ms=plain_ms, library_ms=None,
+            stepped_ms=time_ms(c["stepped"], 5), stepped_route=c["stepped_route"],
+            smem_bytes=tfs.smem_bytes(M_LOC, b, 0, c["levels"]),
+            blocks_per_sm=tfs.blocks_per_sm(M_LOC, b, 0, c["levels"]),
+            ptxas=ptxas(source, "fused_wide_kernel")))
+    return recs
 
 
 def wide_sweeps(A: torch.Tensor, rng) -> dict:
@@ -2079,13 +2195,23 @@ def wide_sweeps(A: torch.Tensor, rng) -> dict:
     kill = kill_check(A, comm, WIDE_KILLS, want, b=b)
     PATH_LAUNCHES["wide_kill"] = kill["launches"]
     PATH_SUB["wide_kill"] = kill["sub_launches"] = dict(backend.SUB_LAUNCHES)
-    del kill["ledger"], want
+    del kill["ledger"]
+    fused = wide_fused_sweeps(A, want)
+    del want
     sched = FailureSchedule(events={pt: [lane] for pt, lane in WIDE_KILLS.items()})
+
+    def state_machine_fused():
+        s = sm.initial_sweep_state(comm, A, b)
+        while s.cursor is not None:
+            s = sm.run_panel_fused(comm, s)
+        return sm.finalize(comm, s)
+
     spread = {}
     for name, fn in (("caqr_factorize", lambda: caqr_factorize(
                           A, comm, b, use_scan=False, collect_bundles=True)),
                      ("ft_sweep_two_kills", lambda: ft_caqr_sweep(
-                          A, comm, b, schedule=sched))):
+                          A, comm, b, schedule=sched)),
+                     ("state_machine_fused", state_machine_fused)):
         times = []
         for _ in range(SPREAD_RUNS):
             torch.cuda.synchronize()
@@ -2103,7 +2229,46 @@ def wide_sweeps(A: torch.Tensor, rng) -> dict:
                 gflops=(2.0 * m * N * N - 2.0 * N ** 3 / 3.0) / seconds / 1e9,
                 launches=launches, sub_launches=sub, gram_rel_err=gram,
                 qta_top_rel_err=top, qta_rest_rel=rest, lstsq_rel_err=lst,
-                peak_mem_gb=peak, kill=kill, spread=spread)
+                peak_mem_gb=peak, kill=kill, fused=fused, spread=spread)
+
+
+def wide_fused_sweeps(A: torch.Tensor, want: tuple) -> dict:
+    """K6 above 128 columns on the b = 256 sweep (counters at 0 before
+    each path): ``run_panel_fused`` over the 16 panels (path
+    ``wide_fused``), bit-equal to the failure-free sweep and to the stepped
+    state machine at every panel boundary; the online sweep with fused
+    segments and the WIDE_END_KILLS (path ``wide_online_fused``), bit-equal
+    to the failure-free sweep and to the stepped online sweep with the same
+    kills, with the scheduled run's ledger."""
+    b = WIDE_B
+    res, seconds, launches, mem = timed_sweep(A, fused=True, b=b)
+    same = same_bits(flat_result(res), want)
+    del res
+    PATH_LAUNCHES["wide_fused"] = launches
+    sub = dict(backend.SUB_LAUNCHES)
+    check(same, "wide: the fused sweep differs from caqr_factorize")
+    check(launches["fused_panel"] == N // b
+          and all(launches[op] == 0 for op in STEPPED) and not any(sub.values()),
+          f"wide fused sweep launches {launches} {sub}")
+    boundaries = lockstep(A, b)
+    ends = {pt: [lane] for pt, lane in WIDE_END_KILLS.items()}
+    got_f, stats_f, launch_f = online_run(A, ends, b=b, fused=True)
+    got_s, stats_s, launch_s = online_run(A, ends, b=b)
+    PATH_LAUNCHES["wide_online_fused"] = launch_f
+    sched = ft_caqr_sweep(A, SimComm(P), b, schedule=FailureSchedule(events=ends))
+    online_ok = dict(
+        fused_equals_free=same_bits(flat_result(got_f), want),
+        fused_equals_stepped=same_bits(flat_result(got_f), flat_result(got_s)),
+        ledger_equals_scheduled=ledger(got_f.events) == ledger(sched.events)
+        == ledger(got_s.events))
+    del got_f, got_s, sched
+    check(all(online_ok.values()), f"wide online fused: {online_ok}")
+    check(launch_f["fused_panel"] > 0, f"wide online fused launches {launch_f}")
+    return dict(seconds=seconds, launches=launches, sub_launches=sub,
+                peak_mem_gb_above_live=mem,
+                equals_sweep=same, boundaries_bitwise=boundaries,
+                online=dict(**online_ok, fused=stats_f, stepped=stats_s,
+                            fused_launches=launch_f, stepped_launches=launch_s))
 
 
 def muon_run(cfg, dcfg, d: str, orths: list, keep: dict) -> tuple:

@@ -15,239 +15,171 @@
 //     ob = Cb - Y2 W.
 // (K3 at b > 128 is K1's blocked route on the stacked triangles.)
 //
-// What bounds it on the H100: FP32 FFMA throughput (67 TFLOP/s) for the
-// deep products (Y^T C over m rows, Y W over b), the memory for the thin
-// ones. TF32 tensor cores would break the 3e-4 tolerance, and split-K
-// would make a sum's order depend on the launch.
-//
-// The design, simple first: a block of 256 threads per (lane, BM x BN
-// output tile), BM = 64 and BN = 32 or 64 (the caller's column tile,
-// backend.tile_bn by default, 128 running as 64); slices of BK = 16 of the reduction staged
-// in shared memory, the next slice loaded into registers while the current
-// one is multiplied; each thread holds a 4 x BN/16 block of outputs in
-// registers and reads its operands as float4. Operands are read through
-// general (lane, row, column) strides, so a transposed factor (Y^T, T^T)
-// or a column block of a panel is passed as a view, without a copy.
-//
-// The sums, in three levels: each slice of 16 terms of k is one fmaf
-// chain started at 0, 16 slices' chains are added in order into a block
-// sum (256 terms), and the block sums in order into the total (zero
-// padding past K adds fmaf(0, 0, acc)); then D + total or D - total. One
-// sequential chain over a 5632-deep sum (as K2's engine runs at b <= 128)
-// lost enough to move the later reflectors of an ill-conditioned Muon
-// momentum (cond 6e4) by 0.14 in the blocked K1; the three levels keep the
-// error at the plain version's. Neither BN, nor the thread, nor the lane
-// count enters a sum, so a lane's bits are those of any launch, at any
-// column tile, as the REBUILD replay and the butterfly pair need. No
-// atomics, no split-K.
+// The summation order, the tile routine and what bounds it are in
+// wide_common.cuh. This file instantiates the routine for three tiles,
+// chosen by the caller (kernels/wide.py::gemm_plan, from the shape alone):
+//   bn = 128: 128 x 128 outputs, 8 x 8 a thread, the total in shared
+//             memory (64 KB), one block an SM;
+//   bn = 64:  64 x 64, 4 x 4 a thread, everything in registers;
+//   bn = 32:  64 x 32, 4 x 2 a thread;
+// each at the three copy modes. A product with few tiles and a deep sum
+// splits k into ranges of kbs block sums: the tiles store their block sums
+// to scratch (part) and wide_gemm_reduce adds them in block order. The
+// oracle of the order, wide_gemm_order_f32, runs one thread per element.
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
-constexpr int GEMM_THREADS = 256;
-constexpr int GEMM_BM = 64;
-constexpr int GEMM_BK = 16;
-constexpr int GEMM_AS = GEMM_BM + 4;  // padded row of the A slice
-constexpr int GEMM_BLOCK = 16;        // slices of a block sum
+#include "wide_common.cuh"
 
-struct GemmArgs {
-  int M, N, K;
-  const float* A;
-  long long a_bs, a_rs, a_cs;
-  const float* B;
-  long long b_bs, b_rs, b_cs;
-  const float* D;  // may be null: out = +/- acc
-  long long d_bs, d_rs, d_cs;
-  float* O;
-  long long o_bs, o_rs, o_cs;
-  int sub;  // 1: D - acc (or -acc), 0: D + acc (or acc)
-  const float* E;  // with O2: also O2 = E - acc; both may be null
-  long long e_bs, e_rs, e_cs;
-  float* O2;
-  long long o2_bs, o2_rs, o2_cs;
-};
-
-// Thread (ty, tx) of a 16 x 16 grid owns rows 4 ty .. 4 ty + 3 of the
-// tile and columns tx * 4 + 64 h .. + 3 (BN >= 64, h < BN / 64) or
-// tx * 2 .. + 1 (BN = 32).
-template <int BN>
-struct GemmShape {
-  static constexpr int TN = BN / 16;  // columns a thread holds
-  static constexpr int A_LOADS = GEMM_BM * GEMM_BK / GEMM_THREADS;  // 4
-  static constexpr int B_LOADS = BN * GEMM_BK / GEMM_THREADS;       // 2..8
-  __device__ static int col(int tx, int c) {
-    return BN >= 64 ? (c / 4) * 64 + tx * 4 + c % 4 : tx * 2 + c;
-  }
-};
+using namespace repro;
 
 template <int BN>
-__global__ void __launch_bounds__(GEMM_THREADS, 2) wide_gemm_kernel(GemmArgs g) {
-  using S = GemmShape<BN>;
-  __shared__ __align__(16) float As[GEMM_BK][GEMM_AS];  // k-major slice of A
-  __shared__ __align__(16) float Bs[GEMM_BK][BN];       // k-major slice of B
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int i0 = blockIdx.y * GEMM_BM, j0 = blockIdx.x * BN;
-  const long long p = blockIdx.z;
-  const float* A = g.A + p * g.a_bs;
-  const float* B = g.B + p * g.b_bs;
-  // Which element of the slice each of a thread's loads takes: along the
-  // operand's unit stride, so that a warp's loads are consecutive.
-  const bool a_k_fast = g.a_cs == 1, b_k_fast = g.b_cs != 1 && g.b_rs == 1;
-  auto a_elem = [&](int u, int& i, int& k) {
-    const int e = tid + u * GEMM_THREADS;
-    if (a_k_fast) i = e / GEMM_BK, k = e % GEMM_BK;
-    else i = e % GEMM_BM, k = e / GEMM_BM;
-  };
-  auto b_elem = [&](int u, int& k, int& j) {
-    const int e = tid + u * GEMM_THREADS;
-    if (b_k_fast) j = e / GEMM_BK, k = e % GEMM_BK;
-    else j = e % BN, k = e / BN;
-  };
-  float ra[S::A_LOADS], rb[S::B_LOADS];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int u = 0; u < S::A_LOADS; ++u) {
-      int i, k;
-      a_elem(u, i, k);
-      const int gi = i0 + i, gk = k0 + k;
-      ra[u] = gi < g.M && gk < g.K ? A[gi * g.a_rs + gk * g.a_cs] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < S::B_LOADS; ++u) {
-      int k, j;
-      b_elem(u, k, j);
-      const int gk = k0 + k, gj = j0 + j;
-      rb[u] = gk < g.K && gj < g.N ? B[gk * g.b_rs + gj * g.b_cs] : 0.f;
-    }
-  };
-  auto stage = [&]() {
-#pragma unroll
-    for (int u = 0; u < S::A_LOADS; ++u) {
-      int i, k;
-      a_elem(u, i, k);
-      As[k][i] = ra[u];
-    }
-#pragma unroll
-    for (int u = 0; u < S::B_LOADS; ++u) {
-      int k, j;
-      b_elem(u, k, j);
-      Bs[k][j] = rb[u];
-    }
-  };
+struct WideCfg;
+template <>
+struct WideCfg<128> {
+  using T = GemmTile<128, 128, 8, 8, 4, true>;
+  static constexpr int MINB = 1;
+};
+template <>
+struct WideCfg<64> {
+  using T = GemmTile<64, 64, 4, 4, 4, false>;
+  static constexpr int MINB = 2;
+};
+template <>
+struct WideCfg<32> {
+  using T = GemmTile<64, 32, 4, 2, 4, false>;
+  static constexpr int MINB = 2;
+};
 
-  float acc[4][S::TN], blk[4][S::TN], tot[4][S::TN];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < S::TN; ++c) blk[r][c] = tot[r][c] = 0.f;
+// Block z = (lane, k range); kbs block sums a range; part null when the
+// sum is not split.
+template <int BN, int MODE>
+__global__ void __launch_bounds__(WG_THREADS, WideCfg<BN>::MINB)
+wide_gemm_kernel(GemmArgs g, int nsplit, int kbs, float* part) {
+  using Cfg = typename WideCfg<BN>::T;
+  extern __shared__ __align__(16) float smem[];
+  const int p = blockIdx.z / nsplit, s = blockIdx.z % nsplit;
+  const long long mn = (long long)g.v.M * g.v.N;
+  const int kb0 = s * kbs, kb1 = min(gemm_kblocks(g.v.K), kb0 + kbs);
+  gemm_tile<Cfg, MODE>(g.lane(p), blockIdx.y * Cfg::BM, blockIdx.x * Cfg::BN,
+                       kb0, kb1, part ? part + p * mn : nullptr, g.P * mn,
+                       smem, threadIdx.x, 0);
+}
 
-  load(0);
-  stage();
-  __syncthreads();
-  for (int k0 = 0, slice = 1; k0 < g.K; k0 += GEMM_BK, ++slice) {
-    const bool more = k0 + GEMM_BK < g.K;
-    if (more) load(k0 + GEMM_BK);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < S::TN; ++c) acc[r][c] = 0.f;
-#pragma unroll
-    for (int k = 0; k < GEMM_BK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      float bv[S::TN];
-      if constexpr (BN >= 64) {
-#pragma unroll
-        for (int h = 0; h < S::TN / 4; ++h) {
-          const float4 b = *reinterpret_cast<const float4*>(&Bs[k][h * 64 + tx * 4]);
-          bv[4 * h] = b.x, bv[4 * h + 1] = b.y, bv[4 * h + 2] = b.z,
-          bv[4 * h + 3] = b.w;
-        }
-      } else {
-        const float2 b = *reinterpret_cast<const float2*>(&Bs[k][tx * 2]);
-        bv[0] = b.x, bv[1] = b.y;
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < S::TN; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+// The second pass of a split sum: element e = (p, i, j) adds its nblk
+// block sums part[kb * P*M*N + e] in block order from +0.0f, then the
+// epilogue.
+__global__ void __launch_bounds__(WG_THREADS)
+wide_gemm_reduce(GemmArgs g, int nblk, const float* part) {
+  const long long mn = (long long)g.v.M * g.v.N, all = g.P * mn;
+  const long long e = (long long)blockIdx.x * WG_THREADS + threadIdx.x;
+  if (e >= all) return;
+  const int p = (int)(e / mn), i = (int)(e % mn / g.v.N), j = (int)(e % g.v.N);
+  float tot = 0.f;
+  for (int kb = 0; kb < nblk; ++kb) tot += __ldcg(part + kb * all + e);
+  gemm_store(g.lane(p), i, j, tot);
+}
+
+// The oracle: one thread an element, the order of wide_common.cuh as loops.
+__global__ void wide_gemm_order(GemmArgs g) {
+  const long long mn = (long long)g.v.M * g.v.N;
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= g.P * mn) return;
+  const int p = (int)(e / mn), i = (int)(e % mn / g.v.N), j = (int)(e % g.v.N);
+  const GemmView v = g.lane(p);
+  const int slices = (v.K + WG_BK - 1) / WG_BK;
+  float tot = 0.f, blk = 0.f;
+  for (int s = 0; s < slices; ++s) {
+    float acc = 0.f;
+    for (int k = s * WG_BK; k < (s + 1) * WG_BK; ++k) {
+      const float a = k < v.K ? v.A[i * v.a_rs + k * v.a_cs] : 0.f;
+      const float b = k < v.K ? v.B[k * v.b_rs + j * v.b_cs] : 0.f;
+      acc = fmaf(a, b, acc);
     }
-    const bool block_done = slice % GEMM_BLOCK == 0 || !more;
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < S::TN; ++c) {
-        blk[r][c] += acc[r][c];
-        if (block_done) tot[r][c] += blk[r][c], blk[r][c] = 0.f;
-      }
-    __syncthreads();  // the slice is read
-    if (more) {
-      stage();
-      __syncthreads();
+    blk += acc;
+    if ((s + 1) % WG_BLOCK == 0 || s == slices - 1) {
+      tot += blk;
+      blk = 0.f;
     }
   }
+  gemm_store(v, i, j, tot);
+}
 
-  const float* D = g.D ? g.D + p * g.d_bs : nullptr;
-  float* O = g.O + p * g.o_bs;
-  const float* E = g.O2 ? g.E + p * g.e_bs : nullptr;
-  float* O2 = g.O2 ? g.O2 + p * g.o2_bs : nullptr;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + ty * 4 + r;
-    if (i >= g.M) continue;
-#pragma unroll
-    for (int c = 0; c < S::TN; ++c) {
-      const int j = j0 + S::col(tx, c);
-      if (j >= g.N) continue;
-      const float a = tot[r][c];
-      float v;
-      if (D) {
-        const float d = D[i * g.d_rs + j * g.d_cs];
-        v = g.sub ? d - a : d + a;
-      } else {
-        v = g.sub ? -a : a;
-      }
-      O[i * g.o_rs + j * g.o_cs] = v;
-      if (O2) O2[i * g.o2_rs + j * g.o2_cs] = E[i * g.e_rs + j * g.e_cs] - a;
-    }
+template <int BN, int MODE>
+static int launch_tiles(const GemmArgs& g, int nsplit, int kbs, float* part,
+                        cudaStream_t stream) {
+  using Cfg = typename WideCfg<BN>::T;
+  const size_t smem = Cfg::SMEM * sizeof(float);
+  static bool sized = false;  // the attribute, once per instance
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        wide_gemm_kernel<BN, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
   }
+  dim3 grid((g.v.N + Cfg::BN - 1) / Cfg::BN, (g.v.M + Cfg::BM - 1) / Cfg::BM,
+            g.P * nsplit);
+  wide_gemm_kernel<BN, MODE><<<grid, WG_THREADS, smem, stream>>>(g, nsplit, kbs,
+                                                                 part);
+  return (int)cudaGetLastError();
 }
 
 template <int BN>
-static int launch(const GemmArgs& g, int P, cudaStream_t stream) {
-  dim3 grid((g.N + BN - 1) / BN, (g.M + GEMM_BM - 1) / GEMM_BM, P);
-  wide_gemm_kernel<BN><<<grid, GEMM_THREADS, 0, stream>>>(g);
-  return (int)cudaGetLastError();
+static int launch_mode(int mode, const GemmArgs& g, int nsplit, int kbs,
+                       float* part, cudaStream_t stream) {
+  switch (mode) {
+    case GEMM_AK: return launch_tiles<BN, GEMM_AK>(g, nsplit, kbs, part, stream);
+    case GEMM_AR: return launch_tiles<BN, GEMM_AR>(g, nsplit, kbs, part, stream);
+    default: return launch_tiles<BN, GEMM_ANY>(g, nsplit, kbs, part, stream);
+  }
 }
 
 // out[p](i, j) = D[p](i, j) +/- sum_k A[p](i, k) B[p](k, j) for p < P,
 // i < M, j < N, k < K, and, when O2 is not null, also
 // out2[p](i, j) = E[p](i, j) - sum_k A[p](i, k) B[p](k, j) from the same
 // sum. Each operand is given by its pointer and its (lane, row, column)
-// strides in floats; D may be null. sub: 1 subtracts the sum, 0 adds it. bn: the column tile, 32, 64 or 128 (128 runs as 64:
-// the three levels of sums hold 96 registers of a thread at 128).
-extern "C" int wide_gemm_f32(const void* A, long long a_bs, long long a_rs,
-                             long long a_cs, const void* B, long long b_bs,
-                             long long b_rs, long long b_cs, const void* D,
-                             long long d_bs, long long d_rs, long long d_cs,
-                             void* O, long long o_bs, long long o_rs,
-                             long long o_cs, const void* E, long long e_bs,
-                             long long e_rs, long long e_cs, void* O2,
-                             long long o2_bs, long long o2_rs,
-                             long long o2_cs, int P, int M, int N, int K,
-                             int sub, int bn, void* stream) {
-  if (P < 1 || P > 65535 || (M + GEMM_BM - 1) / GEMM_BM > 65535)
+// strides in floats; D may be null. sub: 1 subtracts the sum, 0 adds it.
+// bn: the tile, 32, 64 or 128 (see the top of the file). kbs: block sums
+// of k a block takes; below gemm_kblocks(K) the sum is split, and part
+// (gemm_kblocks(K) * P * M * N floats) holds the block sums between the
+// two passes. Neither bn nor kbs changes a bit of the result.
+extern "C" int wide_gemm_f32(GEMM_PARAMS, int bn, int kbs, void* part,
+                             void* stream) {
+  const int nblk = gemm_kblocks(K);
+  const int kr = kbs < 1 || kbs >= nblk ? (nblk > 0 ? nblk : 1) : kbs;
+  const int nsplit = nblk > 0 ? (nblk + kr - 1) / kr : 1;
+  const int tm = (M + (bn == 128 ? 128 : 64) - 1) / (bn == 128 ? 128 : 64);
+  if (P < 1 || (long long)P * nsplit > 65535 || tm > 65535 ||
+      (nsplit > 1 && !part))
     return (int)cudaErrorInvalidValue;
-  const GemmArgs g{M, N, K, (const float*)A, a_bs, a_rs, a_cs,
-                   (const float*)B, b_bs, b_rs, b_cs, (const float*)D,
-                   d_bs, d_rs, d_cs, (float*)O, o_bs, o_rs, o_cs, sub,
-                   (const float*)E, e_bs, e_rs, e_cs, (float*)O2, o2_bs,
-                   o2_rs, o2_cs};
+  const GemmArgs g = make_args(GEMM_ARGS);
+  const bool lane_ok = P == 1 || (a_bs % 4 == 0 && b_bs % 4 == 0);
+  const int mode = gemm_mode(g.v, lane_ok);
+  float* pt = nsplit > 1 ? (float*)part : nullptr;
   const auto s = (cudaStream_t)stream;
+  int err;
   switch (bn) {
-    case 32: return launch<32>(g, P, s);
-    case 64:
-    case 128: return launch<64>(g, P, s);
+    case 32: err = launch_mode<32>(mode, g, nsplit, kr, pt, s); break;
+    case 64: err = launch_mode<64>(mode, g, nsplit, kr, pt, s); break;
+    case 128: err = launch_mode<128>(mode, g, nsplit, kr, pt, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  if (err || !pt) return err;
+  const long long all = (long long)P * M * N;
+  wide_gemm_reduce<<<(unsigned)((all + WG_THREADS - 1) / WG_THREADS),
+                     WG_THREADS, 0, s>>>(g, nblk, pt);
+  return (int)cudaGetLastError();
+}
+
+// The same function through the oracle of the order (tests only).
+extern "C" int wide_gemm_order_f32(GEMM_PARAMS, void* stream) {
+  if (P < 1) return (int)cudaErrorInvalidValue;
+  const GemmArgs g = make_args(GEMM_ARGS);
+  const long long all = (long long)P * M * N;
+  if (all == 0) return 0;
+  wide_gemm_order<<<(unsigned)((all + 127) / 128), 128, 0,
+                    (cudaStream_t)stream>>>(g);
+  return (int)cudaGetLastError();
 }

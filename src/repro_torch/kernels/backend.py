@@ -29,7 +29,7 @@ OPS = ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply",
 # counts as one launch of its op, and the kernels it launches are counted
 # in SUB_LAUNCHES, by kernel.
 LAUNCHES: Dict[str, int] = {op: 0 for op in OPS}
-SUB_KERNELS = ("panel_qr_kernel", "wide_gemm_kernel")
+SUB_KERNELS = ("panel_qr_kernel", "wide_gemm_kernel", "wide_gemm_reduce")
 SUB_LAUNCHES: Dict[str, int] = {k: 0 for k in SUB_KERNELS}
 # The engine that ran each op's most recent call ("cuda" or "plain").
 _LAST_ENGINE: Dict[str, str] = {}

@@ -16,6 +16,14 @@ computes every element with the device code of K1-K4.
 the whole window and the C' rows at ``row_start``, one launch), and
 ``panel_qr_apply_ref`` is its plain version, the unfused composition of
 the pure forms.
+
+Both take any panel width. Up to 128 columns they run the b <= 128 bodies
+of ``csrc/qr_common.cuh``; above it one cooperative launch of
+``fused_wide_kernel`` runs the blocked routes of ``kernels/wide.py``
+(K1's team on 128-column sub-panels, the products of
+``csrc/wide_common.cuh`` as grid-wide tile phases), bit-equal to the
+stepped wide route. A card that cannot hold a team of the launch raises;
+there is no fallback to stepping.
 """
 from __future__ import annotations
 
@@ -37,12 +45,6 @@ FUSED_FIELDS = (
 )
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-
-# The widest panel K5 and K6 take: their leaf and butterfly phases run the
-# b <= 128 bodies of csrc/qr_common.cuh. K1-K4 take any b (the blocked
-# routes of kernels/wide.py); lifting this limit is ROADMAP queue 2 item 1.
-FUSED_MAX_B = wide.NB
-
 
 def fused_panel_math(comm, window: torch.Tensor, k: int, *, b: int,
                      m_loc_pad: int, levels: int) -> Dict[str, object]:
@@ -132,54 +134,117 @@ def _k6():
 
 
 @functools.cache
-def _entry(name: str, nargs: int):
+def _k5_wide():
+    return build.bind("fused_sweep", "panel_qr_apply_wide_f32",
+                      [_P, _L, _L] + [_P] * 9 + [_I, _P] + [_I] * 4 + [_P])
+
+
+@functools.cache
+def _k6_wide():
+    return build.bind("fused_sweep", "fused_panel_wide_f32",
+                      [_P, _L, _L, _P, _P] + [_I] * 7 + [_P] * 16 + [_P])
+
+
+@functools.cache
+def _entry(name: str, nargs: int, restype=ctypes.c_size_t):
     f = getattr(build.load("fused_sweep"), name)
-    f.argtypes, f.restype = [_I] * nargs, ctypes.c_size_t
+    f.argtypes, f.restype = [_I] * nargs, restype
     return f
 
 
-def smem_bytes(m: int, b: int, bn: int) -> int:
+def smem_bytes(m: int, b: int, bn: int, levels: int = 1) -> int:
     """Shared memory of one block of K5/K6 at an (m x b) panel and column
-    tile bn: the largest phase's, as the kernel computes it."""
+    tile bn: the largest phase's, as the kernel computes it. Above 128
+    columns the wide kernel's (``levels`` 0 for K5: no stacks)."""
+    if b > wide.NB:
+        return _entry("fused_wide_smem_bytes", 3)(m, b, levels)
     return _entry("fused_sweep_smem_bytes", 3)(m, b, bn)
 
 
-def blocks_per_sm(m: int, b: int, bn: int) -> int:
-    """Blocks of K6 an SM holds at once at that shared memory
+def blocks_per_sm(m: int, b: int, bn: int, levels: int = 1) -> int:
+    """Blocks of K6 (above 128 columns the wide kernel, ``levels`` 0 for
+    K5) an SM holds at once at that shared memory
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     n = ctypes.c_int(0)
-    f = build.bind("fused_sweep", "fused_panel_blocks_per_sm",
-                   [_I, _I, _I, ctypes.POINTER(ctypes.c_int)])
-    build.check(f(m, b, bn, ctypes.byref(n)), "fused_panel_blocks_per_sm")
+    wide_b = b > wide.NB
+    name = "fused_wide_blocks_per_sm" if wide_b else "fused_panel_blocks_per_sm"
+    f = build.bind("fused_sweep", name, [_I, _I, _I, ctypes.POINTER(ctypes.c_int)])
+    build.check(f(m, b, levels if wide_b else bn, ctypes.byref(n)), name)
     return n.value
 
 
-def _check(op: str, m: int, w: int, b: int, bn: int) -> None:
-    if b > FUSED_MAX_B:
-        raise ValueError(f"{op}: the fused kernel takes b <= {FUSED_MAX_B}, got "
-                         f"b={b}; wider panels run stepped on K1-K4 until "
-                         "ROADMAP queue 2 item 1 (K5/K6 at b > 128) lands")
+def _max_team(m: int, b: int, levels: int) -> int:
+    """The largest team of the launch's team phases: K1's team size of each
+    128-column sub-panel of the leaf, and (K6) of the (2b x b) stacks."""
+    widths = [min(wide.NB, b - c0) for c0 in range(0, b, wide.NB)]
+    rows = (m, 2 * b) if levels and b > wide.NB else (m,)
+    return max(backend.team_blocks(r, bj) for r in rows for bj in widths)
+
+
+def _check(op: str, m: int, w: int, b: int, bn: int, levels: int,
+           x: torch.Tensor) -> None:
     if b < 1 or m < b or w < b or m * max(b, w) >= 2 ** 31:
         raise ValueError(f"{op}: needs b >= 1 and m, w >= b, got "
                          f"m={m}, w={w}, b={b}")
-    smem = smem_bytes(m, b, bn)
+    smem = smem_bytes(m, b, bn, levels)
     if smem > backend.SMEM_LIMIT:
         raise ValueError(f"{op}: m={m} needs {smem} bytes of shared memory, "
                          f"over {backend.SMEM_LIMIT}")
+    if b > wide.NB:  # every team of the launch must fit on the card at once
+        held = blocks_per_sm(m, b, bn, levels) * backend.sm_count(x.device.index or 0)
+        if held < _max_team(m, b, levels):
+            raise RuntimeError(f"{op}: the card holds {held} blocks of the wide "
+                               f"kernel at once, fewer than a team of "
+                               f"{_max_team(m, b, levels)}")
 
 
-def _leaf_scratch(P: int, m: int, b: int, x: torch.Tensor):
+def _leaf_scratch(P: int, m: int, b: int, x: torch.Tensor, levels: int = 0):
     """(team size, global slabs, exchange slots, arrival counters, blocks
     the exchange holds) of the leaf phase: room for a block on every SM,
-    the most a cooperative grid of these kernels holds."""
-    C = backend.team_blocks(m, b)
+    the most a cooperative grid of these kernels holds. Above 128 columns
+    (no one team size: None) the slabs of the largest team phase and a row
+    of counters a team phase (``levels`` 0 for K5)."""
     blocks = backend.sm_count(x.device.index or 0)
-    work = torch.empty(P * _entry("fused_sweep_work_floats", 3)(m, b, C),
-                       device=x.device, dtype=torch.float32)
-    xch = torch.empty(_entry("fused_sweep_xch_floats", 3)(b, C, blocks),
-                      device=x.device, dtype=torch.float32)
-    arrivals = torch.empty(blocks, device=x.device, dtype=torch.int32)
+    if b > wide.NB:
+        C = None
+        work_floats = _entry("fused_wide_work_floats", 3)(m, b, levels)
+        xch_floats = _entry("fused_sweep_xch_floats", 3)(wide.NB, 1, blocks)
+        counters = blocks * _entry("fused_wide_team_phases", 2, ctypes.c_int)(b, levels)
+    else:
+        C = backend.team_blocks(m, b)
+        work_floats = _entry("fused_sweep_work_floats", 3)(m, b, C)
+        xch_floats = _entry("fused_sweep_xch_floats", 3)(b, C, blocks)
+        counters = blocks
+    work = torch.empty(P * work_floats, device=x.device, dtype=torch.float32)
+    xch = torch.empty(xch_floats, device=x.device, dtype=torch.float32)
+    arrivals = torch.empty(counters, device=x.device, dtype=torch.int32)
     return C, work, xch, arrivals, blocks
+
+
+def _wide_scratch(P: int, m: int, w: int, b: int, levels: int,
+                  x: torch.Tensor) -> torch.Tensor:
+    """The wide kernel's global scratch (the sub-panels' factors, the
+    columns in flight, the products' Z and W, K6's stacks)."""
+    n = _entry("fused_wide_scratch_floats", 5)(P, m, w, b, levels)
+    return torch.empty(n, device=x.device, dtype=torch.float32)
+
+
+@functools.cache
+def _gemm_in_block():
+    return build.bind("fused_sweep", "fused_gemm_f32",
+                      [_P, _L, _L, _L] * 6 + [_I] * 5 + [_P])
+
+
+def gemm_in_block(A, B, D=None, *, sub=False, out=None, minuend=None):
+    """``wide.gemm`` through K5/K6's in-block instantiation of the tile
+    routine (two 64 x 64 tiles a 512-thread block, as the wide phases run
+    their products). For the tests, which hold it to ``wide.gemm_order``
+    bit for bit; no path calls it."""
+    args, (P, M, N, K), out, diff = wide._operands(A, B, D, out, minuend)
+    if M and N:
+        build.check(_gemm_in_block()(*args, P, M, N, K, int(sub),
+                                     backend.stream_ptr(A)), "fused_gemm")
+    return out if diff is None else (out, diff)
 
 
 def panel_qr_apply(W: torch.Tensor, row_start, b: int):
@@ -190,7 +255,7 @@ def panel_qr_apply(W: torch.Tensor, row_start, b: int):
     W3 = backend.lanes(W, "panel_qr_apply")
     P, m, w = W3.shape
     bn = backend.launch_bn(P, w, W3, None)
-    _check("panel_qr_apply", m, w, b, bn)
+    _check("panel_qr_apply", m, w, b, bn, 0, W3)
     dev = W3.device
     rs = backend.to_device(row_start, dev).to(torch.int32)
     rs = rs.reshape(-1).expand(P).contiguous()
@@ -200,11 +265,19 @@ def panel_qr_apply(W: torch.Tensor, row_start, b: int):
     C = torch.empty(P, m, w, device=dev, dtype=W3.dtype)
     Cp = torch.empty(P, b, w, device=dev, dtype=W3.dtype)
     team, work, xch, arrivals, blocks = _leaf_scratch(P, m, b, W3)
-    err = _k5()(W3.data_ptr(), W3.stride(0), W3.stride(1), rs.data_ptr(),
-                Y.data_ptr(), T.data_ptr(), R.data_ptr(), C.data_ptr(),
-                Cp.data_ptr(), work.data_ptr(), xch.data_ptr(),
-                arrivals.data_ptr(), blocks, P, m, w, b, bn, team,
-                backend.stream_ptr(W3))
+    if b > wide.NB:
+        scratch = _wide_scratch(P, m, w, b, 0, W3)
+        err = _k5_wide()(W3.data_ptr(), W3.stride(0), W3.stride(1),
+                         rs.data_ptr(), Y.data_ptr(), T.data_ptr(), R.data_ptr(),
+                         C.data_ptr(), Cp.data_ptr(), work.data_ptr(),
+                         xch.data_ptr(), arrivals.data_ptr(), blocks,
+                         scratch.data_ptr(), P, m, w, b, backend.stream_ptr(W3))
+    else:
+        err = _k5()(W3.data_ptr(), W3.stride(0), W3.stride(1), rs.data_ptr(),
+                    Y.data_ptr(), T.data_ptr(), R.data_ptr(), C.data_ptr(),
+                    Cp.data_ptr(), work.data_ptr(), xch.data_ptr(),
+                    arrivals.data_ptr(), blocks, P, m, w, b, bn, team,
+                    backend.stream_ptr(W3))
     build.check(err, "panel_qr_apply")
     backend.count_launch("panel_qr_apply")
     out = (Y, T, R, C, Cp)
@@ -230,7 +303,7 @@ def fused_panel(window: torch.Tensor, k: int, *, b: int, m_loc_pad: int,
                          f"m_loc_pad rows, got P={P}, levels={L}, m={m}, "
                          f"m_loc_pad={m_loc_pad}")
     bn = backend.launch_bn(P, w, W3, None)
-    _check("fused_panel", m, w, b, bn)
+    _check("fused_panel", m, w, b, bn, L, W3)
     dev, dt = W3.device, W3.dtype
     t_lane = (k * b) // m_loc_pad
     _c0, _t, row_start, active = panel_geometry(SimComm(P), k, b, m_loc_pad)
@@ -248,12 +321,22 @@ def fused_panel(window: torch.Tensor, k: int, *, b: int, m_loc_pad: int,
         "Ws": empty(L, P, b, w), "Cs_self": empty(L, P, b, w),
         "Cs_buddy": empty(L, P, b, w),
     }
-    team, work, xch, arrivals, blocks = _leaf_scratch(P, m, b, W3)
-    scratch = (work, xch, arrivals, empty(max(L - 1, 1), P, b, b), empty(b, w))
-    err = _k6()(W3.data_ptr(), W3.stride(0), W3.stride(1), rs.data_ptr(),
-                act.data_ptr(), P, m, w, b, L, t_lane, bn, team, blocks,
-                *(out[f].data_ptr() for f in FUSED_FIELDS),
-                *(s.data_ptr() for s in scratch), backend.stream_ptr(W3))
+    team, work, xch, arrivals, blocks = _leaf_scratch(P, m, b, W3, L)
+    if b > wide.NB:
+        scratch = (work, xch, arrivals, empty(max(L - 1, 1), P, b, b),
+                   _wide_scratch(P, m, w, b, L, W3))
+        err = _k6_wide()(W3.data_ptr(), W3.stride(0), W3.stride(1),
+                         rs.data_ptr(), act.data_ptr(), P, m, w, b, L, t_lane,
+                         blocks, *(out[f].data_ptr() for f in FUSED_FIELDS),
+                         *(s.data_ptr() for s in scratch),
+                         backend.stream_ptr(W3))
+    else:
+        scratch = (work, xch, arrivals, empty(max(L - 1, 1), P, b, b),
+                   empty(b, w))
+        err = _k6()(W3.data_ptr(), W3.stride(0), W3.stride(1), rs.data_ptr(),
+                    act.data_ptr(), P, m, w, b, L, t_lane, bn, team, blocks,
+                    *(out[f].data_ptr() for f in FUSED_FIELDS),
+                    *(s.data_ptr() for s in scratch), backend.stream_ptr(W3))
     build.check(err, "fused_panel")
     backend.count_launch("fused_panel")
     out["tops"] = _tops(P, t_lane, L)

@@ -91,7 +91,8 @@ def stacked_apply(Y2: torch.Tensor, T: torch.Tensor, C_top: torch.Tensor,
     the plain version does); C_top, C_bot (P, b, n); or the same without
     the lane axis. ``bn`` is
     the kernel's column tile (32, 64 or 128; by default
-    ``backend.tile_bn``); it does not change the result's bits."""
+    ``backend.tile_bn``, above MAX_B the tile of ``wide.gemm_plan``); it
+    does not change the result's bits."""
     squeeze = C_top.dim() == 2
     Y3 = backend.contiguous_lanes(Y2, "stacked_apply")
     T3 = backend.contiguous_lanes(T, "stacked_apply")
@@ -102,11 +103,11 @@ def stacked_apply(Y2: torch.Tensor, T: torch.Tensor, C_top: torch.Tensor,
         raise ValueError("stacked_apply: shapes do not conform: "
                          f"{[tuple(x.shape) for x in (Y2, T, C_top, C_bot)]}")
     _b(b, "stacked_apply")
-    bn = backend.launch_bn(P, n, Ct, bn)
     if b > MAX_B:
         ot, ob, W = wide.stacked_apply_wide(Y3, T3, Ct, Cb, gemm=wide.gemm,
                                             bn=bn)
     else:
+        bn = backend.launch_bn(P, n, Ct, bn)
         ot, ob, W = (torch.empty_like(Ct) for _ in range(3))
         if n:
             err = _apply_kernel()(Y3.data_ptr(), T3.data_ptr(), Ct.data_ptr(),

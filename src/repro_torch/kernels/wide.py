@@ -33,7 +33,9 @@ so the CPU tests run the composition with the plain bodies (``PLAIN``)
 against the unblocked plain versions. On the card the wrappers in
 ``panel_qr.py``, ``wy_apply.py`` and ``stacked_qr.py`` pass the CUDA
 bodies. Every sub-kernel's sums run in a fixed order that depends on the
-shape alone (each sub-panel's team is ``backend.team_blocks(m, 128)``), so
+shape alone (each sub-panel's team is ``backend.team_blocks(m, b_j)``; the
+products' order is the contract of ``csrc/wide_common.cuh``, which
+``gemm_order`` runs as loops), so
 a lane's bits are the same in any launch, and a wide call counts as one
 launch of its op in ``backend.LAUNCHES``; its kernels' launches are in
 ``backend.SUB_LAUNCHES``.
@@ -53,14 +55,29 @@ from repro_torch.kernels import backend, build, ref
 NB = 128
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_GEMM = [_P, _L, _L, _L] * 6 + [_I] * 5
+
+# The tiles of csrc/wide.cu: bn -> (rows, columns) of a block's outputs.
+TILES = {128: (128, 128), 64: (64, 64), 32: (64, 32)}
+# Terms of one block sum (csrc/wide_common.cuh): a split of k falls on
+# these boundaries.
+BLOCK_K = 256
+# Blocks that fill the card once, the target of the shape rule: a constant
+# of the design (the H100's 132 SMs), never read from the card, so a shape
+# gets one plan everywhere.
+WAVE = 132
+# Block sums a sum needs before a split can pay for its second launch.
+SPLIT_MIN = 8
 
 
 @functools.cache
 def _kernel():
-    return build.bind("wide", "wide_gemm_f32",
-                      [_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L,
-                       _P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L,
-                       _I, _I, _I, _I, _I, _I, _P])
+    return build.bind("wide", "wide_gemm_f32", _GEMM + [_I, _I, _P, _P])
+
+
+@functools.cache
+def _order_kernel():
+    return build.bind("wide", "wide_gemm_order_f32", _GEMM + [_P])
 
 
 def _as3(x: torch.Tensor, what: str) -> torch.Tensor:
@@ -75,17 +92,33 @@ def _ptr(x: Optional[torch.Tensor]):
     return (None, 0, 0, 0) if x is None else (x.data_ptr(), *x.stride())
 
 
-def gemm(A: torch.Tensor, B: torch.Tensor, D: Optional[torch.Tensor] = None,
-         *, sub: bool = False, out: Optional[torch.Tensor] = None,
-         bn: Optional[int] = None, minuend: Optional[torch.Tensor] = None):
-    """``D -/+ A B`` per lane on the card (``csrc/wide.cu``): A (P, M, K),
-    B (P, K, N), D (P, M, N) or None (then ``-/+ A B``), or the same
-    without the lane axis; any strides, so ``Y.mT`` or a column block is
-    passed without a copy. Writes into ``out`` (a view, any strides) when
-    given, else into a new contiguous tensor. ``bn`` is the column tile
-    (``backend.TILE_BNS``); it does not change a bit. With ``minuend`` E
-    (shaped as D) it returns ``(out, E - A B)``, the second from the same
-    sum by a second store of the kernel's epilogue."""
+def kblocks(K: int) -> int:
+    """Block sums of a K-term sum."""
+    return -(-K // BLOCK_K)
+
+
+def gemm_plan(P: int, M: int, N: int, K: int):
+    """(bn, kbs) of a product over P lanes of (M x K) (K x N), from the
+    shape alone: the 128 x 128 tile when the lanes' tiles fill the card
+    once, else 64 x 64; and, when a lane has few 64 x 64 tiles and the sum
+    at least ``SPLIT_MIN`` block sums, k split into ranges of ``kbs``
+    block sums so that about a wave of blocks runs (``kbs`` = kblocks(K):
+    no split). Neither changes a bit of the result. The split does not
+    look at P."""
+    def tiles(bn):
+        bm, bc = TILES[bn]
+        return -(-M // bm) * -(-N // bc)
+
+    bn = 128 if P * tiles(128) >= WAVE else 64
+    nblk, t = kblocks(K), tiles(64)
+    parts = (min(nblk, -(-WAVE // t))
+             if 0 < t and 2 * t <= WAVE and nblk >= SPLIT_MIN else 1)
+    return bn, -(-nblk // max(parts, 1)) if nblk else 1
+
+
+def _operands(A, B, D, out, minuend):
+    """The lane-axis views of gemm's operands, checked, and the second
+    output (for ``minuend``)."""
     A3, B3 = _as3(A, "A"), _as3(B, "B")
     P, M, K = A3.shape
     N = B3.shape[-1]
@@ -103,13 +136,54 @@ def gemm(A: torch.Tensor, B: torch.Tensor, D: Optional[torch.Tensor] = None,
         if x is not None and x.shape != (P, M, N):
             raise ValueError(f"wide_gemm: an output-shaped operand is "
                              f"{tuple(x.shape)}, not {(P, M, N)}")
-    bn = backend.launch_bn(P, N, A3, bn)
+    args = (*_ptr(A3), *_ptr(B3), *_ptr(D3), *_ptr(O3), *_ptr(E3), *_ptr(O23))
+    return args, (P, M, N, K), out, diff
+
+
+def gemm(A: torch.Tensor, B: torch.Tensor, D: Optional[torch.Tensor] = None,
+         *, sub: bool = False, out: Optional[torch.Tensor] = None,
+         bn: Optional[int] = None, minuend: Optional[torch.Tensor] = None,
+         kbs: Optional[int] = None):
+    """``D -/+ A B`` per lane on the card (``csrc/wide.cu``): A (P, M, K),
+    B (P, K, N), D (P, M, N) or None (then ``-/+ A B``), or the same
+    without the lane axis; any strides, so ``Y.mT`` or a column block is
+    passed without a copy. Writes into ``out`` (a view, any strides) when
+    given, else into a new contiguous tensor. ``bn`` (a key of ``TILES``)
+    and ``kbs`` (block sums a k range; below ``kblocks(K)`` the sum is
+    split, with its block sums in scratch) default to ``gemm_plan``; they
+    do not change a bit. With ``minuend`` E (shaped as D) it returns
+    ``(out, E - A B)``, the second from the same sum by a second store of
+    the kernel's epilogue."""
+    args, (P, M, N, K), out, diff = _operands(A, B, D, out, minuend)
+    plan_bn, plan_kbs = gemm_plan(P, M, N, K)
+    bn = plan_bn if bn is None else bn
+    kbs = plan_kbs if kbs is None else kbs
+    if bn not in TILES or kbs < 1:
+        raise ValueError(f"wide_gemm: tile {bn} is not one of {tuple(TILES)}, "
+                         f"or k range {kbs} < 1")
     if M and N:
-        err = _kernel()(*_ptr(A3), *_ptr(B3), *_ptr(D3), *_ptr(O3), *_ptr(E3),
-                        *_ptr(O23), P, M, N, K, int(sub), bn,
-                        backend.stream_ptr(A3))
+        split = kbs < kblocks(K)
+        part = (torch.empty(kblocks(K) * P * M * N, device=A.device,
+                            dtype=torch.float32) if split else None)
+        err = _kernel()(*args, P, M, N, K, int(sub), bn, kbs,
+                        None if part is None else part.data_ptr(),
+                        backend.stream_ptr(A))
         build.check(err, "wide_gemm")
         backend.count_sub("wide_gemm_kernel")
+        if split:
+            backend.count_sub("wide_gemm_reduce")
+    return out if diff is None else (out, diff)
+
+
+def gemm_order(A, B, D=None, *, sub=False, out=None, minuend=None):
+    """``gemm`` through the oracle of its summation order
+    (``wide_gemm_order_f32``: one thread an element, the order as loops).
+    For the tests, which hold every instantiation of the tile routine to it
+    bit for bit; no path calls it."""
+    args, (P, M, N, K), out, diff = _operands(A, B, D, out, minuend)
+    if M and N:
+        build.check(_order_kernel()(*args, P, M, N, K, int(sub),
+                                    backend.stream_ptr(A)), "wide_gemm_order")
     return out if diff is None else (out, diff)
 
 

@@ -37,7 +37,8 @@ def wy_apply(Y: torch.Tensor, T: torch.Tensor, C: torch.Tensor,
     (all of it is read). C may be a strided view (unit column stride),
     such as the sweep's live window; the result is contiguous. ``bn`` is
     the kernel's column tile (32, 64 or 128; by default
-    ``backend.tile_bn``); it does not change the result's bits."""
+    ``backend.tile_bn``, above MAX_B the tile of ``wide.gemm_plan``); it
+    does not change the result's bits."""
     squeeze = C.dim() == 2
     Y3 = backend.contiguous_lanes(Y, "wy_apply")
     T3 = backend.contiguous_lanes(T, "wy_apply")
@@ -49,10 +50,10 @@ def wy_apply(Y: torch.Tensor, T: torch.Tensor, C: torch.Tensor,
                          f"{tuple(T.shape)}, C {tuple(C.shape)} do not conform")
     if b < 1:
         raise ValueError(f"wy_apply: needs b >= 1, got {b}")
-    bn = backend.launch_bn(P, n, C3, bn)
     if b > MAX_B:
         out = wide.wy_apply_wide(Y3, T3, C3, gemm=wide.gemm, bn=bn)
     else:
+        bn = backend.launch_bn(P, n, C3, bn)
         out = torch.empty(P, m, n, device=C3.device, dtype=C3.dtype)
         if m and n:
             err = _kernel()(Y3.data_ptr(), T3.data_ptr(), C3.data_ptr(),

@@ -3,6 +3,9 @@ the card, and the port's bitwise contracts there (fused == stepped, kill
 == failure-free, online == scheduled, async == sync, MDS decode ==
 failure-free, SHRINK scheduled == online) and the QR service's (kill ==
 failure-free, drain_batched == continuous, every R == its solo sweep).
+Above 128 columns: every instantiation of the products' tile routine ==
+the oracle of its summation order (``wide.gemm_order``), and K5/K6's wide
+kernel == the stepped wide route.
 Needs an NVIDIA GPU with nvcc; every test skips without one.
 
 Imports neither JAX nor the JAX package, so it also runs on a machine
@@ -39,6 +42,7 @@ from repro_torch.kernels import fused_sweep as tfused  # noqa: E402
 from repro_torch.kernels import panel_qr as tpanel  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import stacked_qr as tstacked  # noqa: E402
+from repro_torch.kernels import wide as twide  # noqa: E402
 from repro_torch.kernels import wy_apply as twy  # noqa: E402
 from repro_torch.serve import QRService  # noqa: E402
 
@@ -803,18 +807,149 @@ def test_cuda_wide_stacked_qr_pair_bits(rng, cuda, case):
 
 
 @pytest.mark.cuda
-def test_cuda_fused_kernels_refuse_wide_panels(rng, cuda):
-    """K5 and K6 keep their limit of 128 columns: at b = 256 they raise
-    ValueError naming the ROADMAP entry, with no plain fallback."""
+def test_cuda_fused_kernels_launch_wide_panels(rng, cuda):
+    """K5 and K6 at b = 256 run as one launch each (LAUNCHES counted, no
+    kernel of the stepped routes launched) and equal the stepped wide
+    route bit for bit: K5 equals K1 then K2, K6 the panel's sweep steps."""
     P, m, b = 2, 512, 256
     W = t(rng.standard_normal((P, m, 2 * b)).astype(np.float32)).to(cuda)
     backend.reset_launches()
-    with pytest.raises(ValueError, match="queue 2 item 1"):
-        ops.panel_qr_apply(W, 0, b)
-    with pytest.raises(ValueError, match="queue 2 item 1"):
-        ops.fused_panel(W, 0, b=b, m_loc_pad=m, levels=1)
-    assert tfused.FUSED_MAX_B == 128
-    assert backend.LAUNCHES["panel_qr_apply"] == backend.LAUNCHES["fused_panel"] == 0
+    k5 = ops.panel_qr_apply(W, 0, b)
+    k6 = ops.fused_panel(W, 0, b=b, m_loc_pad=m, levels=1)
+    assert backend.LAUNCHES["panel_qr_apply"] == backend.LAUNCHES["fused_panel"] == 1
+    assert all(backend.LAUNCHES[op] == 0 for op in
+               ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply"))
+    assert all(n == 0 for n in backend.SUB_LAUNCHES.values())
+    assert backend.probe_report()["fused_panel"]["engine"] == "cuda"
+    Y, T, R = ops.panel_qr(W[..., :b], 0)
+    C = ops.wy_apply(Y, T, W)
+    for g, want in zip(k5, (Y, T, R, C, C[:, :b])):
+        assert torch.equal(g, want)
+    assert torch.equal(k6["leaf_Y"], Y) and torch.equal(k6["C_local"], C)
+
+
+# -- wide_gemm's summation order, and K5/K6 above 128 ------------------------
+
+
+def _gemm_case(g, P, M, N, K, how, cuda):
+    """Operands of one product: A (P, M, K) and B (P, K, N), each stored
+    as given or transposed (a .mT view of its transpose), D, and E."""
+    def mat(r, c, transposed):
+        x = torch.randn(P, c, r, generator=g) if transposed else torch.randn(P, r, c, generator=g)
+        x = x.to(cuda)
+        return x.mT if transposed else x
+    A = mat(M, K, "At" in how)
+    B = mat(K, N, "Bt" in how)
+    D = None if "noD" in how else torch.randn(P, M, N, generator=g).to(cuda)
+    E = torch.randn(P, M, N, generator=g).to(cuda) if "E" in how else None
+    return A, B, D, E
+
+
+GEMM_CASES = [  # (P, M, N, K, how)
+    (8, 256, 300, 5632, "At"), (1, 130, 70, 5000, "At sub"), (2, 97, 65, 17, "sub E"),
+    (8, 64, 40, 1, "noD"), (1, 200, 129, 300, "Bt noD sub"),
+    (2, 70, 50, 600, "At Bt E"), (1, 1000, 257, 256, "sub"), (3, 33, 260, 513, "noD E"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GEMM_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cuda_wide_gemm_equals_its_order_oracle(cuda, case):
+    """wide_gemm at every tile (bn 32/64/128) and split of k (none, the
+    plan's, one and two block sums a range) and K5/K6's in-block
+    instantiation equal wide_gemm_order_f32 (one thread an element, the
+    order as loops) bit for bit: ragged M/N/K, transposed views, sub,
+    D = None, the second store, P = 1 and 8; and within tolerance of the
+    plain product."""
+    P, M, N, K, how = case
+    g = torch.Generator().manual_seed(sum(case[:4]))
+    A, B, D, E = _gemm_case(g, P, M, N, K, how, cuda)
+    sub = "sub" in how
+    want = as_tuple(twide.gemm_order(A, B, D, sub=sub, minuend=E))
+    close(want, as_tuple(twide.gemm_plain(A, B, D, sub=sub, minuend=E)))
+    nblk = twide.kblocks(K)
+    for bn in twide.TILES:
+        for kbs in sorted({None, nblk, 1, 2}, key=str):
+            got = as_tuple(twide.gemm(A, B, D, sub=sub, minuend=E, bn=bn, kbs=kbs))
+            assert all(torch.equal(x, y) for x, y in zip(got, want)), (bn, kbs)
+    got = as_tuple(tfused.gemm_in_block(A, B, D, sub=sub, minuend=E))
+    assert all(torch.equal(x, y) for x, y in zip(got, want)), "in-block"
+
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,w,b,row_start", [(1024, 600, 256, 0),
+                                             (1000, 450, 200, 37),
+                                             (1000, 450, 200, 800)])
+def test_cuda_wide_k5_equals_stepped(rng, cuda, m, w, b, row_start):
+    """K5 above 128 columns equals the stepped wide route (K1 then K2) bit
+    for bit, a lane of an eight-lane launch equals its one-lane launch, and
+    the plain version holds it within tolerance."""
+    W = t(rng.standard_normal((8, m, w + 3)).astype(np.float32)).to(cuda)[..., 3:]
+    rs = torch.tensor([row_start, 0, m - b] + [row_start] * 5, dtype=torch.int32)
+    got = ops.panel_qr_apply(W, rs, b)
+    close(got, tref.panel_qr_apply(W, rs, b))
+    Y, T, R = ops.panel_qr(W[..., :b], rs)
+    C = ops.wy_apply(Y, T, W)
+    r0 = rs.long().clamp(0, m - b)
+    Cp = torch.stack([C[p, r0[p]:r0[p] + b] for p in range(8)])
+    for g, want in zip(got, (Y, T, R, C, Cp)):
+        assert torch.equal(g, want)
+    assert all(torch.equal(a[3], o) for a, o in
+               zip(got, ops.panel_qr_apply(W[3], row_start, b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,m_loc,n", [(2, 512, 1024), (4, 256, 1024), (8, 512, 1024)])
+def test_cuda_wide_fused_equals_stepped_bitwise(rng, cuda, P, m_loc, n):
+    """run_panel_fused (one wide K6 launch a panel) == the panel's sweep
+    steps (K1-K4's wide routes) at b = 256, bit for bit at every panel
+    boundary, through consumed lanes and dead groups (the root walks the
+    lanes), and each panel's K6 within tolerance of its plain version."""
+    b = 256
+    comm = SimComm(P)
+    A = t(rng.standard_normal((P, m_loc, n)).astype(np.float32)).to(cuda)
+    s_f = s_s = tstate.initial_sweep_state(comm, A, b)
+    pts = tstate.panel_points(s_s.geom)
+    backend.reset_launches()
+    while s_f.cursor is not None:
+        k = s_f.cursor[0]
+        s_f = tstate.run_panel_fused(comm, s_f)
+        s_s = tstate.run_steps(comm, s_s, pts)
+        _assert_states_equal(s_f, s_s, s_s.cursor)
+        win = s_f.window
+        want = tref.fused_panel(win, k, b=b, m_loc_pad=s_f.geom.m_loc_pad,
+                                levels=s_f.levels)
+        close(tuple(getattr(s_f, f) for f in ("leaf_Y", "leaf_T", "C_local",
+                                              "C_prime")),
+              tuple(want[f] for f in ("leaf_Y", "leaf_T", "C_local", "C_prime")))
+    assert backend.LAUNCHES["fused_panel"] == s_s.geom.n_panels
+    for g, w in zip(tstate.finalize(comm, s_f), tstate.finalize(comm, s_s)):
+        got = [g] if isinstance(g, torch.Tensor) else list(g)
+        want = [w] if isinstance(w, torch.Tensor) else list(w)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_wide_online_fused_with_kills_equals_stepped(rng, cuda):
+    """The online sweep at b = 256 with fused segments and panel-end kills
+    equals the stepped online sweep and the failure-free sweep bit for
+    bit (P = 8, 4 panels)."""
+    P, m_loc, n, b = 8, 512, 1024, 256
+    A = t(rng.standard_normal((P, m_loc, n)).astype(np.float32)).to(cuda)
+    L = 3
+    kills = {sweep_point(0, "trailing", L - 1): [5],
+             sweep_point(2, "trailing", L - 1): [3]}
+    free = caqr_factorize(A, SimComm(P), b, collect_bundles=True, use_scan=False)
+    fused = ft_caqr_sweep_online(A, SimComm(P), b, fused=True,
+                                 fault_hooks=[ScriptedKiller(kills)])
+    stepped = ft_caqr_sweep_online(A, SimComm(P), b,
+                                   fault_hooks=[ScriptedKiller(kills)])
+    assert _bitwise(fused, stepped) and _bitwise(fused, free)
+    assert [e.lane for e in fused.events] == [5, 3]
 
 
 @pytest.mark.cuda

@@ -4,7 +4,8 @@ the fused leaf ``householder.panel_qr_apply`` (K5's).
 
 Inside the port the fusion contract is bitwise: a fused panel boundary
 state equals ``panel_points`` sweep_steps, at every boundary, on the
-aligned, ragged and wide b = 4 geometries. Against the JAX package's
+aligned, ragged and wide b = 4 geometries and at b = 160 (above the
+128 columns of the card's team body). Against the JAX package's
 ``fused_panel_math`` and ``panel_qr_apply_ref`` the comparison is within
 the f32 tolerance of ``repro.kernels.ref.tolerances``; ``tops`` exactly.
 """
@@ -17,18 +18,38 @@ import repro.core.householder as jhh
 from repro.core import SimComm as JSimComm
 from repro.kernels import fused_sweep as jfused
 from repro.kernels.ref import tolerances
-from repro_torch.core import SimComm, householder, pad_to_geometry, sweep_geometry
+from repro_torch.core import (
+    SimComm,
+    caqr_factorize,
+    householder,
+    pad_to_geometry,
+    sweep_geometry,
+)
+from repro_torch.ft import ScriptedKiller, ft_caqr_sweep_online, sweep_point
 from repro_torch.ft.failures import PHASE_LEAF
 from repro_torch.ft.online import state as tstate
-from repro_torch.kernels import backend, ops
+from repro_torch.kernels import backend, ops, ref
 from repro_torch.kernels import fused_sweep as tfused
 
 RTOL, ATOL = tolerances(np.float32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread in this module: under xdist six workers' thread
+    teams would spin against each other (``tests/test_torch_moe.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 GEOMS = [
     ("aligned", 4, 8, 16, 4),
     ("ragged", 4, 6, 10, 4),
     ("wide", 4, 4, 40, 4),
+    # above 128 columns (K5/K6's blocked phases on the card): m_loc_pad 320,
+    # a ragged last panel of 80 columns whose root is lane 1
+    ("b160", 2, 320, 400, 160),
 ]
 
 
@@ -143,6 +164,48 @@ def test_panel_qr_apply_matches_reference(rng, m, w, b, row_start):
     for lane in range(3):
         alone = ops.panel_qr_apply(Wb[lane], row_start, b)
         assert all(torch.equal(x[lane], y) for x, y in zip(batched, alone))
+
+
+@pytest.mark.parametrize("row_start", [37, 170, 200])
+def test_panel_qr_apply_wide_matches_reference(rng, row_start):
+    """The fused leaf's plain version above 128 columns (b = 160 on a
+    330 x 400 window) against the JAX package's panel_qr_apply_math; a
+    row start of m - b and one past it clamp the C' rows alike."""
+    m, w, b = 330, 400, 160
+    W = rng.standard_normal((m, w)).astype(np.float32)
+    got = ref.panel_qr_apply(torch.from_numpy(W), row_start, b)
+    want = jfused.panel_qr_apply_math(jnp.asarray(W), jnp.asarray(row_start), b=b)
+    for name, g, w_ in zip("Y T R C C'".split(), got, want):
+        assert tuple(g.shape) == tuple(w_.shape), name
+        _close(g, w_, f"b=160 row_start={row_start}: {name}")
+
+
+def test_online_fused_equals_stepped_at_b160():
+    """The orchestrator at panel width 160 with fused segments (one K6 a
+    panel) against the stepped one, with a panel-end kill of lane 1 in
+    panel 0: R, factors, bundles and the ledger bit for bit; the killed
+    run within tolerance of the failure-free sweep (bit for bit on the
+    card; torch's CPU products change their last bits with the batch, and
+    the REBUILD replays one lane alone), the failure-free fused run bit for
+    bit."""
+    _, P, m_loc, n, b = GEOMS[-1]
+    A = torch.from_numpy(_matrix(P, m_loc, n, seed=5))
+    kills = {sweep_point(0, "trailing", 0): [1]}
+    runs = [ft_caqr_sweep_online(A, SimComm(P), b, fused=fused,
+                                 fault_hooks=[ScriptedKiller(kills)])
+            for fused in (True, False)]
+    clean = caqr_factorize(A, SimComm(P), b, collect_bundles=True,
+                           use_scan=False)
+    flat = [(r.R, *r.factors, *r.bundles) for r in (*runs, clean)]
+    assert len(flat[0]) == len(flat[1]) == len(flat[2])
+    assert all(torch.equal(x, y) for x, y in zip(flat[0], flat[1]))
+    for x, y in zip(flat[0], flat[2]):
+        _close(x, y, "killed against failure-free")
+    ledgers = [[(tuple(e.point), e.lane) for e in r.events] for r in runs]
+    assert ledgers[0] == ledgers[1] == [((0, "trailing", 0), 1)]
+    free = ft_caqr_sweep_online(A, SimComm(P), b, fused=True)
+    assert all(torch.equal(x, y) for x, y in
+               zip((free.R, *free.factors, *free.bundles), flat[2]))
 
 
 @pytest.mark.parametrize("P", [2, 4, 8, 16])
