@@ -134,11 +134,18 @@ non-zero and prints no result):
    boundaries, poll and heal seconds, peak memory, the share of token
    assignments dropped at capacity, and the column norms of the router
    sweep's Q.
-15. wide: K1-K4 above 128 columns, through the blocked routes of
-   ``repro_torch.kernels.wide`` (K1's team on sub-panels of 128 columns,
-   the products of ``csrc/wide.cu`` between them and in the T join).
-   Against their plain versions, timed (events, device time, bound, plain,
-   ``torch.geqrf`` or the ``torch.matmul`` chain): K1 on (8, 4096, 256) at
+15. wide: K1-K4 above 128 columns: K1 (and K3, K1's route on the stacked
+   triangles) in one cooperative launch (``csrc/panel_qr_wide.cu``: K1's
+   team on sub-panels of 128 columns, on clusters or, for 8 lanes of 4096
+   rows, a plain grid; the products between them and in the T join as
+   tile phases), K2 and K4
+   through the products of ``csrc/wide.cu``. Against their plain versions,
+   timed (events, device time, bound, plain, ``torch.geqrf`` or the
+   ``torch.matmul`` chain), and K1's and K3's one launch bit-equal to the
+   composed route (the same blocked route as separate launches of K1's
+   team kernel and ``wide_gemm``, ``panel_qr.panel_qr_composed``) and timed
+   beside it (events and device time), with the launch's cluster size and
+   grid: K1 on (8, 4096, 256) at
    row start 0 and at the last b = 256 panel's, at the plain CAQR-Muon
    path's shapes (2048, 2048), (5632, 2048), (512, 256) and (768, 256), and
    on a ragged (1000, 200) at row start 37; K2 on Y (8, 4096, 256) and C
@@ -172,8 +179,8 @@ non-zero and prints no result):
    the tolerance on the leading columns whose condition number is at most
    1 / DEPENDENT_PIVOT) and against the float64 plain version (no worse
    than four times the f32 plain version, on the columns ``leading_rank``
-   keeps), K1 launched; step seconds, each ``_orth2d`` shape's share of the
-   step, peak memory.
+   keeps), K1 launched and no sub-kernel (K1's team kernel, ``wide_gemm``);
+   step seconds, each ``_orth2d`` shape's share of the step, peak memory.
 16. spread: each full-width sweep (``caqr_factorize``, the state machine
    stepped and fused, the four-kill FT sweep, the online sweeps stepped,
    fused and double-buffered) run five times: median and min-max seconds.
@@ -181,8 +188,9 @@ non-zero and prints no result):
 The kernels line gives each kernel's launches on every path above, each
 counted from 0 just before the path ran; its ``wide_gemm`` record counts
 the products' kernel's launches inside the wide calls
-(``backend.SUB_LAUNCHES``). The line before it holds the wide phase's
-records of K1-K4.
+(``backend.SUB_LAUNCHES``: K2's and K4's wide routes; K1 and K3 launch no
+sub-kernel, and the muon path none at all). The line before it holds the
+wide phase's records of K1-K4.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Needs CUDA; imports neither JAX nor the JAX package.
@@ -1953,8 +1961,12 @@ def wide_record(op: str, args: tuple, cost: tuple, lib, reps: int) -> dict:
     (every kernel of the blocked route, glue included), bound, plain time
     (one call) and the library call's time."""
     run = lambda: getattr(ops, op)(*args)  # noqa: E731
+    composed = COMPOSED.get(op)
     with OrderOracle() as oracle:
         got = as_tuple(run())
+        one = composed is not None and same_bits(got, composed(*args))
+    check(composed is None or one,
+          f"wide {op}: the one launch differs from the composed route")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = as_tuple(getattr(ref, op)(*args))
@@ -1968,16 +1980,29 @@ def wide_record(op: str, args: tuple, cost: tuple, lib, reps: int) -> dict:
     bms, by = bound_ms(*cost)
     rs = args[1] if op == "panel_qr" else None
     source, replaces = KERNELS[op]
-    return dict(name=op, route="cuda", source=source,
-                blocked_route="src/repro_torch/kernels/wide.py",
-                replaces=replaces, shapes=shapes,
-                row_start=rs.tolist() if torch.is_tensor(rs) else rs,
-                products_held_to_oracle=oracle.summary(),
-                max_abs_err=err, scaled_err=scaled, tolerance=tol,
-                ms=time_ms(run, reps), device_ms=device_ms(run, reps),
-                bound_ms=bms, bound_by=by, plain_ms=plain_ms,
-                library_ms=time_ms(lib, reps),
-                library_device_ms=device_ms(lib, reps))
+    rec = dict(name=op, route="cuda", source=source,
+               blocked_route="src/repro_torch/kernels/wide.py",
+               replaces=replaces, shapes=shapes,
+               row_start=rs.tolist() if torch.is_tensor(rs) else rs,
+               products_held_to_oracle=oracle.summary(),
+               max_abs_err=err, scaled_err=scaled, tolerance=tol,
+               ms=time_ms(run, reps), device_ms=device_ms(run, reps),
+               bound_ms=bms, bound_by=by, plain_ms=plain_ms,
+               library_ms=time_ms(lib, reps),
+               library_device_ms=device_ms(lib, reps))
+    if composed is not None:
+        # K1's one wide launch (K3: on the stacks) beside the composed route
+        m, b = args[0].shape[-2:]
+        P = args[0].shape[0] if args[0].dim() == 3 else 1
+        cluster, grid = tpq.wide_launch_shape(
+            P, 2 * b if op == "stacked_qr" else m, b)
+        rec.update(source=WIDE_K1_SOURCE, cluster=cluster, grid=grid,
+                   ptxas={**ptxas(WIDE_K1_SOURCE, "panel_qr_wide_kernel"),
+                          **ptxas(WIDE_K1_SOURCE, "panel_qr_wide_global_kernel")},
+                   equals_composed=one,
+                   composed_ms=time_ms(lambda: composed(*args), reps),
+                   composed_device_ms=device_ms(lambda: composed(*args), reps))
+    return rec
 
 
 def wide_kernels(A: torch.Tensor, g: torch.Generator) -> tuple:
@@ -2048,6 +2073,14 @@ def wide_kernels(A: torch.Tensor, g: torch.Generator) -> tuple:
     del C
     recs += fused_wide_records(A)
     return recs, contracts
+
+
+# the composed routes of K1 and K3 above 128 columns (separate launches of
+# K1's team kernel and wide_gemm): the bit oracle and time yardstick of
+# K1's one wide launch
+COMPOSED = {"panel_qr": tpq.panel_qr_composed,
+            "stacked_qr": tsa.stacked_qr_composed}
+WIDE_K1_SOURCE = "src/repro_torch/csrc/panel_qr_wide.cu"
 
 
 class OrderOracle:
@@ -2144,6 +2177,7 @@ def fused_wide_records(A: torch.Tensor) -> list:
             stepped_ms=time_ms(c["stepped"], 5), stepped_route=c["stepped_route"],
             smem_bytes=tfs.smem_bytes(M_LOC, b, 0, c["levels"]),
             blocks_per_sm=tfs.blocks_per_sm(M_LOC, b, 0, c["levels"]),
+            grid=backend.sm_count(0),  # a block an SM (blocks_per_sm is 1)
             ptxas=ptxas(source, "fused_wide_kernel")))
     return recs
 
@@ -2318,8 +2352,9 @@ def muon_runs(seed: int, d: str) -> dict:
     check(same, "muon: two runs differ")
     check(all(np.isfinite(x) for x in first["losses"]),
           f"muon: a loss is not finite {first['losses']}")
-    check(first["launches"]["panel_qr"] > 0 and sub["wide_gemm_kernel"] > 0,
-          f"muon: K1's wide route not launched {first['launches']} {sub}")
+    check(first["launches"]["panel_qr"] > 0 and sub["wide_gemm_kernel"] == 0
+          and sub["panel_qr_kernel"] == 0,
+          f"muon: K1's wide launch not alone {first['launches']} {sub}")
     # Q orthonormal for every full-rank momentum slice of step 0; K1 at the
     # path's shapes against its plain version on those slices
     orth_err, full_rank, k1 = 0.0, 0, {}
@@ -2518,7 +2553,7 @@ def main() -> int:
     gemm_rec["launches"] = PATH_SUB["wide"]["wide_gemm_kernel"]
     gemm_rec["launches_by_path"] = {path: counts["wide_gemm_kernel"]
                                     for path, counts in PATH_SUB.items()}
-    check(all(gemm_rec["launches_by_path"].values()),
+    check(all(gemm_rec["launches_by_path"][p] for p in ("wide", "wide_kill")),
           f"wide_gemm not launched on a wide path: {gemm_rec['launches_by_path']}")
     records.append(gemm_rec)
     emit({"wide_kernels": wide_records})

@@ -163,9 +163,11 @@ struct GemmTile {
 // of element (i, j) at part[kb * part_bs + i * N + j] for the second pass
 // (gemm_reduce). Runs WG_THREADS threads (tid) that synchronise on barrier
 // bar_id only; needs Cfg::SMEM floats at smem. Ends with a barrier, after
-// which smem may be reused.
+// which smem may be reused. Inlined, so that it runs in the register budget
+// of its caller's region (the wide phases' setmaxnreg, wide_qr.cuh).
 template <class Cfg, int MODE>
-__device__ void gemm_tile(const GemmView& g, int i0, int j0, int kb0, int kb1,
+__device__ __forceinline__ void gemm_tile(const GemmView& g, int i0, int j0,
+                                          int kb0, int kb1,
                           float* part, long long part_bs, float* smem, int tid,
                           int bar_id) {
   constexpr int BM = Cfg::BM, BN = Cfg::BN, TM = Cfg::TM, TN = Cfg::TN;

@@ -20,9 +20,9 @@ the pure forms.
 Both take any panel width. Up to 128 columns they run the b <= 128 bodies
 of ``csrc/qr_common.cuh``; above it one cooperative launch of
 ``fused_wide_kernel`` runs the blocked routes of ``kernels/wide.py``
-(K1's team on 128-column sub-panels, the products of
-``csrc/wide_common.cuh`` as grid-wide tile phases), bit-equal to the
-stepped wide route. A card that cannot hold a team of the launch raises;
+(``csrc/wide_qr.cuh``: K1's team on 128-column sub-panels, the products
+of ``csrc/wide_common.cuh`` as grid-wide tile phases on 128 x 128 tiles),
+bit-equal to the stepped wide route. A card that cannot hold a team of the launch raises;
 there is no fallback to stepping.
 """
 from __future__ import annotations
@@ -237,8 +237,9 @@ def _gemm_in_block():
 
 def gemm_in_block(A, B, D=None, *, sub=False, out=None, minuend=None):
     """``wide.gemm`` through K5/K6's in-block instantiation of the tile
-    routine (two 64 x 64 tiles a 512-thread block, as the wide phases run
-    their products). For the tests, which hold it to ``wide.gemm_order``
+    routine (one 128 x 128 tile a 512-thread block on its first two
+    warpgroups under ``setmaxnreg``, as the wide phases run their
+    products). For the tests, which hold it to ``wide.gemm_order``
     bit for bit; no path calls it."""
     args, (P, M, N, K), out, diff = wide._operands(A, B, D, out, minuend)
     if M and N:

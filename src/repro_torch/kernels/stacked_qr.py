@@ -2,11 +2,13 @@
 combine (port of ``src/repro/kernels/stacked_qr.py``).
 
 ``stacked_qr`` and ``stacked_apply`` launch the CUDA kernels of
-``csrc/stacked_qr.cu`` over the lane axis for b up to ``MAX_B``, and the
-routes of ``kernels/wide.py`` for a wider b (K3: K1's blocked route on the
-stacked triangles; K4: the products of ``csrc/wide.cu``);
-``stacked_qr_plain`` and ``stacked_apply_plain`` are their plain PyTorch
-versions.
+``csrc/stacked_qr.cu`` over the lane axis for b up to ``MAX_B``; for a
+wider b K3 is K1's one wide launch on the stacked triangles
+(``panel_qr.launch_wide``) and K4 the products of ``csrc/wide.cu``
+(``wide.stacked_apply_wide``); ``stacked_qr_plain`` and
+``stacked_apply_plain`` are their plain PyTorch versions.
+``stacked_qr_composed`` is K3's wide route as separate launches, the bit
+oracle of the one launch.
 """
 from __future__ import annotations
 
@@ -57,16 +59,11 @@ def _b(b: int, op: str) -> None:
 
 def stacked_qr(R_top: torch.Tensor, R_bot: torch.Tensor):
     """(Y2, T, R) of QR([R_top; R_bot]) for contiguous CUDA f32 tensors
-    (P, b, b) or (b, b), any b >= 1 (above MAX_B through
-    ``wide.stacked_qr_wide``)."""
+    (P, b, b) or (b, b), any b >= 1 (above MAX_B through K1's one wide
+    launch on the stacks)."""
     squeeze = R_top.dim() == 2
-    Rt = backend.contiguous_lanes(R_top, "stacked_qr")
-    Rb = backend.contiguous_lanes(R_bot, "stacked_qr")
-    P, b, b2 = Rt.shape
-    if Rb.shape != Rt.shape or b != b2:
-        raise ValueError(f"stacked_qr: shapes {tuple(R_top.shape)} and "
-                         f"{tuple(R_bot.shape)} are not two (P, b, b)")
-    _b(b, "stacked_qr")
+    Rt, Rb = _pair(R_top, R_bot, "stacked_qr")
+    P, b, _ = Rt.shape
     if b <= MAX_B:
         Y2, T, R = (torch.empty_like(Rt) for _ in range(3))
         err = _qr_kernel()(Rt.data_ptr(), Rb.data_ptr(), Y2.data_ptr(),
@@ -74,12 +71,34 @@ def stacked_qr(R_top: torch.Tensor, R_bot: torch.Tensor):
                            backend.stream_ptr(Rt))
         build.check(err, "stacked_qr")
     else:
-        Y2, T, R = wide.stacked_qr_wide(Rt, Rb, qr=_panel.sub_qr,
-                                        apply=wide.cuda_apply, gemm=wide.gemm)
+        Y2, T, R = _panel.launch_wide(Rt, None, bot=Rb)
     backend.count_launch("stacked_qr")
     if squeeze:
         return Y2[0], T[0], R[0]
     return Y2, T, R
+
+
+def _pair(R_top: torch.Tensor, R_bot: torch.Tensor, op: str):
+    Rt = backend.contiguous_lanes(R_top, op)
+    Rb = backend.contiguous_lanes(R_bot, op)
+    P, b, b2 = Rt.shape
+    if Rb.shape != Rt.shape or b != b2:
+        raise ValueError(f"{op}: shapes {tuple(R_top.shape)} and "
+                         f"{tuple(R_bot.shape)} are not two (P, b, b)")
+    _b(b, op)
+    return Rt, Rb
+
+
+def stacked_qr_composed(R_top: torch.Tensor, R_bot: torch.Tensor):
+    """``stacked_qr`` above MAX_B columns as separate launches
+    (``wide.stacked_qr_wide`` through ``panel_qr.panel_qr_composed``'s
+    kernels), counted in ``backend.SUB_LAUNCHES`` alone: the bit oracle and
+    time yardstick of the one launch; no path calls it."""
+    squeeze = R_top.dim() == 2
+    Rt, Rb = _pair(R_top, R_bot, "stacked_qr_composed")
+    out = wide.stacked_qr_wide(Rt, Rb, qr=_panel.sub_qr, apply=wide.cuda_apply,
+                               gemm=wide.gemm)
+    return tuple(x[0] for x in out) if squeeze else out
 
 
 def stacked_apply(Y2: torch.Tensor, T: torch.Tensor, C_top: torch.Tensor,

@@ -727,18 +727,89 @@ def test_cuda_kernels_at_moe_shapes_match_plain(rng, cuda, m_loc, n, b):
     (600, 300, 500),    # row start past m - b: R's rows clamped to [300, 600)
 ])
 def test_cuda_wide_panel_qr_matches_plain(rng, cuda, m, b, row_start):
-    """K1 above 128 columns within tolerance of the plain version, through
-    the blocked route (K1's team on sub-panels, K2 between them, the T join
-    of csrc/wide.cu), with no torch.matmul or geqrf on it; one call counts
-    as one launch of panel_qr."""
+    """K1 above 128 columns within tolerance of the plain version, in one
+    launch of csrc/panel_qr_wide.cu (K1's team on sub-panels, the products
+    between them as tile phases), with no torch.matmul or geqrf on it: one
+    call counts one launch of panel_qr and no sub-launch."""
     A = _panels(rng, 2, m, b).to(cuda)
     backend.reset_launches()
     got = ops.panel_qr(A, row_start)
     assert backend.LAUNCHES["panel_qr"] == 1 and backend.LAUNCHES["wy_apply"] == 0
-    assert backend.SUB_LAUNCHES["panel_qr_kernel"] == -(-b // 128)
-    assert backend.SUB_LAUNCHES["wide_gemm_kernel"] > 0
+    assert not any(backend.SUB_LAUNCHES.values()), backend.SUB_LAUNCHES
     assert backend.probe_report()["panel_qr"]["engine"] == "cuda"
     close(got, tref.panel_qr(A, row_start))
+
+
+# (P, m, b, row starts): the Muon path's K1 shapes, the b = 256 sweep's
+# first and last panels, a ragged (1000, 200) at row start 37, b = 384,
+# and the CPU tests' shapes (square panels, a 44-column last sub-panel,
+# three lanes from row 0, 37 and past m - b)
+WIDE_K1 = [(1, 2048, 2048, [0]), (1, 5632, 2048, [0]), (1, 512, 256, [0]),
+           (1, 768, 256, [0]), (8, 4096, 256, [0] * 8),
+           (8, 4096, 256, [3840] + [0] * 7), (1, 1000, 200, [37]),
+           (2, 1024, 384, [0, 100]), (1, 256, 256, [0]), (1, 300, 300, [0]),
+           (1, 640, 300, [17]), (3, 400, 200, [0, 37, 350])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WIDE_K1, ids=lambda c: "-".join(map(str, c[:3])))
+def test_cuda_wide_panel_qr_one_launch_equals_composed(rng, cuda, case):
+    """The one launch equals the composed route (K1's team launch a
+    sub-panel, K2's wide route between them, the T join's wide_gemm
+    products) bit for bit, and only the composed route counts
+    sub-launches."""
+    P, m, b, rs = case
+    A = _panels(rng, P, m, b).to(cuda)
+    rs = torch.tensor(rs, dtype=torch.int32)
+    backend.reset_launches()
+    got = tpanel.panel_qr(A, rs)
+    assert backend.LAUNCHES["panel_qr"] == 1
+    assert not any(backend.SUB_LAUNCHES.values()), backend.SUB_LAUNCHES
+    want = tpanel.panel_qr_composed(A, rs)
+    assert backend.SUB_LAUNCHES["panel_qr_kernel"] == -(-b // 128)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [256, 300])
+def test_cuda_wide_stacked_qr_one_launch_equals_composed(rng, cuda, b):
+    """K3 above 128 columns is one launch of K1's wide kernel on the
+    stacks (one count of stacked_qr, no sub-launch), equal to the
+    composed route bit for bit."""
+    R = t(np.stack([qr_factor(rng, b) for _ in range(4)])).to(cuda)
+    Rt, Rb = R[:2].contiguous(), R[2:].contiguous()
+    backend.reset_launches()
+    got = tstacked.stacked_qr(Rt, Rb)
+    assert backend.LAUNCHES["stacked_qr"] == 1 and backend.LAUNCHES["panel_qr"] == 0
+    assert not any(backend.SUB_LAUNCHES.values()), backend.SUB_LAUNCHES
+    want = tstacked.stacked_qr_composed(Rt, Rb)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    close(got, tref.stacked_qr(Rt, Rb))
+
+
+@pytest.mark.cuda
+def test_cuda_wide_launch_the_card_cannot_hold_raises(rng, cuda, monkeypatch):
+    """When the card cannot hold a team of a wide launch (here: the
+    launches' occupancy queries report so), K1, K3, K5 and K6 above 128
+    raise and launch nothing: no composed route or stepped kernel stands
+    in."""
+    def refused(*args):
+        raise RuntimeError("the card cannot hold a cluster (test)")
+
+    monkeypatch.setattr(tpanel, "wide_launch_shape", refused)
+    monkeypatch.setattr(tfused, "blocks_per_sm", lambda *args: 0)
+    A = _panels(rng, 2, 512, 256).to(cuda)
+    R = t(np.stack([qr_factor(rng, 256) for _ in range(2)])).to(cuda)
+    backend.reset_launches()
+    calls = (lambda: ops.panel_qr(A, 0), lambda: ops.stacked_qr(R, R),
+             lambda: ops.panel_qr_apply(A, 0, 256),
+             lambda: ops.fused_panel(A, 0, b=256, m_loc_pad=512, levels=1))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="hold"):
+            call()
+    torch.cuda.synchronize()
+    assert not any(backend.LAUNCHES.values()), backend.LAUNCHES
+    assert not any(backend.SUB_LAUNCHES.values()), backend.SUB_LAUNCHES
 
 
 @pytest.mark.cuda

@@ -87,6 +87,8 @@ def qr_factor(rng, b):
     (400, 129, 0), (300, 200, 7), (512, 256, 100), (600, 384, 216),
     (600, 300, 500),  # row start past m - b: R's rows clamped to m - b
     (300, 200, 400),  # every pivot below the panel: all columns degenerate
+    (256, 256, 0), (300, 300, 0),  # square, as the Muon path's leaves are
+    (640, 300, 17),   # sub-panels of 128, 128 and 44 columns
 ])
 def test_blocked_panel_qr_matches_unblocked(rng, m, b, row_start):
     A = t(rng.standard_normal((2, m, b)).astype(np.float32))
@@ -98,7 +100,7 @@ def test_blocked_panel_qr_matches_unblocked(rng, m, b, row_start):
     assert torch.equal(got[2], got[2].triu())
 
 
-@pytest.mark.parametrize("b", [129, 200, 256, 384])
+@pytest.mark.parametrize("b", [129, 200, 256, 300, 384])
 def test_blocked_apply_and_stacked_match_unblocked(rng, b):
     """K2 with a random upper-triangular T (not Y's own) and with Y's own;
     K3 on two R factors (Y2 exactly upper triangular, Y[:b] exactly I);
@@ -127,10 +129,25 @@ def test_blocked_apply_and_stacked_match_unblocked(rng, b):
           ref.stacked_apply(got[0], Tr, Ct, Cb))
 
 
+def test_blocked_panel_qr_three_lanes(rng):
+    """Three lanes of one call from row starts 0, 37 and past m - b (R's
+    rows clamped), each equal to its own one-lane call of the route and
+    within tolerance of the unblocked plain version."""
+    m, b = 400, 200
+    A = t(rng.standard_normal((3, m, b)).astype(np.float32))
+    rs = torch.tensor([0, 37, 350])
+    got = wide.panel_qr_blocked(A, rs, **wide.PLAIN)
+    close(got, ref.panel_qr(A, rs))
+    for k in range(3):
+        one = wide.panel_qr_blocked(A[k:k + 1], rs[k:k + 1], **wide.PLAIN)
+        close(tuple(x[k] for x in got), tuple(x[0] for x in one))
+
+
 # -- the port against JAX at b > 128 ------------------------------------------
 
 
-@pytest.mark.parametrize("m,b,row_start", [(300, 200, 0), (512, 256, 100)])
+@pytest.mark.parametrize("m,b,row_start", [(300, 200, 0), (512, 256, 100),
+                                           (256, 256, 0), (640, 300, 17)])
 def test_householder_qr_masked_matches_jax(rng, m, b, row_start):
     A = rng.standard_normal((m, b)).astype(np.float32)
     want = J.householder_qr_masked(jnp.asarray(A), jnp.int32(row_start))
