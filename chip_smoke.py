@@ -53,19 +53,47 @@ non-zero and prints no result):
    fused under ``MDSScheme(f=2)`` with two simultaneous non-buddy deaths
    at one boundary, decoded jointly and bit-equal to failure-free, with
    the refresh seconds per boundary and the parity's bytes.
-8. shrink: SHRINK after one death, scheduled (stepped) and online (fused):
+8. spmd: one process per lane. Eight ranks spawned once
+   (``repro_torch.launch.spmd_qr.make_lane_group``, start method spawn)
+   in a gloo group, all on the one card, after the kernels are built here
+   (the ranks load the built libraries and start no nvcc); every
+   collective goes through pinned host buffers. On the tall matrix:
+   ``caqr_factorize_spmd`` at b = 128 (R bit-equal to the sweep phase's,
+   the Gram identity), ``caqr_lstsq`` over ``AxisComm`` (within 1e-3 of
+   float64), ``ft_caqr_sweep_spmd`` with the FT driver's four kills (R,
+   factors and bundles bit-equal to the failure-free sweep, the ledger
+   equal to that phase's), the ``MDSScheme(f=2)`` parity after panel 0
+   (bytes equal to the single-process encode, and the seconds of one
+   refresh across the ranks), and ``caqr_factorize_spmd`` at b = 256
+   (R bit-equal to the single-process b = 256 sweep: each rank's K1 is
+   the one cooperative launch of ``csrc/panel_qr_wide.cu``). The
+   ``MDSScheme(f=2)`` run with two simultaneous non-buddy deaths at one
+   point runs on a 4096 x 512 matrix (``SPMD_MDS``), not on the tall one:
+   bit-equal to failure-free, the ledger and the parity bytes equal to a
+   single-process run's. The tall matrix's joint decode across ranks is
+   not run: the scheduled driver re-encodes every protected leaf at each
+   of its points, which at the tall size is hundreds of MB a rank a point
+   through gloo. Prints each run's seconds and each rank's K1-K6
+   launches (K1-K4 must be above 0 on every rank), seconds, collectives
+   and the bytes it staged between the card and host memory and sent
+   through gloo. Once the group is closed, no rank process may be left;
+   three single-process sweeps (``SPMD_RESIDUE``) are timed
+   SPREAD_RUNS times each just before the ranks are spawned and again
+   after, so the record shows whether the phase left the single process
+   slower.
+9. shrink: SHRINK after one death, scheduled (stepped) and online (fused):
    R bit-equal between the two, the Gram identity, the new world (8 slots,
    7 live, the adopter's slice doubled to 8192 rows), and K1 and K6 at
    that height against their plain versions.
-9. recovery: the FT trailing update of one panel with lane 3 killed after
+10. recovery: the FT trailing update of one panel with lane 3 killed after
    level 1 and rebuilt from one buddy, bitwise equal to the clean run.
-10. square: a 4096 x 4096 sweep (m_loc = 512, so the tree root walks lanes
+11. square: a 4096 x 4096 sweep (m_loc = 512, so the tree root walks lanes
    0-7 and lanes are consumed): fused == stepped at every panel boundary,
    both equal to ``caqr_factorize``, and a kill of a root lane recovered
    bitwise.
-11. ragged: an unaligned 32000 x 4000 sweep checked by the Gram identity,
+12. ragged: an unaligned 32000 x 4000 sweep checked by the Gram identity,
    and fused == stepped at every panel boundary.
-12. serve: the QR service (``repro_torch.serve.QRService``) at P = 8,
+13. serve: the QR service (``repro_torch.serve.QRService``) at P = 8,
    b = 128, buckets (m_loc, n) = (1024, 1024) and (4096, 2048), 8 slots:
    24 ragged requests from ``--seed`` (half drawn for each bucket, m in
    [b, P m_loc], n in [b, n - 2], a quarter of the tall ones least
@@ -85,7 +113,7 @@ non-zero and prints no result):
    peak memory, and, over a second failure-free drain under torch.profiler
    and against that drain's own wall time, the card's compute share (K1-K4
    and the other kernels) apart from its copy share (Memcpy and Memset).
-13. train: the FT training runtime (``repro_torch.train.ftrun``) at
+14. train: the FT training runtime (``repro_torch.train.ftrun``) at
    TinyLlama-1.1B's published width (d_model 2048, 32 heads, 4 kv heads,
    head_dim 64, d_ff 5632, vocab 32000, swiglu, bf16 params), cut to 2
    layers, sequence 1024, global batch 8 over 4 data lanes, 4 steps
@@ -110,7 +138,7 @@ non-zero and prints no result):
    into grad phase, task loop (engine seconds, polls, sweeps, boundaries,
    segments) and finish phase, heal seconds and peak memory, and device
    time by kernel over one more step under torch.profiler.
-14. train_moe: the FT training runtime on mixtral-8x22b at its published
+15. train_moe: the FT training runtime on mixtral-8x22b at its published
    width (d_model 6144, 48 heads, 8 kv heads, head_dim 128, 8 experts top-2,
    d_ff_expert 16384, vocab 32768, window 4096, rope theta 1e6, bf16
    params), cut to 1 layer, sequence 1024, global batch 8 over 4 data
@@ -134,7 +162,7 @@ non-zero and prints no result):
    boundaries, poll and heal seconds, peak memory, the share of token
    assignments dropped at capacity, and the column norms of the router
    sweep's Q.
-15. wide: K1-K4 above 128 columns: K1 (and K3, K1's route on the stacked
+16. wide: K1-K4 above 128 columns: K1 (and K3, K1's route on the stacked
    triangles) in one cooperative launch (``csrc/panel_qr_wide.cu``: K1's
    team on sub-panels of 128 columns, on clusters or, for 8 lanes of 4096
    rows, a plain grid; the products between them and in the T join as
@@ -181,12 +209,14 @@ non-zero and prints no result):
    than four times the f32 plain version, on the columns ``leading_rank``
    keeps), K1 launched and no sub-kernel (K1's team kernel, ``wide_gemm``);
    step seconds, each ``_orth2d`` shape's share of the step, peak memory.
-16. spread: each full-width sweep (``caqr_factorize``, the state machine
+17. spread: each full-width sweep (``caqr_factorize``, the state machine
    stepped and fused, the four-kill FT sweep, the online sweeps stepped,
    fused and double-buffered) run five times: median and min-max seconds.
 
 The kernels line gives each kernel's launches on every path above, each
-counted from 0 just before the path ran; its ``wide_gemm`` record counts
+counted from 0 just before the path ran (on the spmd paths ``spmd``,
+``spmd_kill``, ``spmd_mds`` and ``spmd_b256``, the sum of the ranks' own
+counters); its ``wide_gemm`` record counts
 the products' kernel's launches inside the wide calls
 (``backend.SUB_LAUNCHES``: K2's and K4's wide routes; K1 and K3 launch no
 sub-kernel, and the muon path none at all). The line before it holds the
@@ -202,6 +232,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import multiprocessing as mp
 import os
 import pathlib
 import re
@@ -230,6 +261,7 @@ from repro_torch.ft import (  # noqa: E402
     Semantics,
     ft_caqr_sweep,
     ft_caqr_sweep_online,
+    iter_sweep_points,
     sweep_point,
 )
 from repro_torch.ft.online import state as sm  # noqa: E402
@@ -242,6 +274,7 @@ from repro_torch.kernels import wy_apply as twy  # noqa: E402
 from repro_torch import tree  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.pipeline import DataConfig  # noqa: E402
+from repro_torch.launch import spmd_qr  # noqa: E402
 from repro_torch.launch.serve_qr import make_requests  # noqa: E402
 from repro_torch.models import moe as t_moe  # noqa: E402
 from repro_torch.serve import QRService  # noqa: E402
@@ -294,6 +327,18 @@ KILLS = {sweep_point(1, "leaf"): 2,
 PANEL_END_KILLS = {sweep_point(k, "trailing", L - 1): lane
                    for (k, _, _), lane in KILLS.items()}
 SPREAD_RUNS = 5
+# the spmd phase: one rank a lane, every collective through gloo; the
+# (m_loc, n) of its MDS f = 2 cell (the scheduled driver re-encodes every
+# protected leaf across the ranks at each point), that cell's two deaths,
+# the point after which the tall matrix's parity is encoded across the
+# ranks, and the group's timeout (collectives and each task)
+SPMD_MDS = (512, 512)
+SPMD_MDS_KILL = (sweep_point(2, "trailing", L - 1), [2, 5])
+SPMD_PARITY_POINT = sweep_point(1, "leaf")
+SPMD_TIMEOUT_S = 300.0
+# single-process sweeps of the spread phase timed before and after it
+SPMD_RESIDUE = ("caqr_factorize", "ft_sweep_four_kills",
+                "online_async_four_kills")
 # the serve phase: the larger bucket's tenants reach 32768 x 2046, 16 panels
 SERVE_BUCKETS = ((1024, 1024), (4096, 2048))
 SERVE_SLOTS = 8
@@ -1072,6 +1117,158 @@ def online_phase(A: torch.Tensor, want: tuple, ledgers: dict) -> None:
     check(launches["fused_panel"] == N // B, f"online_mds launches {launches}")
 
 
+def spmd_ranks(group, seconds: float) -> dict:
+    """One spmd run's record: its seconds and each rank's report (seconds,
+    launches, collectives, bytes staged through host memory and sent
+    through gloo); checks that K1-K4 ran on every rank."""
+    reps = group.last_reports
+    for r in reps:
+        check(all(r.launches[op] > 0 for op in STEPPED),
+              f"rank {r.rank} did not launch K1-K4: {r.launches}")
+    return dict(seconds=seconds, ranks=[r._asdict() for r in reps])
+
+
+def spmd_launches(group) -> dict:
+    """The ranks' launches of one run, summed by kernel."""
+    return {op: sum(r.launches[op] for r in group.last_reports)
+            for op in backend.OPS}
+
+
+def spmd_timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def sim_parity(A: torch.Tensor, b: int, point) -> tuple:
+    """The single-process ``MDSScheme(f=2)`` parity after ``point``."""
+    comm = SimComm(P)
+    s = sm.initial_sweep_state(comm, A, b)
+    pts = list(iter_sweep_points(s.geom.n_panels, s.geom.levels))
+    s = sm.run_steps(comm, s, pts.index(point) + 1)
+    return MDSScheme(f=2).refresh(comm, s).code
+
+
+def spmd_phase(A: torch.Tensor, want: tuple, ledgers: dict, seed: int,
+               device: str = "cuda") -> None:
+    """One process per lane on the one card (see the module docstring);
+    counters of each run are the ranks' own, counted from 0 at its start."""
+    rng = np.random.default_rng([seed, 8])
+    Af = A.reshape(-1, N)
+    sweeps = spread_sweeps(A)
+    out = {"single_process_before": {name: spread_times(sweeps[name])
+                                     for name in SPMD_RESIDUE}}
+    t0 = time.perf_counter()
+    with spmd_qr.make_lane_group(P, device=device,
+                                 timeout_s=SPMD_TIMEOUT_S) as group:
+        out["spawn_seconds"] = time.perf_counter() - t0
+
+        res, sec = spmd_timed(lambda: spmd_qr.caqr_factorize_lanes(
+            Af, B, group, use_scan=False))
+        same = torch.equal(res.R, want[0])
+        gram = gram_error(Af.double(), res.R[0])
+        out["caqr"] = dict(spmd_ranks(group, sec), r_bitwise_equal=same,
+                           gram_rel_err=gram)
+        PATH_LAUNCHES["spmd"] = spmd_launches(group)
+        del res
+        check(same, "spmd R differs from the single-process sweep's")
+        check(gram <= GRAM_TOL, f"spmd Gram identity: {gram}")
+
+        rhs = rng.standard_normal((P * M_LOC, 1)).astype(np.float32)
+        x, sec = spmd_timed(lambda: spmd_qr.caqr_lstsq_lanes(
+            Af, torch.from_numpy(rhs).to(A.device), B, group))
+        A64 = Af.double()
+        b64 = torch.from_numpy(rhs).to(A.device).double()
+        x_ne = torch.linalg.solve(A64.T @ A64, A64.T @ b64)
+        lst = float((x.double() - x_ne).norm() / x_ne.norm())
+        del A64
+        out["lstsq"] = dict(spmd_ranks(group, sec), rel_err=lst)
+        check(lst <= LSTSQ_TOL, f"spmd lstsq vs normal equations: {lst}")
+
+        sched = FailureSchedule(events={pt: [lane] for pt, lane in KILLS.items()})
+        got, sec = spmd_timed(lambda: spmd_qr.ft_caqr_sweep_spmd(
+            Af, B, sched, group=group))
+        same = same_bits(flat_result(got), want)
+        led = ledger(got.events)
+        del got
+        out["ft_kills"] = dict(spmd_ranks(group, sec), bitwise_equal=same,
+                               ledger_equal_single_process=led == ledgers["kills"])
+        PATH_LAUNCHES["spmd_kill"] = spmd_launches(group)
+        check(same, "spmd FT sweep with kills differs from failure-free")
+        check(led == ledgers["kills"], f"spmd ledger {led} != {ledgers['kills']}")
+
+        code, sec = spmd_timed(lambda: spmd_qr.mds_parity_lanes(
+            Af, B, 2, SPMD_PARITY_POINT, group))
+        same = same_bits(code, sim_parity(A, B, SPMD_PARITY_POINT))
+        out["parity_tall"] = dict(
+            point=list(SPMD_PARITY_POINT), seconds=sec,
+            parity_bytes=sum(c.numel() for c in code), bytes_equal=same,
+            ranks=[r._asdict() for r in group.last_reports])
+        del code
+        check(same, "spmd parity differs from the single-process encode")
+
+        m_loc, n = SPMD_MDS
+        Am = rng.standard_normal((P * m_loc, n)).astype(np.float32)
+        As = block_row_layout(Am, P, device=device)
+        point, pair = SPMD_MDS_KILL
+        msched = FailureSchedule(events={point: pair})
+        free = caqr_factorize(As, SimComm(P), B, collect_bundles=True,
+                              use_scan=False)
+        sim = ft_caqr_sweep(As, SimComm(P), B, schedule=msched,
+                            scheme=MDSScheme(f=2))
+        got, sec = spmd_timed(lambda: spmd_qr.ft_caqr_sweep_spmd(
+            As.reshape(-1, n), B, msched, group=group, scheme=MDSScheme(f=2)))
+        ranks = spmd_ranks(group, sec)
+        PATH_LAUNCHES["spmd_mds"] = spmd_launches(group)
+        same = same_bits(flat_result(got), flat_result(free))
+        led_same = ledger(got.events) == ledger(sim.events)
+        code = spmd_qr.mds_parity_lanes(As.reshape(-1, n), B, 2, point, group)
+        par_same = same_bits(code, sim_parity(As, B, point))
+        out["mds"] = dict(ranks, shape=[P * m_loc, n],
+                          killed=pair, point=list(point), bitwise_equal=same,
+                          ledger_equal_single_process=led_same,
+                          parity_bytes_equal=par_same,
+                          joint=[e.lane for e in got.events
+                                 if e.reads.get("coded.parity1") == P + 1])
+        check(same, "spmd MDS decode differs from failure-free")
+        check(led_same, "spmd MDS ledger differs from the single-process one")
+        check(par_same, "spmd MDS parity differs from the single-process one")
+        check(out["mds"]["joint"] == pair, f"not a joint decode: {got.events}")
+        del got, sim, free
+
+        R256 = caqr_factorize(A, SimComm(P), WIDE_B, use_scan=False).R
+        res, sec = spmd_timed(lambda: spmd_qr.caqr_factorize_lanes(
+            Af, WIDE_B, group, use_scan=False))
+        same = torch.equal(res.R, R256)
+        del res, R256
+        out["caqr_b256"] = dict(spmd_ranks(group, sec), r_bitwise_equal=same)
+        PATH_LAUNCHES["spmd_b256"] = spmd_launches(group)
+        if group.device.type == "cuda":
+            # (cluster, grid) of the one wide launch, cluster 0 a plain
+            # cooperative grid: K1 and K3 of one rank's lane, and K1 of the
+            # single process (a card's query; the CPU has no such launch)
+            out["caqr_b256"].update(
+                k1_launch_each_rank=group.run(tpq.wide_launch_shape, 1,
+                                              M_LOC, WIDE_B),
+                k3_launch_each_rank=group.run(tpq.wide_launch_shape, 1,
+                                              2 * WIDE_B, WIDE_B),
+                k1_launch_single_process=tpq.wide_launch_shape(P, M_LOC,
+                                                               WIDE_B))
+        check(same, "spmd R at b = 256 differs from the single-process one")
+    out["phase_seconds"] = time.perf_counter() - t0
+    left = mp.active_children()
+    check(not left, f"rank processes outlived their group: {left}")
+    # the ranks' results were shared by CUDA IPC: release what this
+    # process still maps of them, and the blocks its copies freed
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    out["single_process_after"] = {name: spread_times(sweeps[name])
+                                   for name in SPMD_RESIDUE}
+    emit({"spmd": dict(shape=[P * M_LOC, N], P=P, b=B, **out)})
+
+
 def shrunk_kernel_check(device, m: int, w: int) -> dict:
     """K1 and K6 at the shrunken world's padded lane height against their
     plain versions (random data from a seeded generator), and their
@@ -1138,9 +1335,8 @@ def shrink_phase(A: torch.Tensor) -> None:
           f"SHRINK online K6 launches {launches}")
 
 
-def spread_phase(A: torch.Tensor) -> None:
-    """Run-to-run spread: every full-width sweep SPREAD_RUNS times, each
-    run ending in a synchronise; median and min-max seconds."""
+def spread_sweeps(A: torch.Tensor) -> dict:
+    """The spread phase's full-width single-process sweeps by name."""
     comm = SimComm(P)
     kills = {pt: [lane] for pt, lane in KILLS.items()}
     ends = {pt: [lane] for pt, lane in PANEL_END_KILLS.items()}
@@ -1155,7 +1351,7 @@ def spread_phase(A: torch.Tensor) -> None:
         return lambda: ft_caqr_sweep_online(
             A, comm, B, fault_hooks=[ScriptedKiller(k)], **kw)
 
-    sweeps = {
+    return {
         "caqr_factorize": lambda: caqr_factorize(
             A, comm, B, use_scan=False, collect_bundles=True),
         "state_machine_stepped": lambda: sm.finalize(
@@ -1167,19 +1363,27 @@ def spread_phase(A: torch.Tensor) -> None:
         "online_fused_four_kills": online(ends, fused=True),
         "online_async_four_kills": online(kills, async_segments=True),
     }
-    out = {}
-    for name, fn in sweeps.items():
-        times = []
-        for _ in range(SPREAD_RUNS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = fn()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            del res
-        times.sort()
-        out[name] = dict(median_s=times[len(times) // 2], min_s=times[0],
-                         max_s=times[-1], runs=times)
+
+
+def spread_times(fn) -> dict:
+    """``fn`` run SPREAD_RUNS times, each run ending in a synchronise:
+    median and min-max seconds."""
+    times = []
+    for _ in range(SPREAD_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del res
+    times.sort()
+    return dict(median_s=times[len(times) // 2], min_s=times[0],
+                max_s=times[-1], runs=times)
+
+
+def spread_phase(A: torch.Tensor) -> None:
+    """Run-to-run spread: every full-width sweep SPREAD_RUNS times."""
+    out = {name: spread_times(fn) for name, fn in spread_sweeps(A).items()}
     emit({"spread": dict(shape=[P * M_LOC, N], runs=SPREAD_RUNS, **out)})
 
 
@@ -2537,6 +2741,7 @@ def main() -> int:
         rec["launches"] = launches[rec["name"]]
     ledgers = ft_driver_phase(A, want)
     online_phase(A, want, ledgers)
+    spmd_phase(A, want, ledgers, args.seed)
     del want
     shrink_phase(A)
     recovery_phase(A)

@@ -14,7 +14,8 @@ op in this family); wide matrices factorize the left ``min(m, n)`` columns
 and carry the rest as the ``R2`` block. ``caqr_apply_qt`` replays the
 stored per-panel factors against any conforming matrix.
 ``caqr_factorize_batched`` and ``caqr_apply_qt_batched`` run a stack of
-independent same-shape problems.
+independent same-shape problems. ``caqr_factorize_spmd`` runs the same
+sweep in one rank of a process group (``AxisComm``: one lane a process).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.comm import axis_comm, lane_block
 from repro_torch.core.householder import householder_qr_masked
 from repro_torch.core.trailing import RecoveryBundle, trailing_update_ft
 from repro_torch.core.tsqr import DistTSQRFactors, ft_tsqr_combine
@@ -144,8 +146,8 @@ def lane_geometry(k: int, b: int, m_loc: int, lane: int):
 
 def assemble_R(comm, R_rows: torch.Tensor, geom: SweepGeometry) -> torch.Tensor:
     """Stack the per-panel replicated R row-blocks (n_panels, P, b, n_work)
-    into the (P, k, n) upper-trapezoidal R."""
-    P = comm.axis_size()
+    into the (P, k, n) upper-trapezoidal R (P the comm's local lanes)."""
+    P = comm.local_lanes()
     rows = geom.n_panels * geom.b
     R = R_rows.transpose(0, 1).reshape(P, rows, geom.n_work)
     return torch.triu(R)[:, :geom.k, :geom.n]
@@ -185,7 +187,7 @@ def make_panel_factors(comm, leaf_Y, leaf_T, level_Y2, level_T, row_start,
         leaf_Y=leaf_Y, leaf_T=leaf_T, level_Y2=level_Y2, level_T=level_T,
         row_start=to_device(row_start, dev).to(torch.int32),
         active=to_device(active, dev),
-        target=torch.full((comm.axis_size(),), t_lane, dtype=torch.int32,
+        target=torch.full((comm.local_lanes(),), t_lane, dtype=torch.int32,
                           device=dev),
     )
 
@@ -310,3 +312,17 @@ def caqr_apply_qt_batched(B_batch: torch.Tensor, factors: PanelFactors, comm
     return torch.stack([
         caqr_apply_qt(B, PanelFactors(*(x[i] for x in factors)), comm)
         for i, B in enumerate(B_batch)])
+
+
+# SPMD wrapper ----------------------------------------------------------------
+
+
+def caqr_factorize_spmd(A_local: torch.Tensor, group, panel_width: int,
+                        **kw) -> CAQRResult:
+    """``caqr_factorize`` in one rank of ``group`` (a process group, None
+    for the default group, or an ``AxisComm`` to reuse), on this rank's
+    block-row ``(m_loc, n)`` or ``(1, m_loc, n)``. Every rank of the group
+    must call it; the result keeps the unit lane axis where the
+    ``SimComm`` result carries P."""
+    return caqr_factorize(lane_block(A_local), axis_comm(group), panel_width,
+                          **kw)

@@ -19,13 +19,15 @@ from repro_torch.core.caqr import (
     caqr_factorize,
     sweep_geometry,
 )
+from repro_torch.kernels.backend import to_device
 
 
 def caqr_lstsq(A_local: torch.Tensor, b_local: torch.Tensor, comm,
                panel_width: int, result: Optional[CAQRResult] = None):
     """Solve min ||Ax - b|| for block-row-distributed A (P, m_loc, n) and
-    b (P, m_loc, q). Returns x (n, q). ``result`` reuses a factorization of
-    A at the same panel width."""
+    b (P, m_loc, q) (under ``AxisComm`` each rank's (1, m_loc, n) and
+    (1, m_loc, q)). Returns x (n, q), the same on every lane. ``result``
+    reuses a factorization of A at the same panel width."""
     m_loc, n = comm.local_shape(A_local)
     geom = sweep_geometry(comm.axis_size(), m_loc, n, panel_width)
     if result is None:
@@ -39,10 +41,18 @@ def caqr_lstsq(A_local: torch.Tensor, b_local: torch.Tensor, comm,
                          "geometry")
     Qtb = caqr_apply_qt(b_local, result.factors, comm)
     # R row r deposits at padded global row r: lane r // m_loc_pad, local
-    # row r % m_loc_pad, so the k rows pairing with R are the first k rows
-    # of the padded layout.
-    K = geom.k
-    Qtb_top = Qtb.reshape(-1, Qtb.shape[-1])[:K]
+    # row r % m_loc_pad. Each lane scatters its rows below k into a (k, q)
+    # block and one psum collects them (every row has one nonzero term,
+    # so the sum is exact), replicated on every lane.
+    K, m_pad = geom.k, geom.m_loc_pad
+    rows = comm.axis_index().to(torch.int64)[:, None] * m_pad + torch.arange(
+        m_pad)
+    lane, local = torch.nonzero(rows < K, as_tuple=True)
+    dev = Qtb.device
+    lane, local = to_device(lane, dev), to_device(local, dev)
+    out = Qtb.new_zeros((Qtb.shape[0], K, Qtb.shape[-1]))
+    out[lane, to_device(rows, dev)[lane, local]] = Qtb[lane, local]
+    Qtb_top = comm.psum(out)[0]
     R = result.R[0]
     x1 = torch.linalg.solve_triangular(R[:, :K], Qtb_top, upper=True)
     if n > K:

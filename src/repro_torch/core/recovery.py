@@ -14,6 +14,13 @@ through K4 (as ``rebuild_cprime_after_level`` does) instead of the JAX
 package's plain ``C_failed - Y2 @ W``; the replay needs the source's own
 entering C', which ``LevelBundle`` therefore also keeps (``C_self``, the
 field Algorithm 2's bundle has in ``RecoveryBundle`` too).
+
+The single-panel level machine (``trailing_begin`` .. ``run_ft_trailing``)
+indexes lanes, so it runs in the ``SimComm`` layout, as the reference's
+does. The sweep-level primitives at the end take one lane's own data and
+the values read from ONE source, so ``repro_torch.ft.driver`` runs them
+under either comm (under ``AxisComm`` the source's values arrive by one
+point-to-point transfer).
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.comm import SimComm
 from repro_torch.core.householder import apply_qt, householder_qr_masked
 from repro_torch.core.trailing import _combine
 from repro_torch.core.tsqr import DistTSQRFactors, _levels, _xor_perm
@@ -193,7 +201,13 @@ def run_ft_trailing(C_stacked: torch.Tensor, factors: DistTSQRFactors, comm,
                     fail_at_level: Optional[int] = None, failed_lane: int = 0,
                     A_stacked: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Drive the level machine end to end, optionally killing and
-    recovering one lane after ``fail_at_level`` completes."""
+    recovering one lane after ``fail_at_level`` completes (``SimComm``
+    layout)."""
+    if not isinstance(comm, SimComm):
+        raise NotImplementedError(
+            "the single-panel level machine indexes lanes (SimComm layout); "
+            "with one process a lane, recovery runs through "
+            "repro_torch.ft.driver")
     state = trailing_begin(C_stacked, factors, comm)
     for lvl in range(_levels(comm.axis_size())):
         state, bundle = trailing_level(state, factors, comm)

@@ -1,5 +1,5 @@
 """TSQR: tall-skinny QR via reduction trees (port of
-``src/repro/core/tsqr.py``, without the ``*_spmd`` wrappers).
+``src/repro/core/tsqr.py``).
 
 * ``baseline_tsqr`` — the classical binary reduction tree: only lane 0
   ends with R.
@@ -10,7 +10,9 @@
 
 Stacking convention: within a pair, the lane whose index bit at the
 current level matches the target's bit is the TOP block (its Y is I).
-Plus the sequential single-device chain ``local_tsqr``.
+Plus the sequential single-device chain ``local_tsqr``, and the
+``*_spmd`` wrappers, which run ``ft_tsqr`` and ``dist_orthonormalize``
+in one rank of a process group (``AxisComm``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.comm import axis_comm, lane_block
 from repro_torch.core.householder import (
     StackedQR,
     apply_q,
@@ -237,3 +240,19 @@ def dist_orthonormalize(A_local: torch.Tensor, comm):
     factors = ft_tsqr(A_local, comm)
     Q = ft_tsqr_q(factors, comm)
     return Q[:, :m_loc], factors.R
+
+
+# Convenience SPMD wrappers (every rank of the group calls them) -------------
+
+
+def ft_tsqr_spmd(A_local: torch.Tensor, group=None) -> DistTSQRFactors:
+    """``ft_tsqr`` in one rank of ``group`` (a process group, None for the
+    default group, or an ``AxisComm``) on this rank's block ``(m_loc, b)``
+    or ``(1, m_loc, b)``."""
+    return ft_tsqr(lane_block(A_local), axis_comm(group))
+
+
+def dist_orthonormalize_spmd(A_local: torch.Tensor, group=None):
+    """``dist_orthonormalize`` in one rank of ``group``: this rank's block
+    of Q and the replicated R, each with a unit lane axis."""
+    return dist_orthonormalize(lane_block(A_local), axis_comm(group))

@@ -1,5 +1,5 @@
 """Coded checksum lanes: survive any ``f`` simultaneous lane deaths (port of
-``src/repro/ft/coding.py``, SimComm only).
+``src/repro/ft/coding.py``).
 
 The paper's XOR buddy pairing recovers one death per pair from ONE
 survivor; a whole pair dying at the same sweep point is
@@ -27,8 +27,11 @@ the product table indexed with an int32 copy of a chunk of the lane's
 bytes (a ``uint8`` index would read as a mask, and an int64 index over the
 whole state would take 8 bytes per byte), XORed into the parity slot. It
 is plain PyTorch on either device; in the JAX package it is a ``jnp``
-gather, not a Pallas kernel. The ``AxisComm`` bodies (``_encode_axis``,
-``_decode_axis``) wait for the multi-process port.
+gather, not a Pallas kernel. Under ``AxisComm`` (one lane a process) each
+rank multiplies its own bytes and one ``xor_reduce`` a refresh (or a
+decode) combines every protected leaf's terms across the ranks
+(``_encode_axis``, ``_decode_axis``); XOR is exact in any order, so the
+parity bytes equal ``SimComm``'s.
 
 The XOR pairing helpers (``xor_buddy``, ``pairing_table``) live in
 ``repro_torch.core.recovery`` and are re-exported here, as the reference
@@ -204,10 +207,41 @@ def _encode_sim(state, G: np.ndarray) -> Tuple[torch.Tensor, ...]:
     return tuple(out)
 
 
-def _encode_axis(comm, state, G):
-    raise NotImplementedError(
-        "the AxisComm parity encode waits for the multi-process port "
-        "(AxisComm over torch.distributed)")
+def _lane_terms(state, coefs: Sequence[int], zero: bool):
+    """This rank's GF(2^8) terms ``coef (x) bytes`` of every protected leaf
+    (AxisComm layout: a unit lane axis), flat and concatenated, with each
+    leaf's ``(key, byte count, byte shape)``; all zeros when
+    ``zero`` (a dead rank contributes nothing)."""
+    from repro_torch.ft.online.state import flat_arrays
+
+    leaves = flat_arrays(state)
+    terms, layout = [], []
+    for key, ax in _protected_leaves(state):
+        x = leaves[key]
+        bl = _lane_bytes(x, ax, 0)
+        t = torch.zeros((len(coefs), bl.numel()), dtype=torch.uint8,
+                        device=x.device)
+        if not zero:
+            for j, c in enumerate(coefs):
+                _gf_axpy(t[j], int(c), bl)
+        terms.append(t.reshape(-1))
+        layout.append((key, bl.numel(), _byte_shape(x, ax)))
+    return torch.cat(terms), layout
+
+
+def _encode_axis(comm, state, G: np.ndarray) -> Tuple[torch.Tensor, ...]:
+    """``_encode_sim``'s parity tuple under ``AxisComm``: each rank's terms
+    of every protected leaf, XOR-reduced over the ranks in one collective;
+    every rank holds the (replicated) parity."""
+    f = G.shape[0]
+    lane = int(comm.axis_index()[0])
+    flat, layout = _lane_terms(state, G[:, lane], zero=False)
+    red = comm.xor_reduce(flat[None])
+    out, off = [], 0
+    for _key, n, shape in layout:
+        out.append(red[off:off + f * n].reshape(f, *shape))
+        off += f * n
+    return tuple(out)
 
 
 def _decode_sim(state, live: Sequence[bool], dead_idx: Sequence[int],
@@ -249,9 +283,37 @@ def _decode_sim(state, live: Sequence[bool], dead_idx: Sequence[int],
 
 def _decode_axis(comm, state, newly: Sequence[int], dead: AbstractSet[int],
                  inv: np.ndarray):
-    raise NotImplementedError(
-        "the AxisComm joint decode waits for the multi-process port "
-        "(AxisComm over torch.distributed)")
+    """``_decode_sim`` under ``AxisComm``: the survivors' terms are
+    XOR-reduced in one collective, and each newly dead rank solves for its
+    own bytes of every protected leaf; every other rank keeps its state."""
+    from repro_torch.ft.online.state import flat_arrays, replace_arrays
+
+    P = comm.axis_size()
+    t = len(newly)
+    lane = int(comm.axis_index()[0])
+    Gt = generator(t, P)
+    flat, layout = _lane_terms(state, Gt[:, lane], zero=lane in dead)
+    red = comm.xor_reduce(flat[None])
+    if lane not in newly:
+        return state
+    r = sorted(newly).index(lane)
+    code = state.code
+    assert code is not None and len(code) == len(layout), (
+        "parity slots out of step with the protected leaves")
+    leaves = flat_arrays(state)
+    new: Dict[str, torch.Tensor] = {}
+    off = 0
+    for parity, (key, n, _shape) in zip(code, layout):
+        par = parity.reshape(parity.shape[0], -1)
+        acc = torch.zeros(n, dtype=torch.uint8, device=par.device)
+        for j in range(t):
+            synd = par[j].clone()
+            synd.bitwise_xor_(red[off + j * n:off + (j + 1) * n])
+            _gf_axpy(acc, int(inv[r, j]), synd)
+        off += t * n
+        x = leaves[key]
+        new[key] = acc.view(x.dtype).reshape(x.shape)
+    return replace_arrays(state, new)
 
 
 # -- the schemes --------------------------------------------------------------

@@ -23,9 +23,14 @@ Where the port departs from the JAX package: there, the replay runs on
 every lane through ``comm.map_local`` (a vmap) and keeps only the dead
 lane's result. The port's ``SimComm.map_local`` is the identity and the
 sweep-level primitives of ``repro_torch.core.recovery`` take one lane's
-2-D rows, so the port replays only the dead lane's slice and writes it
-back with ``where_lane``. SHRINK and BLANK delegate to the scheduled
-elastic driver (``repro_torch.ft.elastic.ft_caqr_sweep_elastic``).
+2-D rows, so the port replays only the dead lane's slice, where
+``comm.holds(lane)``, and writes it back with ``where_lane``. Every read
+of another lane is ``fetch_lane`` or ``recv_lane`` from the source the
+ledger names: under ``SimComm`` an index (a view), under ``AxisComm``
+(one lane a process) one point-to-point transfer in which only that
+source sends and only the rebuilt rank computes the replay. SHRINK and
+BLANK delegate to the scheduled elastic driver
+(``repro_torch.ft.elastic.ft_caqr_sweep_elastic``).
 """
 from __future__ import annotations
 
@@ -189,20 +194,25 @@ def rebuild_state(
         return source
 
     k = point[0]
-    # respawn: the lane re-reads its own (padded) slice of the data source
-    rows = state.A0[lane]
+    # respawn: the lane re-reads its own (padded) slice of the data source;
+    # only the process holding the lane computes the replay (``mine``)
+    mine = comm.holds(lane)
+    rows = comm.lane_slice(state.A0, lane) if mine else None
     for j in range(k):
         state, rows = _replay_panel(comm, state, j, lane, rows, fetch)
 
     # current panel: recompute the masked leaf from the rebuilt rows
     col0, t_lane, rs, act = lane_geometry(k, b, m_loc, lane)
-    lY, lT, lR = rec.recompute_leaf(rows, col0, b, rs, act)
+    lY = lT = lR = None
+    if mine:
+        lY, lT, lR = rec.recompute_leaf(rows, col0, b, rs, act)
     state = state.replace(
         leaf_Y=comm.where_lane(lane, lY, state.leaf_Y),
         leaf_T=comm.where_lane(lane, lT, state.leaf_T),
         R_leaf=comm.where_lane(lane, lR, state.R_leaf),
         A=comm.where_lane(lane, rows, state.A),
-        window=comm.where_lane(lane, rows[:, col0:], state.window),
+        window=comm.where_lane(lane, rows[:, col0:] if mine else None,
+                               state.window),
     )
 
     _, phase, lvl = point
@@ -232,17 +242,22 @@ def rebuild_state(
             state = state.replace(
                 R_carry=comm.fetch_lane(state.R_carry, lane, src))
         # the leaf-applied window: a local recompute (one-lane K2)
-        C_local = comm.where_lane(lane, apply_qt(lY, lT, rows[:, col0:]),
-                                  state.C_local)
+        C_local = comm.where_lane(
+            lane, apply_qt(lY, lT, rows[:, col0:]) if mine else None,
+            state.C_local)
         # C' after the last completed level: ONE fetch from that level's
         # buddy, replayed through the pair combine (one-lane K4)
         src_c = fetch(f"trailing.cprime@level{lvl}", lane ^ (1 << lvl))
         failed_was_top = ((lane >> lvl) & 1) == ((t_lane >> lvl) & 1)
         pair_live = lane >= t_lane and src_c >= t_lane
-        cp = rec.rebuild_cprime_after_level(
-            state.Cs_buddy[lvl][src_c], state.Cs_self[lvl][src_c],
-            level_Y2[lvl][lane], level_T[lvl][lane], failed_was_top,
-            pair_live)
+        cb = comm.recv_lane(state.Cs_buddy[lvl], lane, src_c)
+        cs = comm.recv_lane(state.Cs_self[lvl], lane, src_c)
+        cp = None
+        if mine:
+            cp = rec.rebuild_cprime_after_level(
+                cb, cs, comm.lane_slice(level_Y2[lvl], lane),
+                comm.lane_slice(level_T[lvl], lane), failed_was_top,
+                pair_live)
         C_prime = comm.where_lane(lane, cp, state.C_prime)
         # the lane's own bundle rows: mirror of each level-buddy's entry
         # (W is pair-shared; C_self/C_buddy swap sides)
@@ -263,14 +278,18 @@ def rebuild_state(
 
 
 def _replay_panel(comm, state: SweepState, j: int, lane: int,
-                  rows: torch.Tensor, fetch) -> Tuple[SweepState, torch.Tensor]:
-    """Advance the respawned lane's block-row ``rows`` (m_loc_pad, n_work)
-    through completed panel ``j`` and restore its slices of that panel's
-    stored outputs."""
+                  rows: Optional[torch.Tensor], fetch
+                  ) -> Tuple[SweepState, Optional[torch.Tensor]]:
+    """Advance the respawned lane's block-row ``rows`` (m_loc_pad, n_work;
+    None where this process does not hold the lane) through completed
+    panel ``j`` and restore its slices of that panel's stored outputs."""
     geom = state.geom
     b, m_loc, L = geom.b, geom.m_loc_pad, geom.levels
+    mine = comm.holds(lane)
     col0, t_lane, rs, act = lane_geometry(j, b, m_loc, lane)
-    lY, lT, _lR = rec.recompute_leaf(rows, col0, b, rs, act)
+    lY = lT = None
+    if mine:
+        lY, lT, _lR = rec.recompute_leaf(rows, col0, b, rs, act)
 
     src_l = fetch(f"panel{j}.tsqr_ladder", lane ^ 1)
     factors = list(state.factors)
@@ -294,12 +313,17 @@ def _replay_panel(comm, state: SweepState, j: int, lane: int,
         src_c = fetch(f"panel{j}.cprime_final", lane ^ (1 << (L - 1)))
         failed_was_top = ((lane >> (L - 1)) & 1) == ((t_lane >> (L - 1)) & 1)
         pair_live = lane >= t_lane and src_c >= t_lane
-        cp = rec.rebuild_cprime_after_level(
-            bj.C_buddy[L - 1, src_c, :, col0:].contiguous(),
-            bj.C_self[L - 1, src_c, :, col0:].contiguous(),
-            bj.Y2[L - 1, src_c], bj.T[L - 1, src_c], failed_was_top,
-            pair_live)
-    rows = rec.rebuild_block_row_through_panel(rows, lY, lT, cp, col0, rs, act)
+        got = [comm.recv_lane(x, lane, src_c) for x in (
+            bj.C_buddy[L - 1][..., col0:], bj.C_self[L - 1][..., col0:],
+            bj.Y2[L - 1], bj.T[L - 1])]
+        if mine:
+            cb, cs, y2, t = got
+            cp = rec.rebuild_cprime_after_level(
+                cb.contiguous(), cs.contiguous(), y2, t, failed_was_top,
+                pair_live)
+    if mine:
+        rows = rec.rebuild_block_row_through_panel(rows, lY, lT, cp, col0,
+                                                   rs, act)
 
     # the lane's own bundle rows for panel j: per-level mirrors
     W_lv = [bj.W[s] for s in range(L)]

@@ -29,7 +29,8 @@ slots, trailing ghost slots of zero rows) or ``"fold"`` (floor-pow2 slots,
 rows re-split evenly). The harvest and the plan run on the host in numpy,
 and the new world's matrix goes back to the state's device. The JAX
 package's mesh helpers (``make_data_model_mesh``, ``shrink_mesh``,
-``reshard``, ``rebalance_batch``) wait for the multi-process port.
+``reshard``, ``rebalance_batch``) wait for the training half of the
+multi-process path (ROADMAP.md queue 1, item 4c).
 """
 from __future__ import annotations
 

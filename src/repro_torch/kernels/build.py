@@ -91,6 +91,12 @@ def build_all(names: Iterable[str] = SOURCES) -> List[pathlib.Path]:
     return [_target(n) for n in names]
 
 
+def missing(names: Iterable[str] = SOURCES) -> List[str]:
+    """The listed sources whose library is not built yet (a process that
+    must not start nvcc, such as a rank of a lane group, checks this)."""
+    return [n for n in names if not _target(n).exists()]
+
+
 def resource_usage(name: str) -> Dict[str, Dict[str, int]]:
     """Registers and spill bytes of each kernel of ``csrc/<name>.cu``, read
     from the ``-Xptxas -v`` lines of its build log: {mangled kernel name:

@@ -1,3 +1,5 @@
 """Launchers of the port (counterpart of ``src/repro/launch/``): the QR
-service driver, ``python -m repro_torch.launch.serve_qr``, and the
-training driver, ``python -m repro_torch.launch.train``."""
+service driver, ``python -m repro_torch.launch.serve_qr``, the training
+driver, ``python -m repro_torch.launch.train``, and ``spmd_qr``, the
+FT-CAQR sweep with one process per lane (spawned ranks in a gloo group:
+``make_lane_group``, ``ft_caqr_sweep_spmd``)."""

@@ -7,8 +7,9 @@ the error feedback E <- (G + E) - G_hat; the next sketch is R (power
 iteration warm start). The three phases (``psgd_project``,
 ``psgd_rfactor``, ``psgd_complete``) are the FT runtime's split form.
 
-Reduction over a named axis (``axis_name`` not None) needs the port's
-``AxisComm`` (``ROADMAP.md`` queue 1, item 4) and raises until then;
+Reduction over a named axis (``axis_name`` not None) waits for the
+training half of the multi-process path (``ROADMAP.md`` queue 1, item 4c)
+and raises until then;
 ``axis_name=None`` runs the compression locally (the rank-r filter).
 """
 from __future__ import annotations
@@ -37,8 +38,8 @@ def _tile_for(rows: int, cols: int) -> int:
 def _no_axis(axis_name: Optional[str]) -> None:
     if axis_name is not None:
         raise NotImplementedError(
-            f"reduction over axis {axis_name!r} waits for the port's "
-            "AxisComm (ROADMAP.md queue 1, item 4)")
+            f"reduction over axis {axis_name!r} waits for the training half "
+            "of the multi-process path (ROADMAP.md queue 1, item 4c)")
 
 
 def psgd_project(G: torch.Tensor, omega: torch.Tensor,

@@ -21,8 +21,8 @@ boundary-consistent state; the runtime persists it
 sweep through the orchestrator's ``from_state``.
 
 The JAX package's ``mesh=`` backend (shard_map segments over a lane mesh)
-needs the port's ``AxisComm`` (``ROADMAP.md`` queue 1, item 4) and
-raises until then.
+waits for the training half of the multi-process path (``ROADMAP.md``
+queue 1, item 4c) and raises until then.
 """
 from __future__ import annotations
 
@@ -99,8 +99,9 @@ class QREngine:
         assert n_lanes & (n_lanes - 1) == 0, "lanes must be a power of two"
         if mesh is not None:
             raise NotImplementedError(
-                "QREngine(mesh=) runs shard_map segments over a lane mesh: "
-                "it waits for the port's AxisComm (ROADMAP.md queue 1, item 4)")
+                "QREngine(mesh=) runs its segments over a lane group: it "
+                "waits for the training half of the multi-process path "
+                "(ROADMAP.md queue 1, item 4c)")
         self.n_lanes = n_lanes
         self.panel_width = panel_width
         self.comm = SimComm(n_lanes)

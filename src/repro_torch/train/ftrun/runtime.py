@@ -73,7 +73,7 @@ class FTRunConfig:
     qr_lanes: Optional[int] = None    # None: 4
     panel_width: int = 16
     min_qr_size: int = 8192           # per-slice element floor for routing
-    use_mesh: bool = False            # needs AxisComm (ROADMAP queue 1, item 4)
+    use_mesh: bool = False            # waits for ROADMAP queue 1, item 4c
     async_segments: bool = False      # double-buffered segment dispatch
     mds_f: int = 0                    # >0: MDSScheme(f) parity lanes
     compression_rank: int = 0         # >0: PowerSGD bridge (adamw only)
@@ -158,8 +158,9 @@ class FTTrainer(Trainer):
         self.fcfg = fcfg = fcfg or FTRunConfig()
         if fcfg.use_mesh:
             raise NotImplementedError(
-                "use_mesh runs the sweeps over a lane mesh: it waits for the "
-                "port's AxisComm (ROADMAP.md queue 1, item 4)")
+                "use_mesh runs the sweeps over a lane group: it waits for "
+                "the training half of the multi-process path (ROADMAP.md "
+                "queue 1, item 4c)")
         lanes = 4 if fcfg.qr_lanes is None else fcfg.qr_lanes
         self._qr_hooks = list(qr_fault_hooks)
         for h in self._qr_hooks:

@@ -4,8 +4,8 @@
 optional microbatch accumulation, shared by the monolithic step and the
 FT runtime's grad phase so both run one program; ``make_train_step`` —
 loss, gradients and the optimizer update. ``make_pod_train_step`` (the
-cross-pod reduction) needs the port's ``AxisComm`` (``ROADMAP.md``
-queue 1, item 4) and raises until then.
+cross-pod reduction) waits for the training half of the multi-process
+path (``ROADMAP.md`` queue 1, item 4c) and raises until then.
 """
 from __future__ import annotations
 
@@ -93,4 +93,5 @@ def make_train_step(
 def make_pod_train_step(*args, **kwargs):
     raise NotImplementedError(
         "make_pod_train_step reduces over a named 'pod' axis: it waits for "
-        "the port's AxisComm (ROADMAP.md queue 1, item 4)")
+        "the training half of the multi-process path (ROADMAP.md queue 1, "
+        "item 4c)")

@@ -268,8 +268,6 @@ def test_scheme_validation():
             MDSScheme(f=f)
     assert MDSScheme(f=2).name == "mds" and MDSScheme(f=2).joint
     assert XORPairScheme().f == 1 and not XORPairScheme().joint
-    with pytest.raises(NotImplementedError):
-        tcoding._encode_axis(None, None, None)
 
 
 # -- MDSScheme(f=1) == XOR inside the port ---------------------------------------

@@ -2,7 +2,9 @@
 the card, and the port's bitwise contracts there (fused == stepped, kill
 == failure-free, online == scheduled, async == sync, MDS decode ==
 failure-free, SHRINK scheduled == online) and the QR service's (kill ==
-failure-free, drain_batched == continuous, every R == its solo sweep).
+failure-free, drain_batched == continuous, every R == its solo sweep),
+and one process per lane (``repro_torch.launch.spmd_qr``: four ranks in a
+gloo group on the one card) == the single-process run, bit for bit.
 Above 128 columns: every instantiation of the products' tile routine ==
 the oracle of its summation order (``wide.gemm_order``), and K5/K6's wide
 kernel == the stepped wide route.
@@ -44,6 +46,7 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import stacked_qr as tstacked  # noqa: E402
 from repro_torch.kernels import wide as twide  # noqa: E402
 from repro_torch.kernels import wy_apply as twy  # noqa: E402
+from repro_torch.launch import spmd_qr  # noqa: E402
 from repro_torch.serve import QRService  # noqa: E402
 
 RTOL, ATOL = tref.tolerances(torch.float32)
@@ -1039,3 +1042,97 @@ def test_cuda_wide_sweep_matches_cpu(rng, cuda):
     close(got.R, want.R)
     close(tuple(got.bundles[:3]), tuple(want.bundles[:3]))
     assert bool((got.R == got.R[:1]).all())
+
+
+# -- one process per lane on the card -------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def card_lanes():
+    """Four ranks on the card in one gloo group, spawned once after the
+    kernels are built here (the ranks load them and start no nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    from repro_torch.kernels import build
+
+    build.build_all()
+    with spmd_qr.make_lane_group(4, device="cuda", timeout_s=300.0) as g:
+        yield g
+
+
+def _ranks_launched(group):
+    stepped = ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply")
+    for r in group.last_reports:
+        assert all(r.launches[op] > 0 for op in stepped), (r.rank, r.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_loc,n,events", [
+    (6, 10, {sweep_point(1, "tsqr", 0): [2]}),
+    (8, 16, {sweep_point(0, "trailing", 0): [1],
+             sweep_point(3, "trailing", 1): [1]}),
+    (4, 24, {sweep_point(2, "trailing", 1): [2]}),
+], ids=["ragged", "aligned-2kills", "wide"])
+def test_cuda_spmd_ft_sweep_equals_single_process(rng, cuda, card_lanes,
+                                                  m_loc, n, events):
+    """The FT sweep with one process per lane at the b = 4 geometries: R,
+    factors and bundles bit-equal to the single-process run on the card
+    (and so to failure-free), the same ledger, K1-K4 launched by every
+    rank."""
+    P, b = 4, 4
+    A = rng.standard_normal((P * m_loc, n)).astype(np.float32)
+    sched = FailureSchedule(events=events)
+    got = spmd_qr.ft_caqr_sweep_spmd(A, b, sched, group=card_lanes)
+    _ranks_launched(card_lanes)
+    At = t(A).reshape(P, m_loc, n).to(cuda)
+    sim = ft_caqr_sweep(At, SimComm(P), b, schedule=sched)
+    free = caqr_factorize(At, SimComm(P), b, collect_bundles=True,
+                          use_scan=False)
+    assert _bitwise(got, sim) and _bitwise(got, free)
+    assert ([(e.point, e.lane, e.reads) for e in got.events]
+            == [(e.point, e.lane, e.reads) for e in sim.events])
+
+
+@pytest.mark.cuda
+def test_cuda_spmd_tall_b128_equals_single_process(rng, cuda, card_lanes):
+    """A tall b = 128 case across four ranks: ``caqr_factorize_spmd`` and
+    the FT sweep with a trailing kill of the root lane, bit-equal to the
+    single-process sweep on the card; K1-K4 launched by every rank."""
+    P, m_loc, n, b = 4, 1024, 512, 128
+    A = t(rng.standard_normal((P * m_loc, n)).astype(np.float32)).to(cuda)
+    At = A.reshape(P, m_loc, n)
+    free = caqr_factorize(At, SimComm(P), b, collect_bundles=True,
+                          use_scan=False)
+    got = spmd_qr.caqr_factorize_lanes(A, b, card_lanes, use_scan=False,
+                                       collect_bundles=True)
+    _ranks_launched(card_lanes)
+    assert _bitwise(got, free)
+    sched = FailureSchedule(events={sweep_point(2, "trailing", 1): [0],
+                                    sweep_point(3, "leaf"): [3]})
+    got = spmd_qr.ft_caqr_sweep_spmd(A, b, sched, group=card_lanes)
+    _ranks_launched(card_lanes)
+    assert _bitwise(got, free)
+    assert [(e.point, e.lane) for e in got.events] == [
+        (sweep_point(2, "trailing", 1), 0), (sweep_point(3, "leaf"), 3)]
+
+
+@pytest.mark.cuda
+def test_cuda_spmd_ft_sweep_with_its_own_group(rng, cuda, card_lanes):
+    """``ft_caqr_sweep_spmd`` given no group spawns one on the card
+    (``pow2_lanes()`` ranks) and closes it before it returns: the result
+    is the caller's own, read after the ranks are gone, bit-equal to the
+    single-process run on the card and with its ledger."""
+    import multiprocessing
+
+    P, m_loc, n, b = spmd_qr.pow2_lanes(), 8, 16, 4
+    A = rng.standard_normal((P * m_loc, n)).astype(np.float32)
+    sched = FailureSchedule(events={sweep_point(1, "tsqr", 0): [1]})
+    before = set(multiprocessing.active_children())
+    got = spmd_qr.ft_caqr_sweep_spmd(A, b, sched, device="cuda")
+    assert set(multiprocessing.active_children()) <= before
+    torch.cuda.ipc_collect()
+    sim = ft_caqr_sweep(t(A).reshape(P, m_loc, n).to(cuda), SimComm(P), b,
+                        schedule=sched)
+    assert _bitwise(got, sim)
+    assert ([(e.point, e.lane, e.reads) for e in got.events]
+            == [(e.point, e.lane, e.reads) for e in sim.events])
