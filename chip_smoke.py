@@ -70,13 +70,29 @@ non-zero and prints no result):
    ``MDSScheme(f=2)`` run with two simultaneous non-buddy deaths at one
    point runs on a 4096 x 512 matrix (``SPMD_MDS``), not on the tall one:
    bit-equal to failure-free, the ledger and the parity bytes equal to a
-   single-process run's. The tall matrix's joint decode across ranks is
+   single-process run's. The scheduled tall joint decode across ranks is
    not run: the scheduled driver re-encodes every protected leaf at each
-   of its points, which at the tall size is hundreds of MB a rank a point
-   through gloo. Prints each run's seconds and each rank's K1-K6
-   launches (K1-K4 must be above 0 on every rank), seconds, collectives
+   of its points across the ranks (the online run below decodes the tall
+   matrix instead, encoding on the parent). Prints each run's seconds and
+   each rank's K1-K6 launches (K1-K4 must be above 0 on every rank),
+   seconds, collectives
    and the bytes it staged between the card and host memory and sent
-   through gloo. Once the group is closed, no rank process may be left;
+   through gloo. Then the online and elastic paths over the same ranks
+   (``ft_caqr_sweep_online_spmd``, ``ft_caqr_sweep_elastic_spmd``: the
+   host orchestrator here holds the global state, each rank runs one
+   ``sweep_step`` a point and gets only the leaves that changed): failure-
+   free and with the four kills (bit-equal to the failure-free sweep, the
+   scheduled ledger); ``MDSScheme(f=2)`` on the tall matrix with two
+   simultaneous non-buddy deaths, a panel a segment (one refresh a panel
+   on the parent's global state), bit-equal to failure-free and to the
+   single-process online run with the same hooks and segments, a joint
+   decode; SHRINK with one kill, fold 8 -> 4 onto a subgroup of the first
+   four ranks (R bit-equal to the single-process online SHRINK under the
+   fold policy, its transitions and ledger, and within the f32 tolerance
+   of the failure-free R up to row signs). Each records its seconds,
+   segments, boundaries, points, the parent's seconds a point outside the
+   ranks, the runner's leaves and bytes shipped and joined, and each
+   rank's report. Once the group is closed, no rank process may be left;
    three single-process sweeps (``SPMD_RESIDUE``) are timed
    SPREAD_RUNS times each just before the ranks are spawned and again
    after, so the record shows whether the phase left the single process
@@ -336,6 +352,11 @@ SPMD_MDS = (512, 512)
 SPMD_MDS_KILL = (sweep_point(2, "trailing", L - 1), [2, 5])
 SPMD_PARITY_POINT = sweep_point(1, "leaf")
 SPMD_TIMEOUT_S = 300.0
+# the online runs over the ranks: the tall MDS f = 2 run's two non-buddy
+# deaths on a panel boundary (its segments are whole panels, so one refresh
+# a panel), and the elastic run's kill (lane, point): fold 8 -> 4
+SPMD_ONLINE_MDS_KILL = (sweep_point(20, "trailing", L - 1), [2, 5])
+SPMD_SHRINK_KILL = (3, sweep_point(8, "trailing", L - 1))
 # single-process sweeps of the spread phase timed before and after it
 SPMD_RESIDUE = ("caqr_factorize", "ft_sweep_four_kills",
                 "online_async_four_kills")
@@ -1128,10 +1149,12 @@ def spmd_ranks(group, seconds: float) -> dict:
     return dict(seconds=seconds, ranks=[r._asdict() for r in reps])
 
 
-def spmd_launches(group) -> dict:
-    """The ranks' launches of one run, summed by kernel."""
+def spmd_launches(group, parent=None) -> dict:
+    """The ranks' launches of one run, summed by kernel, and the parent's
+    (``parent``, counted from 0 before the run) where it launched too."""
+    parent = parent or {}
     return {op: sum(r.launches[op] for r in group.last_reports)
-            for op in backend.OPS}
+            + parent.get(op, 0) for op in backend.OPS}
 
 
 def spmd_timed(fn):
@@ -1149,6 +1172,154 @@ def sim_parity(A: torch.Tensor, b: int, point) -> tuple:
     pts = list(iter_sweep_points(s.geom.n_panels, s.geom.levels))
     s = sm.run_steps(comm, s, pts.index(point) + 1)
     return MDSScheme(f=2).refresh(comm, s).code
+
+
+def spmd_online(group, Af: torch.Tensor, kills: dict, elastic: bool = False,
+                **kw):
+    """``ft_caqr_sweep_online_spmd`` (or ``ft_caqr_sweep_elastic_spmd``) on
+    the whole matrix ``Af`` with a ``ScriptedKiller`` at ``kills``; returns
+    (result, record): seconds, the orchestrator's segments and boundaries,
+    the points the ranks ran, the parent's seconds a point outside the
+    ranks (everything but the wait for their answers: the orchestrator's
+    refresh, hooks, poll and recovery and the runner's shipping and
+    joins), the parent's peak memory above what was live and the card's
+    use after, the parent's own launches (REBUILD replays), the runners'
+    account and each rank's report."""
+    seen = []
+    entry = (spmd_qr.ft_caqr_sweep_elastic_spmd if elastic
+             else spmd_qr.ft_caqr_sweep_online_spmd)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    backend.reset_launches()
+    res, sec = spmd_timed(lambda: entry(
+        Af, B, group=group, fault_hooks=[ScriptedKiller(kills)],
+        boundary_hooks=[seen.append], **kw))
+    orch, steps = seen[-1], group.last_steps
+    free, total = torch.cuda.mem_get_info()
+    return res, dict(
+        spmd_ranks(group, sec),
+        parent_peak_gb_above_live=(torch.cuda.max_memory_allocated() - base)
+        / 1e9, card_used_gb_after=(total - free) / 1e9,
+        parent_launches=dict(backend.LAUNCHES),
+        segments_run=orch.segments_run,
+        boundaries=orch.boundaries, points=steps["points"],
+        parent_seconds_per_point=(sec - steps["rank_seconds"])
+        / steps["points"],
+        poll_s=orch.poll_s, recover_s=orch.recover_s, runner=steps)
+
+
+def row_signs_close(R: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |R - want| after each row's sign is fixed by its
+    diagonal, over the f32 tolerance (atol + rtol |want|): at most 1
+    passes."""
+    def fix(X):
+        s = torch.sign(torch.diagonal(X))
+        return X * torch.where(s == 0, torch.ones_like(s), s)[:, None]
+
+    rtol, atol = ref.tolerances(torch.float32)
+    R, want = fix(R.double()), fix(want.double())
+    return float(((R - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def spmd_online_phase(group, A: torch.Tensor, want: tuple,
+                      ledgers: dict) -> dict:
+    """The online and elastic paths over the ranks on the tall matrix: the
+    host orchestrator here holds the global state, each rank runs one
+    ``sweep_step`` a point. Failure-free and with the FT driver's four
+    kills (bit-equal to the failure-free sweep, so to the scheduled runs,
+    the ledger equal to the scheduled run's); ``MDSScheme(f=2)`` with two
+    simultaneous non-buddy deaths, a panel a segment (bit-equal to
+    failure-free and to the single-process online run with the same hooks
+    and segments, the same ledger, a joint decode); SHRINK with one kill,
+    fold 8 -> 4 (R bit-equal to the single-process online run, its
+    transitions and ledger, and within the f32 tolerance of the
+    failure-free R up to row signs)."""
+    Af = A.reshape(-1, N)
+    out = {}
+    # the parent holds the global state now and the ranks their slices:
+    # give the card back what the parent's allocator keeps cached
+    torch.cuda.empty_cache()
+    for path, kills, led in (
+            ("online_free", {}, []),
+            ("online_kills", {pt: [lane] for pt, lane in KILLS.items()},
+             ledgers["kills"])):
+        res, rec = spmd_online(group, Af, kills)
+        same = same_bits(flat_result(res), want)
+        got = ledger(res.events)
+        del res
+        torch.cuda.empty_cache()
+        PATH_LAUNCHES[f"spmd_{path}"] = spmd_launches(
+            group, rec["parent_launches"])
+        out[path] = dict(rec, bitwise_equal_scheduled=same,
+                         ledger_equal_scheduled=got == led)
+        check(same, f"spmd {path} differs from the scheduled sweep")
+        check(got == led, f"spmd {path} ledger {got} != {led}")
+
+    point, pair = SPMD_ONLINE_MDS_KILL
+    seg = sm.panel_points(sweep_geometry(P, M_LOC, N, B))
+    scheme = TimedScheme(MDSScheme(f=2))
+    res, rec = spmd_online(group, Af, {point: pair}, scheme=scheme,
+                           segment_points=seg)
+    t0 = time.perf_counter()
+    one = ft_caqr_sweep_online(
+        A, SimComm(P), B, fault_hooks=[ScriptedKiller({point: pair})],
+        scheme=MDSScheme(f=2), segment_points=seg)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    same = same_bits(flat_result(res), want)
+    same_one = same_bits(flat_result(res), flat_result(one))
+    led_same = ledger(res.events) == ledger(one.events)
+    events = [dict(lane=e.lane, reads=e.reads, decode_seconds=e.elapsed_s)
+              for e in res.events]
+    del res, one
+    torch.cuda.empty_cache()
+    PATH_LAUNCHES["spmd_online_mds"] = spmd_launches(
+        group, rec["parent_launches"])
+    sec = sorted(scheme.seconds)
+    out["online_mds"] = dict(
+        rec, f=2, killed=pair, point=list(point), segment_points=seg,
+        refreshes=len(sec), refresh_seconds_median=sec[len(sec) // 2],
+        refresh_seconds_min=sec[0], refresh_seconds_max=sec[-1],
+        parity_bytes_max=scheme.parity_bytes, events=events,
+        single_process_seconds=one_s, bitwise_equal_failure_free=same,
+        bitwise_equal_single_process=same_one,
+        ledger_equal_single_process=led_same)
+    check(same and same_one,
+          "spmd online MDS differs from failure-free or the single process")
+    check(led_same, "spmd online MDS ledger differs from the single process")
+    check([e["lane"] for e in events] == pair and
+          all(e["reads"].get("coded.parity1") == P + 1 for e in events),
+          f"spmd online MDS events are not a joint decode: {events}")
+
+    lane, point = SPMD_SHRINK_KILL
+    res, rec = spmd_online(group, Af, {point: [lane]}, elastic=True)
+    t0 = time.perf_counter()
+    one = ft_caqr_sweep_online(
+        A, SimComm(P), B, fault_hooks=[ScriptedKiller({point: [lane]})],
+        semantics=Semantics.SHRINK, elastic_policy="fold")
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    same = torch.equal(res.R, one.R)
+    trans = res.transitions == one.transitions and res.world == one.world
+    led_same = ledger(res.events) == ledger(one.events)
+    scaled = row_signs_close(res.R, want[0][0])
+    (t,) = res.transitions
+    PATH_LAUNCHES["spmd_elastic"] = spmd_launches(
+        group, rec["parent_launches"])
+    out["elastic_shrink"] = dict(
+        rec, killed=lane, point=list(point), frontier=t.frontier,
+        world_after=dict(n_slots=t.world_after.n_slots,
+                         live=list(t.world_after.live)),
+        single_process_seconds=one_s, R_bitwise_single_process=same,
+        transitions_equal=trans, ledger_equal=led_same,
+        R_scaled_err_failure_free=scaled)
+    del res, one
+    check(same, "spmd SHRINK R differs from the single-process online R")
+    check(trans and led_same, "spmd SHRINK transitions or ledger differ")
+    check(t.world_after.n_slots == P // 2 and rec["runner"]["worlds"]
+          == [P, P // 2], f"spmd SHRINK worlds {rec['runner']['worlds']}")
+    check(scaled <= 1.0, f"spmd SHRINK R vs failure-free: {scaled} x tol")
+    return out
 
 
 def spmd_phase(A: torch.Tensor, want: tuple, ledgers: dict, seed: int,
@@ -1257,6 +1428,7 @@ def spmd_phase(A: torch.Tensor, want: tuple, ledgers: dict, seed: int,
                 k1_launch_single_process=tpq.wide_launch_shape(P, M_LOC,
                                                                WIDE_B))
         check(same, "spmd R at b = 256 differs from the single-process one")
+        out.update(spmd_online_phase(group, A, want, ledgers))
     out["phase_seconds"] = time.perf_counter() - t0
     left = mp.active_children()
     check(not left, f"rank processes outlived their group: {left}")

@@ -326,14 +326,20 @@ class AxisComm:
 
     def xor_reduce(self, x: torch.Tensor, lane_axis: int = 0) -> torch.Tensor:
         """Bitwise-XOR reduction of an integer tensor over the lanes, the
-        unit lane axis reduced away; every lane holds the result. Exact:
-        the lanes' bytes are gathered and XORed in lane order."""
+        unit lane axis reduced away; every lane holds the result. One
+        ``all_reduce(op=BXOR)`` on a host copy: XOR is exact and
+        associative, so the bytes do not depend on the reduction order."""
         t0 = time.perf_counter()
-        parts = self._gather(x.select(lane_axis, 0))
-        out = parts[0].clone()
-        for h in parts[1:]:
-            out.bitwise_xor_(h)
-        out = self._back(out, x.device)
+        x0 = x.select(lane_axis, 0)
+        # the reduction runs in place: a CPU value is copied first
+        h = x0.clone(memory_format=torch.contiguous_format) \
+            if x0.device.type == "cpu" else self._host(x0)
+        self._dist.all_reduce(h, op=self._dist.ReduceOp.BXOR,
+                              group=self.group)
+        n = h.numel() * h.element_size()
+        self.stats.bytes_sent += n
+        self.stats.bytes_received += n
+        out = self._back(h, x.device)
         self._timed(t0)
         return out
 

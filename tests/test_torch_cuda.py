@@ -4,7 +4,9 @@ the card, and the port's bitwise contracts there (fused == stepped, kill
 failure-free, SHRINK scheduled == online) and the QR service's (kill ==
 failure-free, drain_batched == continuous, every R == its solo sweep),
 and one process per lane (``repro_torch.launch.spmd_qr``: four ranks in a
-gloo group on the one card) == the single-process run, bit for bit.
+gloo group on the one card) == the single-process run, bit for bit, and
+(eight ranks) the online and elastic sweeps over the ranks == the same
+orchestrator in one process.
 Above 128 columns: every instantiation of the products' tile routine ==
 the oracle of its summation order (``wide.gemm_order``), and K5/K6's wide
 kernel == the stepped wide route.
@@ -39,6 +41,7 @@ from repro_torch.ft import (  # noqa: E402
     sweep_point,
 )
 from repro_torch.ft.online import state as tstate  # noqa: E402
+from repro_torch.ft.online.detect import DelayedDetector, NaNSentinelDetector  # noqa: E402
 from repro_torch.kernels import backend, ops  # noqa: E402
 from repro_torch.kernels import fused_sweep as tfused  # noqa: E402
 from repro_torch.kernels import panel_qr as tpanel  # noqa: E402
@@ -1136,3 +1139,93 @@ def test_cuda_spmd_ft_sweep_with_its_own_group(rng, cuda, card_lanes):
     assert _bitwise(got, sim)
     assert ([(e.point, e.lane, e.reads) for e in got.events]
             == [(e.point, e.lane, e.reads) for e in sim.events])
+
+
+# -- the online and elastic paths over the ranks ------------------------------------
+
+
+@pytest.fixture(scope="module")
+def card_lanes8():
+    """Eight ranks on the card in one gloo group (the online entries'
+    runner ships each rank only the leaves that changed)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    from repro_torch.kernels import build
+
+    build.build_all()
+    with spmd_qr.make_lane_group(8, device="cuda", timeout_s=300.0) as g:
+        yield g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_loc,n,b", [(8, 16, 4), (512, 512, 128)],
+                         ids=["b4", "b128"])
+def test_cuda_spmd_online_and_elastic_equal_single_process(
+        rng, cuda, card_lanes8, m_loc, n, b):
+    """At 8 ranks on the card: the online sweep with two runtime kills
+    (one at a leaf point, one mid-trailing), a kill found a boundary late
+    (the killed rank's one-lane K1 runs on NaN first) and the elastic
+    SHRINK sweep (one kill, fold 8 -> 4 onto a subgroup) bit-equal to the
+    same orchestrator in one process, with its ledger and transitions;
+    K1-K4 launched by every rank."""
+    P = 8
+    A = t(rng.standard_normal((P * m_loc, n)).astype(np.float32)).to(cuda)
+    At = A.reshape(P, m_loc, n)
+    kills = {sweep_point(1, "leaf"): [5], sweep_point(2, "trailing", 1): [0]}
+    got = spmd_qr.ft_caqr_sweep_online_spmd(
+        A, b, group=card_lanes8, fault_hooks=[ScriptedKiller(kills)])
+    _ranks_launched(card_lanes8)
+    one = ft_caqr_sweep_online(At, SimComm(P), b,
+                               fault_hooks=[ScriptedKiller(kills)])
+    assert _bitwise(got, one)
+    assert ([(e.point, e.lane, e.reads) for e in got.events]
+            == [(e.point, e.lane, e.reads) for e in one.events])
+    assert [e.lane for e in got.events] == [5, 0]
+
+    # found a boundary late: lane 3's rank runs K1 of panel 2 on its NaN
+    # slices before the parent heals it
+    kill = {sweep_point(1, "trailing", 2): [3]}
+    got = spmd_qr.ft_caqr_sweep_online_spmd(
+        A, b, group=card_lanes8, fault_hooks=[ScriptedKiller(kill)],
+        detector=DelayedDetector(NaNSentinelDetector(), miss=1))
+    one = ft_caqr_sweep_online(
+        At, SimComm(P), b, fault_hooks=[ScriptedKiller(kill)],
+        detector=DelayedDetector(NaNSentinelDetector(), miss=1))
+    assert _bitwise(got, one)
+    assert [(e.point, e.lane) for e in got.events] == [
+        (sweep_point(2, "leaf"), 3)]
+
+    res = spmd_qr.ft_caqr_sweep_elastic_spmd(
+        A, b, group=card_lanes8, fault_hooks=[ScriptedKiller(kill)])
+    _ranks_launched(card_lanes8)
+    one = ft_caqr_sweep_online(At, SimComm(P), b,
+                               fault_hooks=[ScriptedKiller(kill)],
+                               semantics=Semantics.SHRINK,
+                               elastic_policy="fold")
+    assert torch.equal(res.R, one.R)
+    assert res.transitions == one.transitions and res.world == one.world
+    assert res.world.n_slots == 4
+    assert card_lanes8.last_steps["worlds"] == [8, 4]
+
+
+@pytest.mark.cuda
+def test_cuda_spmd_online_with_its_own_group(rng, cuda, card_lanes8):
+    """``ft_caqr_sweep_online_spmd`` given no group spawns ``pow2_lanes()``
+    ranks on the card and closes them before it returns: the result is the
+    caller's own, read after the ranks are gone, bit-equal to the
+    single-process online run with the same kill."""
+    import multiprocessing
+
+    P, m_loc, n, b = spmd_qr.pow2_lanes(), 8, 16, 4
+    A = rng.standard_normal((P * m_loc, n)).astype(np.float32)
+    kill = {sweep_point(1, "tsqr", 0): [1]}
+    before = set(multiprocessing.active_children())
+    got = spmd_qr.ft_caqr_sweep_online_spmd(
+        A, b, fault_hooks=[ScriptedKiller(kill)], device="cuda")
+    assert set(multiprocessing.active_children()) <= before
+    torch.cuda.ipc_collect()
+    one = ft_caqr_sweep_online(t(A).reshape(P, m_loc, n).to(cuda), SimComm(P),
+                               b, fault_hooks=[ScriptedKiller(kill)])
+    assert _bitwise(got, one)
+    assert ([(e.point, e.lane, e.reads) for e in got.events]
+            == [(e.point, e.lane, e.reads) for e in one.events])
