@@ -178,7 +178,31 @@ non-zero and prints no result):
    boundaries, poll and heal seconds, peak memory, the share of token
    assignments dropped at capacity, and the column norms of the router
    sweep's Q.
-16. wide: K1-K4 above 128 columns: K1 (and K3, K1's route on the stacked
+16. lm_serve: the LLM token engine (``repro_torch.serve.Engine``, prefill
+   then cached decode, no QR) on gemma2-2b at its published width and
+   depth (26 layers alternating local and global attention, d_model 2304,
+   8 heads, 4 kv heads, head_dim 256, d_ff 9216, vocab 256000, window
+   4096, softcaps 50 and 30, tied embeddings), random weights from
+   ``--seed``, under torch's deterministic mode. (a) bf16, 4 prompts of
+   4160 tokens (past the window), 32 greedy tokens, counters at 0 before
+   it: every local layer's decode cache holds 4096 slots and every global
+   layer's 4192, every logit finite, every token in the vocabulary, a
+   second ``generate`` bit-equal to the first, K1-K6 not launched; prints
+   the prefill's seconds, decode ms a token (median and p90, each step
+   between two synchronises), tokens per second (a second run without
+   those synchronises), peak memory and a decode step's bound (the weights
+   and caches read once at 3.35 TB/s); then one prefill and three decode
+   steps under torch.profiler: wall and device ms, the card's busy share,
+   kernels a call and the five costliest. (b) f32 at the same widths and
+   depth, 2 prompts of 4160 tokens, 8 decode steps: the prefill's logits
+   within (2e-4, 2e-4) of the no-cache forward's last position, each
+   step's within (3e-3, 3e-3) of the no-cache forward on the same prefix,
+   and each token the no-cache greedy choice where its top-two margin
+   exceeds 6e-3. Then the gate's controls: the same 8 steps with a fault
+   planted in the engine (each step's k/v written one slot early; the
+   local layers' prefill crop left unrolled), fed the same tokens and held
+   to the same no-cache logits, must each fail the gate.
+17. wide: K1-K4 above 128 columns: K1 (and K3, K1's route on the stacked
    triangles) in one cooperative launch (``csrc/panel_qr_wide.cu``: K1's
    team on sub-panels of 128 columns, on clusters or, for 8 lanes of 4096
    rows, a plain grid; the products between them and in the T join as
@@ -225,12 +249,13 @@ non-zero and prints no result):
    than four times the f32 plain version, on the columns ``leading_rank``
    keeps), K1 launched and no sub-kernel (K1's team kernel, ``wide_gemm``);
    step seconds, each ``_orth2d`` shape's share of the step, peak memory.
-17. spread: each full-width sweep (``caqr_factorize``, the state machine
+18. spread: each full-width sweep (``caqr_factorize``, the state machine
    stepped and fused, the four-kill FT sweep, the online sweeps stepped,
    fused and double-buffered) run five times: median and min-max seconds.
 
 The kernels line gives each kernel's launches on every path above, each
-counted from 0 just before the path ran (on the spmd paths ``spmd``,
+counted from 0 just before the path ran (``lm_serve``: 0 for every
+kernel; on the spmd paths ``spmd``,
 ``spmd_kill``, ``spmd_mds`` and ``spmd_b256``, the sum of the ranks' own
 counters); its ``wide_gemm`` record counts
 the products' kernel's launches inside the wide calls
@@ -292,8 +317,10 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.pipeline import DataConfig  # noqa: E402
 from repro_torch.launch import spmd_qr  # noqa: E402
 from repro_torch.launch.serve_qr import make_requests  # noqa: E402
+from repro_torch.models import attention as t_attn  # noqa: E402
 from repro_torch.models import moe as t_moe  # noqa: E402
-from repro_torch.serve import QRService  # noqa: E402
+from repro_torch.models import transformer as t_tf  # noqa: E402
+from repro_torch.serve import Engine, QRService, ServeConfig  # noqa: E402
 from repro_torch.train import TrainConfig, Trainer  # noqa: E402
 from repro_torch.train.ftrun import (  # noqa: E402
     FTRunConfig,
@@ -432,6 +459,18 @@ WIDE_END_KILLS = {sweep_point(3, "trailing", L - 1): 5,
 MUON_K1 = {"wq": (2048, 2048), "w_mlp": (5632, 2048), "wk_leaf": (512, 256),
            "wk_step": (768, 256)}
 MUON_STEPS = 3
+# the lm_serve phase: the token engine on gemma2-2b at its published width
+# and depth, prompts longer than its sliding window of 4096 (bf16, greedy);
+# then the f32 parity run, held to the no-cache forward
+LM_ARCH = "gemma2-2b"
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 4160, 32
+LM_F32_BATCH, LM_F32_STEPS = 2, 8
+LM_PREFILL_TOL = (2e-4, 2e-4)   # prefill logits against the no-cache forward
+LM_DECODE_TOL = (3e-3, 3e-3)    # the reference's decode tolerance
+LM_MARGIN = 6e-3                # top-two margin above which tokens must agree
+# faults planted in the engine for the decode gate's controls: each must
+# fail the gate that the sound run passes
+LM_FAULTS = ("stale_slot", "no_roll")
 # launches of every kernel on every path, counters at 0 before each path
 PATH_LAUNCHES = {}
 # the wide paths' launches of the kernels inside a wide call
@@ -2331,6 +2370,270 @@ def moe_runs(seed: int, d: str, card: str) -> dict:
     return report
 
 
+class StepRecorder:
+    """Wraps an engine's ``_prefill`` or ``_step``: keeps each call's
+    logits (all of them, or the last only), whether every logit so far is
+    finite (a device flag, read after the run), the caches the first call
+    was given, and, when ``sync``, each call's seconds between two
+    synchronises."""
+
+    def __init__(self, fn, sync: bool, keep_all: bool):
+        self.fn, self.sync, self.keep_all = fn, sync, keep_all
+        self.seconds, self.logits, self.finite, self.caches = [], [], None, None
+
+    def __call__(self, *args):
+        if self.caches is None and len(args) == 4:
+            self.caches = args[3]
+        if self.sync:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        logits, caches = self.fn(*args)
+        if self.sync:
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+        ok = torch.isfinite(logits).all()
+        self.finite = ok if self.finite is None else self.finite & ok
+        self.logits = (self.logits + [logits]) if self.keep_all else [logits]
+        return logits, caches
+
+
+def lm_generate(engine: Engine, prompts: np.ndarray, sync: bool, keep_all: bool = False):
+    """One ``Engine.generate`` with its prefill and step recorded; the
+    wall seconds end in a synchronise (``generate`` returns numpy)."""
+    prefill, step = engine._prefill, engine._step
+    engine._prefill = rp = StepRecorder(prefill, sync, keep_all)
+    engine._step = rs = StepRecorder(step, sync, keep_all)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.generate(prompts)
+        seconds = time.perf_counter() - t0
+    finally:
+        engine._prefill, engine._step = prefill, step
+    return out, seconds, rp, rs
+
+
+def lm_profile(engine: Engine, prompts: np.ndarray, caches, token: np.ndarray,
+               steps: int = 3) -> dict:
+    """One prefill and ``steps`` decode steps (at the last position the
+    run's caches hold, fed the last token) under torch.profiler: wall and
+    device ms of each, the card's busy share, device kernels a call and
+    the five kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tokens = torch.from_numpy(prompts).cuda()
+    tok = torch.from_numpy(token[:, None]).cuda()
+    pos = LM_PROMPT + LM_NEW - 1
+    calls = {"prefill": (lambda: engine._prefill(engine.params, {"tokens": tokens}), 1),
+             "decode_step": (lambda: engine._step(engine.params, tok, pos, caches), steps)}
+    out = {}
+    with torch.no_grad():
+        for name, (fn, reps) in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / reps
+            dev = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            device = sum(_device_us(e) for e in dev) / 1e3 / reps
+            top = sorted(dev, key=_device_us, reverse=True)[:5]
+            out[name] = dict(
+                wall_ms=wall, device_ms=device, busy_share=device / wall,
+                kernels=sum(e.count for e in dev) / reps,
+                top=[[e.key[:80], _device_us(e) / 1e3 / reps] for e in top])
+    return out
+
+
+def nbytes(t) -> int:
+    return sum(x.numel() * x.element_size() for x in tree.leaves(t))
+
+
+def lm_serve_phase(seed: int, card: str) -> None:
+    """The token engine on gemma2-2b at its published width and depth (see
+    the module docstring), under torch's deterministic mode."""
+    t_phase = time.perf_counter()
+    # what the trainers left in reference cycles goes before the engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    with deterministic_mode():
+        report = lm_published(seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["f32_parity"] = lm_parity(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["phase_seconds"] = time.perf_counter() - t_phase
+    emit({"lm_serve": dict(**report, card=card)})
+
+
+def lm_published(seed: int) -> dict:
+    """(a) bf16, B = 4 prompts of 4160 tokens, 32 greedy tokens: the
+    caches' slots, finite logits, tokens in the vocabulary, a second run
+    bit-equal; prefill seconds, decode ms a token, tokens/s, peak memory
+    and the bound of a decode step (weights and caches read once)."""
+    cfg = get_config(LM_ARCH)
+    params = t_tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed + 7))
+    prompts = np.random.default_rng(seed + 7).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    engine = Engine(cfg, params, ServeConfig(max_new_tokens=LM_NEW), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launches()
+    out, timed_s, rp, rs = lm_generate(engine, prompts, sync=True)
+    PATH_LAUNCHES["lm_serve"] = dict(backend.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    # the second run is not synchronised a step: its wall time is the
+    # engine's own
+    out2, wall_s, rp2, rs2 = lm_generate(engine, prompts, sync=False)
+    caches = rs.caches
+    slots = {path: int(x.shape[-3]) for path, x in tree.flatten_with_path(caches)}
+    total = LM_PROMPT + LM_NEW
+    want_slots = {f"groups/l{i}/.{f}": (min(cfg.sliding_window, total)
+                                        if cfg.mixer_at(i) == "L" else total)
+                  for i in range(cfg.pattern_period) for f in "kv"}
+    step_bytes = nbytes(params) + nbytes(caches)
+    bms, by = bound_ms(2.0 * LM_BATCH * sum(x.numel() for x in tree.leaves(params)),
+                       step_bytes)
+    step_ms = np.array(rs.seconds) * 1e3
+    same = (np.array_equal(out, out2) and torch.equal(rs.logits[-1], rs2.logits[-1])
+            and torch.equal(rp.logits[-1], rp2.logits[-1]))
+    prof = lm_profile(engine, prompts, caches, out2[:, -1])
+    finite = bool(rp.finite & rs.finite)
+    report = dict(
+        arch=LM_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hdim,
+        d_ff=cfg.d_ff, vocab=cfg.vocab, sliding_window=cfg.sliding_window,
+        dtype=cfg.dtype, params=sum(x.numel() for x in tree.leaves(params)),
+        param_bytes=nbytes(params), cache_bytes=nbytes(caches),
+        batch=LM_BATCH, prompt_len=LM_PROMPT, max_new_tokens=LM_NEW,
+        cache_slots=slots, prefill_s=rp.seconds[0],
+        decode_ms_median=float(np.median(step_ms)),
+        decode_ms_p90=float(np.percentile(step_ms, 90)),
+        decode_steps=len(step_ms), generate_s_timed=timed_s, generate_s=wall_s,
+        tokens_per_s=LM_BATCH * LM_NEW / wall_s,
+        decode_tokens_per_s=LM_BATCH * 1e3 / float(np.median(step_ms)),
+        decode_bound_ms=bms, decode_bound_by=by, decode_bytes_per_step=step_bytes,
+        peak_memory_bytes=peak, second_run_bitwise_equal=same, profile=prof,
+        launches=PATH_LAUNCHES["lm_serve"], tokens_row0=out[0].tolist())
+    del engine, params, caches, rs, rs2, rp, rp2
+    check(slots == want_slots, f"lm_serve: cache slots {slots}, not {want_slots}")
+    check(finite, "lm_serve: a logit is not finite")
+    check(out.shape == (LM_BATCH, LM_NEW) and ((out >= 0) & (out < cfg.vocab)).all(),
+          f"lm_serve: tokens {out.shape} outside the vocabulary")
+    check(same, "lm_serve: a second generate differs from the first")
+    check(not any(PATH_LAUNCHES["lm_serve"].values()),
+          f"lm_serve: a QR kernel ran {PATH_LAUNCHES['lm_serve']}")
+    return report
+
+
+def lm_parity(seed: int) -> dict:
+    """(b) f32 at the same widths and depth, B = 2 prompts of 4160 tokens, 8
+    decode steps: the prefill's logits against the no-cache forward's
+    last-position logits, each step's against the no-cache forward on the
+    same prefix, and the tokens against the no-cache greedy choice where
+    its top-two margin exceeds ``LM_MARGIN`` (a row is held up to its
+    first step under the margin)."""
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    params = t_tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed + 8))
+    prompts = np.random.default_rng(seed + 8).integers(
+        0, cfg.vocab, (LM_F32_BATCH, LM_PROMPT)).astype(np.int32)
+    engine = Engine(cfg, params, ServeConfig(max_new_tokens=LM_F32_STEPS + 1),
+                    device="cuda")
+    out, seconds, rp, rs = lm_generate(engine, prompts, sync=False, keep_all=True)
+    got = [rp.logits[0][:, -1]] + [lg[:, -1] for lg in rs.logits]
+    errs, abs_errs, wants, margins, held = [], [], [], [], 0
+    t0 = time.perf_counter()
+    live = np.ones(LM_F32_BATCH, bool)
+    with torch.no_grad():
+        for t, lg in enumerate(got):
+            toks = np.concatenate([prompts, out[:, :t]], axis=1)
+            hidden, _, _ = t_tf.forward(cfg, params, torch.from_numpy(toks).cuda())
+            want = t_tf.logits_fn(cfg, params, hidden[:, -1:])[:, -1]
+            del hidden
+            wants.append(want)
+            rtol, atol = LM_PREFILL_TOL if t == 0 else LM_DECODE_TOL
+            excess = tol_excess(lg, want, rtol)
+            errs.append(excess)
+            abs_errs.append(float((lg - want).abs().max()))
+            check(excess <= atol,
+                  f"lm_serve f32: step {t} logits off by {excess} over "
+                  f"atol {atol} (rtol {rtol})")
+            top2 = torch.topk(want, 2, dim=-1)
+            margin = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+            best = top2.indices[:, 0].cpu().numpy()
+            margins.append(margin.tolist())
+            live &= margin > LM_MARGIN
+            check(bool((out[live, t] == best[live]).all()),
+                  f"lm_serve f32: step {t} tokens {out[:, t]} not the no-cache "
+                  f"greedy {best} (margins {margin})")
+            held += int(live.sum())
+    forward_s = time.perf_counter() - t0
+    del got, rp, rs
+    t0 = time.perf_counter()
+    controls = {fault: lm_planted(engine, cfg, prompts, out, wants, fault)
+                for fault in LM_FAULTS}
+    controls_s = time.perf_counter() - t0
+    del engine, params, wants
+    check(held > 0, "lm_serve f32: no token held (every margin under the limit)")
+    for fault, c in controls.items():
+        check(max(c["excess_over_rtol"]) > LM_DECODE_TOL[1],
+              f"lm_serve f32: the gate passes the planted {fault} fault: {c}")
+    return dict(dtype=cfg.dtype, batch=LM_F32_BATCH, prompt_len=LM_PROMPT,
+                decode_steps=LM_F32_STEPS, generate_s=seconds,
+                no_cache_forwards_s=forward_s, prefill_tol=LM_PREFILL_TOL,
+                decode_tol=LM_DECODE_TOL, margin=LM_MARGIN,
+                excess_over_rtol=errs, max_abs_err=abs_errs, margins=margins,
+                tokens_held=held, tokens_compared=LM_F32_BATCH * len(errs),
+                controls=controls, controls_s=controls_s)
+
+
+def tol_excess(got: torch.Tensor, want: torch.Tensor, rtol: float) -> float:
+    """The largest ``|got - want| - rtol |want|``: allclose's test,
+    ``|got - want| <= atol + rtol |want|``, holds where it is at most atol."""
+    return float(((got - want).abs() - rtol * want.abs()).max())
+
+
+def lm_planted(engine: Engine, cfg, prompts: np.ndarray, out: np.ndarray,
+               wants: list, fault: str) -> dict:
+    """The decode gate's control: a fresh prefill, the engine's relayout and
+    ``LM_F32_STEPS`` steps fed the sound run's tokens, with ``fault``
+    planted, each step's logits held to the sound run's no-cache ``wants``.
+    ``stale_slot`` writes each step's k/v one slot early, at (pos - 1) %
+    S_cache (the slot it should fill stays stale, the one before loses its
+    token); ``no_roll`` leaves the local layers' prefill crop unrolled, so
+    each step overwrites a token still in the window and keeps one that
+    has left it."""
+    S0 = prompts.shape[1]
+    total = S0 + engine.scfg.max_new_tokens
+    update = t_attn.cache_update
+    excess, abs_err = [], []
+    with torch.no_grad():
+        _, caches = engine._prefill(engine.params,
+                                    {"tokens": torch.from_numpy(prompts).cuda()})
+        caches = engine._relayout(caches, S0, total)
+        if fault == "no_roll":
+            shift = -(S0 % cfg.sliding_window)
+            for i in range(cfg.pattern_period):
+                if cfg.mixer_at(i) == "L":
+                    caches["groups"][f"l{i}"] = t_attn.KVCache(*(
+                        torch.roll(x, shift, dims=-3)
+                        for x in caches["groups"][f"l{i}"]))
+        elif fault == "stale_slot":
+            t_attn.cache_update = lambda c, k, v, pos: update(c, k, v, pos - 1)
+        try:
+            for t in range(LM_F32_STEPS):
+                tok = torch.from_numpy(out[:, t:t + 1]).cuda()
+                lg, caches = engine._step(engine.params, tok, S0 + t, caches)
+                excess.append(tol_excess(lg[:, -1], wants[t + 1], LM_DECODE_TOL[0]))
+                abs_err.append(float((lg[:, -1] - wants[t + 1]).abs().max()))
+        finally:
+            t_attn.cache_update = update
+    return dict(excess_over_rtol=excess, max_abs_err=abs_err)
+
+
 def wide_record(op: str, args: tuple, cost: tuple, lib, reps: int) -> dict:
     """One kernel above 128 columns against its plain version (within the
     tolerance, scaled as ``max_err`` scales it): events' time, device time
@@ -2922,6 +3225,7 @@ def main() -> int:
     serve_phase(args.seed, card)
     train_phase(args.seed, card)
     moe_phase(args.seed, card)
+    lm_serve_phase(args.seed, card)
     wide_records, gemm_rec = wide_phase(A, rng, args.seed, card)
     spread_phase(A)
     for rec in records:

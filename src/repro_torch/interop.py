@@ -22,6 +22,11 @@ flattened path strings (``repro.ckpt.save._flatten``, e.g.
 ``params_from_arrays`` and ``opt_state_from_arrays`` build the port's
 trees from them, ``params_to_arrays`` and ``opt_state_to_arrays`` are the
 inverse. The checkpoint files of ``ckpt/save.py`` hold the same keys.
+Decode caches cross the same way (``groups/l0/.k``, ``rem0/.v``):
+``caches_from_arrays`` builds the port's cache tree, shaped as
+``init_caches`` shapes it, from a flattened JAX cache tree, so a cache the
+JAX package's prefill made can be replayed by the port's ``decode_step``;
+``caches_to_arrays`` is the inverse.
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ from repro_torch.ft.driver import RecoveryEvent
 from repro_torch.ft.elastic import ElasticSweepResult, LaneWorld, TransitionEvent
 from repro_torch.ft.online.state import SweepState, sweep_state_from_host
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.models.transformer import param_template
+from repro_torch.models.transformer import init_caches, param_template
 from repro_torch.optim.adamw import adamw
 from repro_torch.optim.caqr_muon import caqr_muon
 
@@ -118,6 +123,24 @@ def params_to_arrays(params) -> Dict[str, np.ndarray]:
     """Numpy arrays of a parameter tree keyed by path string (bfloat16
     widened to float32)."""
     return _flatten(params)
+
+
+def caches_from_arrays(flat: Mapping[str, np.ndarray], cfg, batch: int,
+                       seq_len: int, device="cuda"):
+    """The port's decode caches for ``cfg`` at ``(batch, seq_len)`` from
+    arrays keyed by the JAX package's path strings (``save._flatten`` of a
+    JAX cache tree); each array must have its ``init_caches`` shape."""
+    like = init_caches(cfg, batch, seq_len, device="meta")
+    for path, t in tree.flatten_with_path(like):
+        got = tuple(np.shape(flat[path]))
+        if got != tuple(t.shape):
+            raise ValueError(f"{path}: shape {got}, decode layout {tuple(t.shape)}")
+    return fill(like, flat, resolve_device(device))
+
+
+def caches_to_arrays(caches) -> Dict[str, np.ndarray]:
+    """Numpy arrays of a cache tree keyed by path string."""
+    return _flatten(caches)
 
 
 def opt_state_from_arrays(flat: Mapping[str, np.ndarray], params,

@@ -1,4 +1,5 @@
-"""Launchers of the port (counterpart of ``src/repro/launch/``): the QR
+"""Launchers of the port (counterpart of ``src/repro/launch/``): the token
+engine's serving launcher, ``python -m repro_torch.launch.serve``, the QR
 service driver, ``python -m repro_torch.launch.serve_qr``, the training
 driver, ``python -m repro_torch.launch.train``, and ``spmd_qr``, the
 FT-CAQR sweep with one process per lane (spawned ranks in a gloo group:

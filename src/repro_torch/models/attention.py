@@ -1,5 +1,5 @@
 """Attention token mixer: GQA/MQA, RoPE, sliding window, softcaps (port of
-``src/repro/models/attention.py``, its full-attention path).
+``src/repro/models/attention.py``: its full-attention and decode paths).
 
 ``full_attention`` is written as the reference writes it: the logits
 product in float32 (the JAX package's ``preferred_element_type``; a
@@ -9,17 +9,33 @@ softmax in float32, cast back to the activation dtype, then probs . V.
 ``F.scaled_dot_product_attention`` is not used: its arithmetic differs
 from the reference's and the backend it picks is not pinned.
 
-The streaming ``chunked_attention`` (taken at S >= attn_chunk_threshold),
-``decode_attention`` and ``cache_update`` wait for the LLM engine's port
-(``ROADMAP.md`` queue 1, item 8).
+``decode_attention`` is one query token against a ``KVCache`` with the
+same arithmetic: entries past ``pos`` are masked, and a rolling cache
+(a sliding-window layer, ``S_cache == window``) has every slot valid once
+``pos >= S_cache``. ``cache_update`` writes a step's k/v at
+``pos % S_cache`` in place into the preallocated cache and returns it
+(the JAX package returns a new array; copying every layer's cache each
+token would move the whole cache). The reference's ``attn_forward`` has
+no counterpart: the model's mixer (``transformer._apply_mixer``) composes
+``project_qkv``, ``full_attention`` or ``decode_attention``, and ``wo``,
+and keeps the prefill's k/v. The streaming ``chunked_attention`` (taken
+at S >= attn_chunk_threshold) waits for its port (``ROADMAP.md`` queue
+1, item 8b); the mixer raises ``chunked_unported`` in its place.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.models.common import rope, softcap
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, S_cache, Kv, Dh)
+    v: torch.Tensor  # (B, S_cache, Kv, Dh)
+    # rolling caches (sliding-window layers): S_cache == window and writes
+    # wrap modulo the window.
 
 
 class AttnParams(NamedTuple):
@@ -76,42 +92,58 @@ def full_attention(
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh)
 
 
-def attn_forward(
-    p: AttnParams,
-    x: torch.Tensor,                 # (B, S, D)
+def chunked_unported() -> NotImplementedError:
+    return NotImplementedError(
+        "chunked_attention (S >= attn_chunk_threshold) waits for its port "
+        "(ROADMAP.md queue 1, item 8b)")
+
+
+def decode_attention(
+    q1: torch.Tensor,           # (B, 1, H, Dh)
+    cache: KVCache,
+    pos: int,                   # current position (tokens already cached)
     *,
-    n_heads: int,
     n_kv: int,
-    head_dim: int,
-    rope_theta: float,
-    causal: bool = True,
     window: Optional[int] = None,
     cap: Optional[float] = None,
-    positions: Optional[torch.Tensor] = None,
-    use_rope: bool = True,
-    kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-    chunked: bool = False,
-    q_chunk: int = 2048,
-    kv_chunk: int = 2048,
-    schedule: str = "scan",
 ) -> torch.Tensor:
-    if chunked:
-        raise NotImplementedError(
-            "chunked_attention (S >= attn_chunk_threshold) waits for the LLM "
-            "engine's port (ROADMAP.md queue 1, item 8)")
-    B, S, D = x.shape
-    if positions is None:
-        positions = torch.arange(S, device=x.device)[None, :]
+    """One-token attention against the cache (already holding this step's
+    k/v at index pos % S_cache). Entries beyond pos are masked."""
+    B, S_cache, Kv, Dh = cache.k.shape
+    H = q1.shape[2]
+    G = H // n_kv
+    scale = Dh ** -0.5
+    qh = q1.reshape(B, 1, n_kv, G, Dh).permute(0, 2, 3, 1, 4)  # (B,Kv,G,1,Dh)
+    kh = cache.k.permute(0, 2, 1, 3)
+    vh = cache.v.permute(0, 2, 1, 3)
+    idx = torch.arange(S_cache, device=q1.device)
+    valid = idx <= pos
+    if window is not None:
+        # rolling cache: all S_cache == window slots valid once warm
+        valid = valid | (pos >= S_cache)
+    bias = torch.where(valid, 0.0, -1e30).to(torch.float32)[None, :]
+    logits = _sdpa_block(qh, kh, bias, cap, scale)  # (B,Kv,G,1,S)
+    probs = torch.softmax(logits, dim=-1).to(q1.dtype)
+    out = torch.matmul(probs, vh.unsqueeze(2))
+    return out.permute(0, 3, 1, 2, 4).reshape(B, 1, H, Dh)
+
+
+def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                 pos: int) -> KVCache:
+    """Write this step's k/v (B,1,Kv,Dh) at pos (modulo a rolling window),
+    in place, and return the cache."""
+    slot = pos % cache.k.shape[1]
+    cache.k[:, slot:slot + 1] = k_new
+    cache.v[:, slot:slot + 1] = v_new
+    return cache
+
+
+def project_qkv(p: AttnParams, x: torch.Tensor, *, n_heads: int, n_kv: int,
+                head_dim: int, rope_theta: float, positions: torch.Tensor):
+    """q, k and v of ``x`` (B, S, D), RoPE at ``positions`` on q and k."""
+    B, S, _ = x.shape
     q = (x @ p.wq).reshape(B, S, n_heads, head_dim)
-    if kv_override is None:
-        k = (x @ p.wk).reshape(B, S, n_kv, head_dim)
-        v = (x @ p.wv).reshape(B, S, n_kv, head_dim)
-        if use_rope:
-            q = rope(q, positions, rope_theta)
-            k = rope(k, positions, rope_theta)
-    else:
-        k, v = kv_override
-        if use_rope:
-            q = rope(q, positions, rope_theta)
-    o = full_attention(q, k, v, n_kv=n_kv, causal=causal, window=window, cap=cap)
-    return o.reshape(B, S, n_heads * head_dim) @ p.wo
+    k = (x @ p.wk).reshape(B, S, n_kv, head_dim)
+    v = (x @ p.wv).reshape(B, S, n_kv, head_dim)
+    return (rope(q, positions, rope_theta), rope(k, positions, rope_theta), v)
+

@@ -16,9 +16,15 @@ reference sums them: per group over its layers, then over the groups in
 order, then the remainder layers.
 
 Ported kinds: mixers 'G' and 'L' (attention with ``window =
-cfg.sliding_window``), ffn 'D', 'E' and 'N'. Mixers 'M' and 'R', the
-encoder and the VLM stub raise ``NotImplementedError`` (``ROADMAP.md``
-queue 1, item 10), and so do the prefill and decode modes (item 8).
+cfg.sliding_window``), ffn 'D', 'E' and 'N', in the three modes of the
+reference's ``_apply_mixer``: ``train``, ``prefill`` (the full pass plus
+each layer's ``KVCache`` of the roped k and the v of the whole prompt) and
+``decode`` (one token at ``pos`` against the caches of ``init_caches``,
+written in place). The cache tree is the reference's, ``{"groups":
+{"l{i}": KVCache stacked on a leading (n_groups,) axis}, "rem{r}":
+KVCache}``; ``decode_step`` is one token of cached decoding. Mixers 'M'
+and 'R', the encoder and the VLM stub raise ``NotImplementedError``
+(``ROADMAP.md`` queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
 from repro_torch.models import moe as moem
@@ -146,23 +153,38 @@ def param_template(cfg: ModelConfig) -> Dict:
 # ---------------------------------------------------------------------------
 
 
-def _apply_layer(cfg: ModelConfig, mixer: str, ffn: str, lp: Dict,
-                 x: torch.Tensor, *, positions
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns ``(x, aux_loss)``."""
-    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+def _apply_mixer(cfg: ModelConfig, mixer: str, lp: Dict, x: torch.Tensor, *,
+                 positions, mode: str, cache, pos):
+    """Returns ``(out, new_cache)``: the k/v of the whole sequence in
+    prefill mode, ``cache`` written at ``pos`` in decode mode, None in
+    train mode."""
     if mixer not in ("G", "L"):
         raise _unported(f"mixer {mixer!r}")
-    chunked = x.shape[1] >= cfg.attn_chunk_threshold
-    h = attn.attn_forward(
-        lp["attn"], h,
-        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hdim,
-        rope_theta=cfg.rope_theta, causal=True,
-        window=cfg.sliding_window if mixer == "L" else None,
-        cap=cfg.attn_softcap, positions=positions, chunked=chunked,
-        q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk,
-        schedule=cfg.attn_schedule,
-    )
+    window = cfg.sliding_window if mixer == "L" else None
+    p: attn.AttnParams = lp["attn"]
+    B, S, _ = x.shape
+    H, Kv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
+    if mode != "decode" and S >= cfg.attn_chunk_threshold:
+        raise attn.chunked_unported()
+    q, k, v = attn.project_qkv(p, x, n_heads=H, n_kv=Kv, head_dim=Dh,
+                               rope_theta=cfg.rope_theta, positions=positions)
+    if mode == "decode":
+        new_cache = attn.cache_update(cache, k, v, pos)
+        o = attn.decode_attention(q, new_cache, pos, n_kv=Kv, window=window,
+                                  cap=cfg.attn_softcap)
+    else:
+        o = attn.full_attention(q, k, v, n_kv=Kv, causal=True, window=window,
+                                cap=cfg.attn_softcap)
+        new_cache = attn.KVCache(k=k, v=v) if mode == "prefill" else None
+    return o.reshape(B, S, H * Dh) @ p.wo, new_cache
+
+
+def _apply_layer(cfg: ModelConfig, mixer: str, ffn: str, lp: Dict,
+                 x: torch.Tensor, *, positions, mode: str, cache, pos):
+    """Returns ``(x, new_cache, aux_loss)``."""
+    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    h, new_cache = _apply_mixer(cfg, mixer, lp, h, positions=positions,
+                                mode=mode, cache=cache, pos=pos)
     if cfg.post_norms:
         h = rms_norm(h, lp["post_norm1"], cfg.norm_eps)
     x = x + h
@@ -179,53 +201,76 @@ def _apply_layer(cfg: ModelConfig, mixer: str, ffn: str, lp: Dict,
         if cfg.post_norms:
             h2 = rms_norm(h2, lp["post_norm2"], cfg.norm_eps)
         x = x + h2
-    return x, aux
+    return x, new_cache, aux
+
+
+def _unbind_groups(stacked, n_groups: int) -> list:
+    """The per-group slices of a tree stacked on a leading (n_groups,) axis:
+    one ``unbind`` a leaf (views; a parameter's gradient is one stack)."""
+    slices = {path: torch.unbind(leaf)
+              for path, leaf in tree.flatten_with_path(stacked)}
+    return [tree.unflatten_like(stacked, {p: s[g] for p, s in slices.items()})
+            for g in range(n_groups)]
 
 
 def _apply_stack(cfg: ModelConfig, params, x: torch.Tensor, *, positions,
-                 mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns ``(x, aux_total)``."""
+                 mode: str, caches, pos):
+    """Returns ``(x, new_caches, aux_total)``; ``new_caches`` is None in
+    train mode. Decode writes into ``caches`` in place and returns them."""
     period, n_groups, n_rem = _groups(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_caches: Dict[str, Any] = {"groups": None}
 
-    def group_body(x, gp):
+    def group_body(x, gp, gcache):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        out = {}
         for i in range(period):
-            x, a = _apply_layer(cfg, cfg.mixer_at(i), cfg.ffn_at(i),
-                                gp[f"l{i}"], x, positions=positions)
+            c = gcache[f"l{i}"] if gcache is not None else None
+            x, out[f"l{i}"], a = _apply_layer(
+                cfg, cfg.mixer_at(i), cfg.ffn_at(i), gp[f"l{i}"], x,
+                positions=positions, mode=mode, cache=c, pos=pos)
             aux = aux + a
-        return x, aux
+        return x, out, aux
 
     if n_groups:
         K = cfg.remat_group if (mode == "train" and n_groups % cfg.remat_group == 0) else 1
-        paths = tree.flatten_with_path(params["groups"])
-        # one unbind per stacked leaf: its gradient is a single stack
-        slices = {path: torch.unbind(leaf) for path, leaf in paths}
-        gps = [tree.unflatten_like(params["groups"],
-                                   {p: s[g] for p, s in slices.items()})
-               for g in range(n_groups)]
+        gps = _unbind_groups(params["groups"], n_groups)
+        gcs = (_unbind_groups(caches["groups"], n_groups) if mode == "decode"
+               else [None] * n_groups)
         remat = cfg.remat == "layer" and mode == "train" and torch.is_grad_enabled()
 
         def span(x, *chunk):
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for gp in chunk:
-                x, a = group_body(x, gp)
+                x, _, a = group_body(x, gp, None)
                 aux = aux + a
             return x, aux
 
-        for g0 in range(0, n_groups, K):
-            chunk = gps[g0:g0 + K]
-            if remat:
-                x, aux = checkpoint(span, x, *chunk, use_reentrant=False)
-            else:
-                x, aux = span(x, *chunk)
-            aux_total = aux_total + aux
+        if mode == "train":
+            for g0 in range(0, n_groups, K):
+                chunk = gps[g0:g0 + K]
+                if remat:
+                    x, aux = checkpoint(span, x, *chunk, use_reentrant=False)
+                else:
+                    x, aux = span(x, *chunk)
+                aux_total = aux_total + aux
+        else:
+            per_group = []
+            for gp, gc in zip(gps, gcs):
+                x, nc, a = group_body(x, gp, gc)
+                per_group.append(nc)
+                aux_total = aux_total + a
+            new_caches["groups"] = (
+                caches["groups"] if mode == "decode"
+                else tree.map(lambda *xs: torch.stack(xs), *per_group))
     for r in range(n_rem):
         li = n_groups * period + r
-        x, a = _apply_layer(cfg, cfg.mixer_at(li), cfg.ffn_at(li),
-                            params[f"rem{r}"], x, positions=positions)
+        c = caches[f"rem{r}"] if mode == "decode" else None
+        x, new_caches[f"rem{r}"], a = _apply_layer(
+            cfg, cfg.mixer_at(li), cfg.ffn_at(li), params[f"rem{r}"], x,
+            positions=positions, mode=mode, cache=c, pos=pos)
         aux_total = aux_total + a
-    return x, aux_total
+    return x, (None if mode == "train" else new_caches), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -237,19 +282,20 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
             patch_embeds: Optional[torch.Tensor] = None,
             enc_frames: Optional[torch.Tensor] = None,
             mode: str = "train", caches=None, pos=None):
-    """Returns (hidden (B,S,D), new_caches (None), aux_loss)."""
-    if mode != "train" or caches is not None or pos is not None:
-        raise NotImplementedError(
-            "prefill and decode wait for the LLM engine's port "
-            "(ROADMAP.md queue 1, item 8)")
+    """Returns (hidden (B,S,D), new_caches, aux_loss). ``mode`` is
+    ``train`` (no caches), ``prefill`` (returns each layer's cache of the
+    whole sequence) or ``decode`` (``caches`` from ``init_caches``, the
+    tokens at position ``pos``)."""
     if patch_embeds is not None or enc_frames is not None:
         raise _unported("the encoder / VLM stub")
     x = embed(tokens, params["embed"], scale=cfg.embed_scale)
     S = tokens.shape[1]
-    positions = torch.arange(S, device=x.device)[None]
-    x, aux = _apply_stack(cfg, params, x, positions=positions, mode=mode)
+    positions = (torch.arange(S, device=x.device)[None] if pos is None
+                 else torch.full((1, S), pos, device=x.device))
+    x, new_caches, aux = _apply_stack(cfg, params, x, positions=positions,
+                                      mode=mode, caches=caches, pos=pos)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, None, aux
+    return x, new_caches, aux
 
 
 def _table(cfg: ModelConfig, params) -> torch.Tensor:
@@ -295,3 +341,47 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict) -> Tuple[torch.Tensor, Dict]:
             total = total + ce_chunk(hf[sl], lf[sl])
     loss = total / N + 0.01 * aux
     return loss, {"ce": total / N, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# Decode path
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg: ModelConfig, batch: int, seq_len: int, device="cuda"):
+    """Zero caches for decode at cache length ``seq_len`` on ``device``
+    (sliding-window layers get a rolling cache of window size); raises
+    without CUDA unless ``device="cpu"``."""
+    if cfg.encoder is not None or cfg.vlm is not None:
+        raise _unported("the encoder / VLM stub")
+    dev = resolve_device(device)
+    period, n_groups, n_rem = _groups(cfg)
+    shape = (n_groups,) if n_groups else ()
+
+    def layer_cache(mixer, lead=()):
+        if mixer == "G":
+            S_c = seq_len
+        elif mixer == "L":
+            S_c = min(cfg.sliding_window, seq_len)
+        else:
+            raise _unported(f"mixer {mixer!r}")
+        zeros = lambda: torch.zeros(  # noqa: E731
+            lead + (batch, S_c, cfg.n_kv_heads, cfg.hdim),
+            dtype=cfg.torch_dtype, device=dev)
+        return attn.KVCache(k=zeros(), v=zeros())
+
+    caches: Dict[str, Any] = {}
+    if n_groups:
+        caches["groups"] = {f"l{i}": layer_cache(cfg.mixer_at(i), shape)
+                            for i in range(period)}
+    for r in range(n_rem):
+        caches[f"rem{r}"] = layer_cache(cfg.mixer_at(n_groups * period + r))
+    return caches
+
+
+def decode_step(cfg: ModelConfig, params, caches, token: torch.Tensor, pos: int):
+    """One token of cached decoding: ``token`` (B, 1) at position ``pos``.
+    Returns (logits (B,1,V), new_caches); the caches are written in place."""
+    x, new_caches, _ = forward(cfg, params, token, mode="decode",
+                               caches=caches, pos=pos)
+    return logits_fn(cfg, params, x), new_caches

@@ -1,6 +1,7 @@
-"""Serving of the port (counterpart of ``src/repro/serve/``): the
-QR-as-a-service front end (continuous sweep batching, ``qr_service``).
-The JAX package's token engine (``serve/engine.py``) is not ported yet."""
+"""Serving of the port (counterpart of ``src/repro/serve/``): the token
+engine (prefill + batched cached decode, ``engine``) and the
+QR-as-a-service front end (continuous sweep batching, ``qr_service``)."""
+from repro_torch.serve.engine import Engine, ServeConfig
 from repro_torch.serve.qr_service import QRRequest, QRResult, QRService
 
-__all__ = ["QRRequest", "QRResult", "QRService"]
+__all__ = ["Engine", "ServeConfig", "QRRequest", "QRResult", "QRService"]

@@ -1229,3 +1229,47 @@ def test_cuda_spmd_online_with_its_own_group(rng, cuda, card_lanes8):
     assert _bitwise(got, one)
     assert ([(e.point, e.lane, e.reads) for e in got.events]
             == [(e.point, e.lane, e.reads) for e in one.events])
+
+
+
+@pytest.mark.cuda
+def test_cuda_engine_equals_cpu(cuda):
+    """The token engine (``repro_torch.serve.Engine``) at the gemma2 smoke
+    (prompt 24 over a window of 16, so the "L" layers' caches roll) on the
+    card against the same engine on the CPU: the prefill's logits and every
+    decode step's, fed the CPU's tokens, within (2e-4, 2e-4), and the
+    greedy tokens equal wherever the CPU's top-two margin exceeds that."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_smoke("gemma2-2b")
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0))
+    S0, new = 24, 6
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (2, S0)).astype(np.int32)
+    engines = {dev: Engine(cfg, params, ServeConfig(max_new_tokens=new), device=dev)
+               for dev in ("cpu", "cuda")}
+    outs = {dev: e.generate(prompts) for dev, e in engines.items()}
+
+    def logits_along(e, toks):
+        with torch.no_grad():
+            lg, caches = e._prefill(e.params, {"tokens": torch.from_numpy(prompts).to(e.device)})
+            caches = e._relayout(caches, S0, S0 + new)
+            out = [lg[:, -1]]
+            for t in range(new - 1):
+                lg, caches = e._step(e.params, torch.from_numpy(toks[:, t:t + 1]).to(e.device),
+                                     S0 + t, caches)
+                out.append(lg[:, -1])
+        return torch.stack(out, dim=1).cpu()
+
+    want = logits_along(engines["cpu"], outs["cpu"])
+    got = logits_along(engines["cuda"], outs["cpu"])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4, atol=2e-4)
+    assert torch.equal(want.argmax(-1).to(torch.int32), torch.from_numpy(outs["cpu"]))
+    top2 = torch.topk(want, 2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).numpy()
+    for b in range(2):
+        for t in range(new):
+            if margin[b, t] <= 2e-4:
+                break
+            assert outs["cuda"][b, t] == outs["cpu"][b, t], (b, t, outs)

@@ -1,5 +1,6 @@
 """The port's dense transformer (``repro_torch.models``) against the JAX
-package's, on CPU tensors at the ``tinyllama`` smoke config (f32).
+package's, on CPU tensors at the ``tinyllama`` smoke config (f32; the loss
+and gradients also at the ``gemma2`` smoke).
 
 Exactly: the parameter tree's flattened paths (the checkpoint keys, the
 Muon task names), shapes and dtypes, in JAX's leaf order. Within the f32
@@ -76,12 +77,19 @@ def test_full_width_template_matches_published_shapes():
     assert dict(got)["groups/l0/ffn/.w_in"] == (22, 2048, 5632)
 
 
-@pytest.mark.parametrize("grad_accum,loss_chunk", [(1, 8192), (2, 8192), (1, 64)],
-                         ids=["one-chunk", "accum2", "chunked-ce"])
-def test_loss_and_every_gradient_leaf_within_tolerance(jax_params, grad_accum,
+@pytest.mark.parametrize("arch,grad_accum,loss_chunk",
+                         [(ARCH, 1, 8192), (ARCH, 2, 8192), (ARCH, 1, 64),
+                          ("gemma2-2b", 1, 8192)],
+                         ids=["one-chunk", "accum2", "chunked-ce", "gemma2"])
+def test_loss_and_every_gradient_leaf_within_tolerance(jax_params, arch, grad_accum,
                                                        loss_chunk):
-    jcfg = dataclasses.replace(j_get_smoke(ARCH), loss_chunk=loss_chunk)
-    tcfg = dataclasses.replace(get_smoke(ARCH), loss_chunk=loss_chunk)
+    """gemma2's smoke adds local/global layers (sequence 32 over a window of
+    16), geglu, sandwich norms, both softcaps, the embedding scale and tied
+    embeddings."""
+    jcfg = dataclasses.replace(j_get_smoke(arch), loss_chunk=loss_chunk)
+    tcfg = dataclasses.replace(get_smoke(arch), loss_chunk=loss_chunk)
+    if arch != ARCH:
+        jax_params = j_tf.init_params(j_get_smoke(arch), jax.random.key(0))
     batch = _batch(jcfg)
     jl, jg = jax.jit(j_loss_and_grads(jcfg, grad_accum))(
         jax_params, {k: jnp.asarray(v) for k, v in batch.items()})
@@ -142,13 +150,13 @@ def test_full_attention_matches_jax(rng, window, cap):
 
 def test_unported_paths_raise():
     cfg = get_smoke(ARCH)
-    p = t_tf.param_template(cfg)["groups"]["l0"]["attn"]
-    x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_attn.attn_forward(p, x, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                            head_dim=cfg.hdim, rope_theta=1e4, chunked=True)
+    chunked = dataclasses.replace(cfg, attn_chunk_threshold=4)
+    params = t_tf.init_params(chunked, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        t_tf.forward(chunked, params, torch.zeros(1, 4, dtype=torch.int32))
     for bad in (dict(mixer_pattern="M"), dict(mixer_pattern="R")):
         with pytest.raises(NotImplementedError, match="item 10"):
             t_tf.param_template(dataclasses.replace(cfg, **bad))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_tf.forward(cfg, {}, torch.zeros(1, 4, dtype=torch.int32), mode="decode")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        t_tf.forward(cfg, {}, torch.zeros(1, 4, dtype=torch.int32), mode="prefill",
+                     enc_frames=torch.zeros(1, 4, cfg.d_model))
