@@ -202,7 +202,56 @@ non-zero and prints no result):
    planted in the engine (each step's k/v written one slot early; the
    local layers' prefill crop left unrolled), fed the same tokens and held
    to the same no-cache logits, must each fail the gate.
-17. wide: K1-K4 above 128 columns: K1 (and K3, K1's route on the stacked
+17. lm_long: the token engine on gemma2-2b at its published width and
+   depth on prompts of 8192 tokens, where every layer's prefill takes the
+   streaming ``chunked_attention`` (the "scan" schedule, chunks of 2048;
+   the local layers visit every chunk up to the causal front and mask
+   their window of 4096), random weights from ``--seed``, deterministic
+   mode. (a) bf16, 2 prompts, 16 greedy tokens, counters at 0 before it
+   (path ``lm_long``): every local layer's cache holds 4096 slots and every
+   global layer's 8208, every logit finite, a second ``generate``
+   bit-equal, K1-K6 not launched; prefill seconds, decode ms a token
+   (median, p90), tokens/s, peak memory, a decode step's bound. (b) f32
+   cut to 4 layers (two L/G periods), 1 prompt: the streaming prefill's
+   last logits within (2e-4, 2e-4) of the same model with its chunk
+   threshold raised past the prompt (full attention), and 4 decode steps
+   within (3e-3, 3e-3) of that model's no-cache forward. (c) the attention
+   alone at gemma2's head geometry (B = 1, S = 8192, 8 heads, 4 kv heads,
+   head dim 256, softcap 50, window 4096 and none): both schedules against
+   ``full_attention``, the output and the q, k and v gradients within
+   (3e-4, 3e-4) scaled by max |want|.
+18. lm_families: the families of the SSM, RG-LRU, encoder and VLM mixers,
+   one at a time at their published width and depth, random bf16 weights
+   from ``--seed``:
+   mamba2-2.7b (64 Mamba2 SSD layers, path ``lm_ssm``), recurrentgemma-9b
+   (38 layers of R, R, L: RG-LRU and local attention, ``lm_hybrid``),
+   whisper-base (6 encoder and 6 decoder layers with cross-attention over
+   1500 frame embeddings, ``lm_audio``) and pixtral-12b (40 layers, 1024
+   patch embeddings over the first positions, ``lm_vlm``); 2 prompts of
+   2048, 2112 (past the 2048 window), 440 and 2048 tokens, with random
+   frame or patch embeddings, 16 greedy tokens, twice: finite logits, the
+   second run bit-equal, the caches' (KV, SSM and LRU states') shapes and
+   dtypes those of ``init_caches``, K1-K6 not launched; prefill seconds,
+   decode ms a token, tokens/s, peak memory, a decode step's bound. Then
+   f32 cut to 2 layers (recurrentgemma: one R, R, L period): the prefill's
+   last logits within (2e-4, 2e-4) and decode steps within (3e-3, 3e-3) of
+   the no-cache forward on the same prefix (mamba2: a prompt of 1792 held
+   at step 256, prefix 2048, since its forward takes a multiple of the SSD
+   chunk; the others their first 8 steps), and for the two recurrent
+   mixers the gate's control: the same steps with every conv tail zeroed
+   before a step (mamba2 4 steps before the step held, recurrentgemma at
+   the first) must fail the gate.
+19. train_families: the two new mixers through ``FTTrainer`` with
+   ``caqr_muon`` at their published widths (mamba2 cut to 2 layers,
+   recurrentgemma to 3, one period), 4 data and QR lanes, b = 128,
+   sequence 1024, batch 8, 2 steps, deterministic mode: failure-free
+   (paths ``train_ssm``, ``train_hybrid``; every sweep's R held to the Gram
+   identity) and with lane 1 killed inside a sweep of step 1 (``_kill``
+   paths): params, optimizer state and losses bit-equal, one single-source
+   REBUILD event; K1-K4 launched and K5/K6 not; K1-K4 at the paths' Muon
+   shapes against their plain versions on 4 lanes and one; step seconds
+   and their split, peak memory.
+20. wide: K1-K4 above 128 columns: K1 (and K3, K1's route on the stacked
    triangles) in one cooperative launch (``csrc/panel_qr_wide.cu``: K1's
    team on sub-panels of 128 columns, on clusters or, for 8 lanes of 4096
    rows, a plain grid; the products between them and in the T join as
@@ -249,13 +298,13 @@ non-zero and prints no result):
    than four times the f32 plain version, on the columns ``leading_rank``
    keeps), K1 launched and no sub-kernel (K1's team kernel, ``wide_gemm``);
    step seconds, each ``_orth2d`` shape's share of the step, peak memory.
-18. spread: each full-width sweep (``caqr_factorize``, the state machine
+21. spread: each full-width sweep (``caqr_factorize``, the state machine
    stepped and fused, the four-kill FT sweep, the online sweeps stepped,
    fused and double-buffered) run five times: median and min-max seconds.
 
 The kernels line gives each kernel's launches on every path above, each
-counted from 0 just before the path ran (``lm_serve``: 0 for every
-kernel; on the spmd paths ``spmd``,
+counted from 0 just before the path ran (``lm_serve``, ``lm_long`` and
+the four ``lm_families`` paths: 0 for every kernel; on the spmd paths ``spmd``,
 ``spmd_kill``, ``spmd_mds`` and ``spmd_b256``, the sum of the ranks' own
 counters); its ``wide_gemm`` record counts
 the products' kernel's launches inside the wide calls
@@ -471,6 +520,73 @@ LM_MARGIN = 6e-3                # top-two margin above which tokens must agree
 # faults planted in the engine for the decode gate's controls: each must
 # fail the gate that the sound run passes
 LM_FAULTS = ("stale_slot", "no_roll")
+# the lm_long phase: gemma2-2b at its published width and depth on prompts
+# of 8192 tokens, where every layer's prefill streams (chunked_attention,
+# the "scan" schedule, chunks of 2048); then f32 at 4 layers against the
+# same model with the chunk threshold raised past the prompt (full
+# attention), and the attention alone at gemma2's head geometry
+LONG_BATCH, LONG_PROMPT, LONG_NEW = 2, 8192, 16
+LONG_F32_LAYERS, LONG_F32_STEPS = 4, 4
+LONG_ATTN = dict(B=1, S=8192, H=8, Kv=4, Dh=256, cap=50.0, window=4096)
+LONG_ATTN_TOL = (3e-4, 3e-4)    # scaled by max |want|, as max_err scales it
+# the lm_families phase: the four families of the SSM, RG-LRU, encoder and
+# VLM mixers at their published width and depth (bf16, 16 greedy tokens,
+# twice), then at f32 cut in depth against the no-cache forward. mamba2's
+# no-cache forward takes a multiple of its SSD chunk (256), so its f32 run
+# prefills 1792 tokens and is held at step 256 (prefix 2048). The planted
+# control of a recurrent mixer zeroes every conv tail before decode step
+# ``plant_at`` (mamba2's state forgets within a few dozen steps, so it is
+# planted 4 steps before the step held)
+FAMILY_BATCH, FAMILY_NEW = 2, 16
+FAMILIES = {
+    "mamba2-2.7b": dict(path="lm_ssm", prompt=2048, f32_layers=2,
+                        f32_prompt=1792, f32_steps=256, held=(256,), plant_at=252),
+    "recurrentgemma-9b": dict(path="lm_hybrid", prompt=2112, f32_layers=3,
+                              f32_prompt=2112, f32_steps=8, held=tuple(range(1, 9)),
+                              plant_at=0),
+    "whisper-base": dict(path="lm_audio", prompt=440, f32_layers=2,
+                         f32_prompt=440, f32_steps=8, held=tuple(range(1, 9)),
+                         plant_at=None),
+    "pixtral-12b": dict(path="lm_vlm", prompt=2048, f32_layers=2,
+                        f32_prompt=2048, f32_steps=8, held=tuple(range(1, 9)),
+                        plant_at=None),
+}
+FAMILY_REDUCED = {
+    "f32 depth": "mamba2 64 -> 2, recurrentgemma 38 -> 3 (one R, R, L "
+                 "period), whisper 6 -> 2 decoder layers (6 encoder layers), "
+                 "pixtral 40 -> 2: time (the no-cache forwards)",
+}
+# the train_families phase: the two new mixers through FTTrainer with
+# caqr_muon at their published widths, cut in depth, as the train phase
+# (4 data and QR lanes, b = 128, sequence 1024, batch 8): 2 failure-free
+# steps, and 2 steps with a lane killed inside a sweep of step 1
+TRAIN_FAMILY_STEPS = 2
+TRAIN_FAMILIES = {
+    "mamba2-2.7b": dict(
+        path="train_ssm", layers=2,
+        kill=dict(at_step=1, lane=1, task="groups/l0/ssm/.w_in#1",
+                  point=sweep_point(8, "tsqr", 1)),
+        # K1-K4 at the Muon sweeps' shapes (m_loc, n, b): w_in transposed
+        # (10576 x 2560), w_out (5120 x 2560), conv_w transposed (5376 x 4)
+        shapes=((2644, 2560, 128), (1280, 2560, 128), (1344, 4, 4))),
+    "recurrentgemma-9b": dict(
+        path="train_hybrid", layers=3,
+        kill=dict(at_step=1, lane=1, task="groups/l1/lru/.w_x#0",
+                  point=sweep_point(8, "tsqr", 1)),
+        # the LRU's w_in transposed (8192 x 4096), its gates and w_out and
+        # attention's wq and wo (4096 x 4096), the MLP's (12288 x 4096), wk
+        # and wv (4096 x 256), conv_w transposed (4096 x 4)
+        shapes=((2048, 4096, 128), (1024, 4096, 128), (3072, 4096, 128),
+                (1024, 256, 128), (1024, 4, 4))),
+}
+TRAIN_FAMILY_REDUCED = {
+    "n_layers": "mamba2 64 -> 2, recurrentgemma 38 -> 3 (one R, R, L "
+                "period): time (each layer adds 3 or 7-8 full-width sweeps "
+                "a step)",
+    "seq_len": "1024, as the train phase: time (recurrentgemma's window of "
+               "2048 then masks nothing; the CPU tests hold the window)",
+    "steps": "2: a kill inside step 1",
+}
 # launches of every kernel on every path, counters at 0 before each path
 PATH_LAUNCHES = {}
 # the wide paths' launches of the kernels inside a wide call
@@ -2382,7 +2498,7 @@ class StepRecorder:
         self.seconds, self.logits, self.finite, self.caches = [], [], None, None
 
     def __call__(self, *args):
-        if self.caches is None and len(args) == 4:
+        if self.caches is None and len(args) >= 4:
             self.caches = args[3]
         if self.sync:
             torch.cuda.synchronize()
@@ -2397,16 +2513,18 @@ class StepRecorder:
         return logits, caches
 
 
-def lm_generate(engine: Engine, prompts: np.ndarray, sync: bool, keep_all: bool = False):
-    """One ``Engine.generate`` with its prefill and step recorded; the
-    wall seconds end in a synchronise (``generate`` returns numpy)."""
+def lm_generate(engine: Engine, prompts: np.ndarray, sync: bool, keep_all: bool = False,
+                extras=None):
+    """One ``Engine.generate`` (with the stub frontends' ``extras``) with its
+    prefill and step recorded; the wall seconds end in a synchronise
+    (``generate`` returns numpy)."""
     prefill, step = engine._prefill, engine._step
     engine._prefill = rp = StepRecorder(prefill, sync, keep_all)
     engine._step = rs = StepRecorder(step, sync, keep_all)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = engine.generate(prompts)
+        out = engine.generate(prompts, extras)
         seconds = time.perf_counter() - t0
     finally:
         engine._prefill, engine._step = prefill, step
@@ -2471,37 +2589,19 @@ def lm_serve_phase(seed: int, card: str) -> None:
 
 
 def lm_published(seed: int) -> dict:
-    """(a) bf16, B = 4 prompts of 4160 tokens, 32 greedy tokens: the
-    caches' slots, finite logits, tokens in the vocabulary, a second run
-    bit-equal; prefill seconds, decode ms a token, tokens/s, peak memory
-    and the bound of a decode step (weights and caches read once)."""
+    """(a) bf16, B = 4 prompts of 4160 tokens, 32 greedy tokens, twice
+    (``served_twice``): besides, the caches' slots; a decode step's bound
+    (weights and caches read once) and a profiled prefill and decode."""
     cfg = get_config(LM_ARCH)
     params = t_tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed + 7))
     prompts = np.random.default_rng(seed + 7).integers(
         0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
     engine = Engine(cfg, params, ServeConfig(max_new_tokens=LM_NEW), device="cuda")
-    torch.cuda.reset_peak_memory_stats()
-    backend.reset_launches()
-    out, timed_s, rp, rs = lm_generate(engine, prompts, sync=True)
-    PATH_LAUNCHES["lm_serve"] = dict(backend.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    # the second run is not synchronised a step: its wall time is the
-    # engine's own
-    out2, wall_s, rp2, rs2 = lm_generate(engine, prompts, sync=False)
-    caches = rs.caches
-    slots = {path: int(x.shape[-3]) for path, x in tree.flatten_with_path(caches)}
-    total = LM_PROMPT + LM_NEW
-    want_slots = {f"groups/l{i}/.{f}": (min(cfg.sliding_window, total)
-                                        if cfg.mixer_at(i) == "L" else total)
-                  for i in range(cfg.pattern_period) for f in "kv"}
-    step_bytes = nbytes(params) + nbytes(caches)
-    bms, by = bound_ms(2.0 * LM_BATCH * sum(x.numel() for x in tree.leaves(params)),
-                       step_bytes)
-    step_ms = np.array(rs.seconds) * 1e3
-    same = (np.array_equal(out, out2) and torch.equal(rs.logits[-1], rs2.logits[-1])
-            and torch.equal(rp.logits[-1], rp2.logits[-1]))
-    prof = lm_profile(engine, prompts, caches, out2[:, -1])
-    finite = bool(rp.finite & rs.finite)
+    rec = served_twice(engine, prompts, "lm_serve")
+    out, caches = rec.pop("out"), rec.pop("caches")
+    slots = cache_slots(cfg, caches, LM_PROMPT + LM_NEW, "lm_serve")
+    bms, by = decode_bound(params, caches, LM_BATCH)
+    prof = lm_profile(engine, prompts, caches, out[:, -1])
     report = dict(
         arch=LM_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hdim,
@@ -2509,33 +2609,18 @@ def lm_published(seed: int) -> dict:
         dtype=cfg.dtype, params=sum(x.numel() for x in tree.leaves(params)),
         param_bytes=nbytes(params), cache_bytes=nbytes(caches),
         batch=LM_BATCH, prompt_len=LM_PROMPT, max_new_tokens=LM_NEW,
-        cache_slots=slots, prefill_s=rp.seconds[0],
-        decode_ms_median=float(np.median(step_ms)),
-        decode_ms_p90=float(np.percentile(step_ms, 90)),
-        decode_steps=len(step_ms), generate_s_timed=timed_s, generate_s=wall_s,
-        tokens_per_s=LM_BATCH * LM_NEW / wall_s,
-        decode_tokens_per_s=LM_BATCH * 1e3 / float(np.median(step_ms)),
-        decode_bound_ms=bms, decode_bound_by=by, decode_bytes_per_step=step_bytes,
-        peak_memory_bytes=peak, second_run_bitwise_equal=same, profile=prof,
-        launches=PATH_LAUNCHES["lm_serve"], tokens_row0=out[0].tolist())
-    del engine, params, caches, rs, rs2, rp, rp2
-    check(slots == want_slots, f"lm_serve: cache slots {slots}, not {want_slots}")
-    check(finite, "lm_serve: a logit is not finite")
-    check(out.shape == (LM_BATCH, LM_NEW) and ((out >= 0) & (out < cfg.vocab)).all(),
-          f"lm_serve: tokens {out.shape} outside the vocabulary")
-    check(same, "lm_serve: a second generate differs from the first")
-    check(not any(PATH_LAUNCHES["lm_serve"].values()),
-          f"lm_serve: a QR kernel ran {PATH_LAUNCHES['lm_serve']}")
+        cache_slots=slots, **rec,
+        decode_tokens_per_s=LM_BATCH * 1e3 / rec["decode_ms_median"],
+        decode_bound_ms=bms, decode_bound_by=by,
+        decode_bytes_per_step=nbytes(params) + nbytes(caches), profile=prof)
+    del engine, params, caches
     return report
 
 
 def lm_parity(seed: int) -> dict:
     """(b) f32 at the same widths and depth, B = 2 prompts of 4160 tokens, 8
-    decode steps: the prefill's logits against the no-cache forward's
-    last-position logits, each step's against the no-cache forward on the
-    same prefix, and the tokens against the no-cache greedy choice where
-    its top-two margin exceeds ``LM_MARGIN`` (a row is held up to its
-    first step under the margin)."""
+    decode steps held to the no-cache forward (``held_against_forward``),
+    then the gate's controls (``lm_planted``), each of which must fail it."""
     cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
     params = t_tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed + 8))
     prompts = np.random.default_rng(seed + 8).integers(
@@ -2544,49 +2629,27 @@ def lm_parity(seed: int) -> dict:
                     device="cuda")
     out, seconds, rp, rs = lm_generate(engine, prompts, sync=False, keep_all=True)
     got = [rp.logits[0][:, -1]] + [lg[:, -1] for lg in rs.logits]
-    errs, abs_errs, wants, margins, held = [], [], [], [], 0
+    del rp, rs
     t0 = time.perf_counter()
-    live = np.ones(LM_F32_BATCH, bool)
-    with torch.no_grad():
-        for t, lg in enumerate(got):
-            toks = np.concatenate([prompts, out[:, :t]], axis=1)
-            hidden, _, _ = t_tf.forward(cfg, params, torch.from_numpy(toks).cuda())
-            want = t_tf.logits_fn(cfg, params, hidden[:, -1:])[:, -1]
-            del hidden
-            wants.append(want)
-            rtol, atol = LM_PREFILL_TOL if t == 0 else LM_DECODE_TOL
-            excess = tol_excess(lg, want, rtol)
-            errs.append(excess)
-            abs_errs.append(float((lg - want).abs().max()))
-            check(excess <= atol,
-                  f"lm_serve f32: step {t} logits off by {excess} over "
-                  f"atol {atol} (rtol {rtol})")
-            top2 = torch.topk(want, 2, dim=-1)
-            margin = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
-            best = top2.indices[:, 0].cpu().numpy()
-            margins.append(margin.tolist())
-            live &= margin > LM_MARGIN
-            check(bool((out[live, t] == best[live]).all()),
-                  f"lm_serve f32: step {t} tokens {out[:, t]} not the no-cache "
-                  f"greedy {best} (margins {margin})")
-            held += int(live.sum())
+    rec, wants = held_against_forward(cfg, params, prompts, None, out, got,
+                                      range(1, LM_F32_STEPS + 1), "lm_serve f32")
     forward_s = time.perf_counter() - t0
-    del got, rp, rs
+    del got
     t0 = time.perf_counter()
     controls = {fault: lm_planted(engine, cfg, prompts, out, wants, fault)
                 for fault in LM_FAULTS}
     controls_s = time.perf_counter() - t0
     del engine, params, wants
-    check(held > 0, "lm_serve f32: no token held (every margin under the limit)")
+    check(rec["tokens_held"] > 0,
+          "lm_serve f32: no token held (every margin under the limit)")
     for fault, c in controls.items():
         check(max(c["excess_over_rtol"]) > LM_DECODE_TOL[1],
               f"lm_serve f32: the gate passes the planted {fault} fault: {c}")
     return dict(dtype=cfg.dtype, batch=LM_F32_BATCH, prompt_len=LM_PROMPT,
                 decode_steps=LM_F32_STEPS, generate_s=seconds,
                 no_cache_forwards_s=forward_s, prefill_tol=LM_PREFILL_TOL,
-                decode_tol=LM_DECODE_TOL, margin=LM_MARGIN,
-                excess_over_rtol=errs, max_abs_err=abs_errs, margins=margins,
-                tokens_held=held, tokens_compared=LM_F32_BATCH * len(errs),
+                decode_tol=LM_DECODE_TOL, margin=LM_MARGIN, **rec,
+                tokens_compared=LM_F32_BATCH * (LM_F32_STEPS + 1),
                 controls=controls, controls_s=controls_s)
 
 
@@ -2632,6 +2695,437 @@ def lm_planted(engine: Engine, cfg, prompts: np.ndarray, out: np.ndarray,
         finally:
             t_attn.cache_update = update
     return dict(excess_over_rtol=excess, max_abs_err=abs_err)
+
+
+def decode_bound(params, caches, batch: int):
+    """A decode step's bound: the weights and caches read once, 2 FLOPs a
+    weight a row."""
+    return bound_ms(2.0 * batch * sum(x.numel() for x in tree.leaves(params)),
+                    nbytes(params) + nbytes(caches))
+
+
+def served_twice(engine: Engine, prompts: np.ndarray, path: str, extras=None) -> dict:
+    """``generate`` twice, counters at 0 before the first (path ``path``):
+    the first synchronised a step, the second not; every logit finite,
+    tokens in the vocabulary, the second run bit-equal, K1-K6 not launched.
+    Returns prefill seconds, decode ms a token (each step between two
+    synchronises), tokens/s (the unsynchronised run), the peak memory, and
+    the first run's tokens (``out``) and the caches it decoded on."""
+    cfg = engine.cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launches()
+    out, timed_s, rp, rs = lm_generate(engine, prompts, sync=True, extras=extras)
+    PATH_LAUNCHES[path] = dict(backend.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    out2, wall_s, rp2, rs2 = lm_generate(engine, prompts, sync=False, extras=extras)
+    same = (np.array_equal(out, out2) and torch.equal(rs.logits[-1], rs2.logits[-1])
+            and torch.equal(rp.logits[-1], rp2.logits[-1]))
+    finite = bool(rp.finite & rs.finite & rp2.finite & rs2.finite)
+    B, new = out.shape
+    step_ms = np.array(rs.seconds) * 1e3
+    check(finite, f"{path}: a logit is not finite")
+    check(out.shape == (prompts.shape[0], engine.scfg.max_new_tokens)
+          and ((out >= 0) & (out < cfg.vocab)).all(),
+          f"{path}: tokens {out.shape} outside the vocabulary")
+    check(same, f"{path}: a second generate differs from the first")
+    check(not any(PATH_LAUNCHES[path].values()),
+          f"{path}: a QR kernel ran {PATH_LAUNCHES[path]}")
+    return dict(prefill_s=rp.seconds[0],
+                decode_ms_median=float(np.median(step_ms)),
+                decode_ms_p90=float(np.percentile(step_ms, 90)),
+                decode_steps=len(step_ms), generate_s_timed=timed_s,
+                generate_s=wall_s, tokens_per_s=B * new / wall_s,
+                peak_memory_bytes=peak, second_run_bitwise_equal=same,
+                launches=PATH_LAUNCHES[path], tokens_row0=out[0].tolist(),
+                out=out, caches=rs.caches)
+
+
+def cache_slots(cfg, caches, total: int, what: str) -> dict:
+    """Each KV cache's slots, checked: a local layer's are its window, a
+    global layer's the prompt and the new tokens."""
+    slots = {path: int(x.shape[-3]) for path, x in tree.flatten_with_path(caches)}
+    want = {f"groups/l{i}/.{f}": (min(cfg.sliding_window, total)
+                                  if cfg.mixer_at(i) == "L" else total)
+            for i in range(cfg.pattern_period) for f in "kv"}
+    check(slots == want, f"{what}: cache slots {slots}, not {want}")
+    return slots
+
+
+def lm_long_phase(seed: int, card: str) -> None:
+    """Prompts of 8192 tokens on gemma2-2b (see the module docstring),
+    under torch's deterministic mode."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with deterministic_mode():
+        report = lm_long_published(seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["f32_parity"] = lm_long_parity(seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["attention"] = long_attention_check(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["phase_seconds"] = time.perf_counter() - t_phase
+    emit({"lm_long": dict(**report, card=card)})
+
+
+def lm_long_published(seed: int) -> dict:
+    """bf16, B = 2 prompts of 8192 tokens (every layer's prefill streams:
+    the local layers visit every chunk up to the causal front and mask the
+    window), 16 greedy tokens, twice: finite logits, the second run
+    bit-equal, the caches' slots."""
+    cfg = get_config(LM_ARCH)
+    check(LONG_PROMPT >= cfg.attn_chunk_threshold
+          and LONG_PROMPT % cfg.attn_chunk == 0 and cfg.attn_schedule == "scan",
+          f"lm_long: a prompt of {LONG_PROMPT} does not stream")
+    params = t_tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed + 12))
+    prompts = np.random.default_rng(seed + 12).integers(
+        0, cfg.vocab, (LONG_BATCH, LONG_PROMPT)).astype(np.int32)
+    engine = Engine(cfg, params, ServeConfig(max_new_tokens=LONG_NEW), device="cuda")
+    rec = served_twice(engine, prompts, "lm_long")
+    rec.pop("out")
+    caches = rec.pop("caches")
+    slots = cache_slots(cfg, caches, LONG_PROMPT + LONG_NEW, "lm_long")
+    bms, by = decode_bound(params, caches, LONG_BATCH)
+    report = dict(arch=LM_ARCH, n_layers=cfg.n_layers, dtype=cfg.dtype,
+                  batch=LONG_BATCH, prompt_len=LONG_PROMPT, max_new_tokens=LONG_NEW,
+                  attn_chunk=cfg.attn_chunk, attn_schedule=cfg.attn_schedule,
+                  attn_chunk_threshold=cfg.attn_chunk_threshold, cache_slots=slots,
+                  cache_bytes=nbytes(caches), decode_bound_ms=bms, decode_bound_by=by,
+                  **rec)
+    del engine, params, caches
+    return report
+
+
+def held_against_forward(cfg, params, prompts, extras, out, got: list, steps,
+                         what: str, forward_cfg=None):
+    """The prefill's last logits (got[0]) within ``LM_PREFILL_TOL`` and
+    each decode step t in ``steps`` (got[t]) within ``LM_DECODE_TOL`` of
+    the no-cache forward (of ``forward_cfg``, default ``cfg``) on the same
+    prefix, and each token the no-cache greedy choice where its top-two
+    margin exceeds ``LM_MARGIN`` (a row held up to its first step under the
+    margin). Returns the records and the no-cache logits."""
+    fcfg = forward_cfg or cfg
+    ex = {k: torch.from_numpy(v).cuda() for k, v in (extras or {}).items()}
+    errs, abs_errs, margins, wants, held = {}, {}, {}, {}, 0
+    live = np.ones(prompts.shape[0], bool)
+    with torch.no_grad():
+        for t in (0,) + tuple(steps):
+            toks = np.concatenate([prompts, out[:, :t]], axis=1)
+            hidden, _, _ = t_tf.forward(fcfg, params, torch.from_numpy(toks).cuda(), **ex)
+            want = t_tf.logits_fn(fcfg, params, hidden[:, -1:])[:, -1]
+            del hidden
+            wants[t] = want
+            rtol, atol = LM_PREFILL_TOL if t == 0 else LM_DECODE_TOL
+            excess = tol_excess(got[t], want, rtol)
+            errs[t], abs_errs[t] = excess, float((got[t] - want).abs().max())
+            check(excess <= atol, f"{what}: step {t} logits off by {excess} over "
+                                  f"atol {atol} (rtol {rtol})")
+            top2 = torch.topk(want, 2, dim=-1)
+            margin = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+            best = top2.indices[:, 0].cpu().numpy()
+            margins[t] = margin.tolist()
+            live &= margin > LM_MARGIN
+            if t < out.shape[1]:
+                check(bool((out[live, t] == best[live]).all()),
+                      f"{what}: step {t} tokens {out[:, t]} not the no-cache "
+                      f"greedy {best} (margins {margin})")
+                held += int(live.sum())
+    return dict(excess_over_rtol=errs, max_abs_err=abs_errs, margins=margins,
+                tokens_held=held), wants
+
+
+def lm_long_parity(seed: int) -> dict:
+    """f32, gemma2-2b's published width cut to 4 layers (two L/G periods),
+    B = 1 prompt of 8192 tokens: the streaming prefill's last logits within
+    ``LM_PREFILL_TOL`` of the same model with the chunk threshold raised
+    past the prompt (full attention), and 4 decode steps within
+    ``LM_DECODE_TOL`` of that model's no-cache forward on the same prefix
+    (a prefix of 8193 or more tokens is not a multiple of the chunk)."""
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32",
+                              n_layers=LONG_F32_LAYERS)
+    full = dataclasses.replace(cfg, attn_chunk_threshold=LONG_PROMPT + LONG_F32_STEPS + 1)
+    params = t_tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed + 13))
+    prompts = np.random.default_rng(seed + 13).integers(
+        0, cfg.vocab, (1, LONG_PROMPT)).astype(np.int32)
+    engine = Engine(cfg, params, ServeConfig(max_new_tokens=LONG_F32_STEPS + 1),
+                    device="cuda")
+    out, seconds, rp, rs = lm_generate(engine, prompts, sync=False, keep_all=True)
+    got = [rp.logits[0][:, -1]] + [lg[:, -1] for lg in rs.logits]
+    t0 = time.perf_counter()
+    rec, _ = held_against_forward(cfg, params, prompts, None, out, got,
+                                  range(1, LONG_F32_STEPS + 1), "lm_long f32",
+                                  forward_cfg=full)
+    rec.update(n_layers=cfg.n_layers, prompt_len=LONG_PROMPT,
+               decode_steps=LONG_F32_STEPS, generate_s=seconds,
+               no_cache_forwards_s=time.perf_counter() - t0,
+               reference="the same model at attn_chunk_threshold "
+                         f"{full.attn_chunk_threshold} (full attention)")
+    del engine, params, got, rp, rs
+    return rec
+
+
+def long_attention_check(seed: int) -> dict:
+    """``chunked_attention`` in both schedules against ``full_attention``
+    at gemma2's head geometry (B = 1, S = 8192, 8 heads, 4 kv heads, head
+    dim 256, softcap 50), with its window of 4096 and without: the output
+    and the gradients of a weighted sum with respect to q, k and v, within
+    ``LONG_ATTN_TOL`` scaled by max |want|; seconds of each forward and
+    backward."""
+    a = LONG_ATTN
+    g = torch.Generator(device="cuda").manual_seed(seed + 14)
+    shapes = ((a["B"], a["S"], a["H"], a["Dh"]), (a["B"], a["S"], a["Kv"], a["Dh"]),
+              (a["B"], a["S"], a["Kv"], a["Dh"]), (a["B"], a["S"], a["H"], a["Dh"]))
+    q, k, v, w = (torch.randn(s, generator=g, device="cuda") for s in shapes)
+    out = {}
+    for window in (a["window"], None):
+        runs = {}
+        for name in ("full", "tri", "scan"):
+            x = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "full":
+                o = t_attn.full_attention(*x, n_kv=a["Kv"], window=window, cap=a["cap"])
+            else:
+                o = t_attn.chunked_attention(
+                    *x, n_kv=a["Kv"], window=window, cap=a["cap"],
+                    q_chunk=get_config(LM_ARCH).attn_chunk,
+                    kv_chunk=get_config(LM_ARCH).attn_chunk, schedule=name)
+            torch.sum(o * w).backward()
+            torch.cuda.synchronize()
+            runs[name] = (time.perf_counter() - t0,
+                          [o.detach()] + [t.grad for t in x])
+            del o, x
+        want = runs["full"][1]
+        for name in ("tri", "scan"):
+            err, scaled = max_err(runs[name][1], want)
+            key = f"window_{window}_{name}"
+            out[key] = dict(max_abs_err=err, scaled_err=scaled,
+                            seconds=runs[name][0], full_seconds=runs["full"][0])
+            check(scaled <= LONG_ATTN_TOL[0],
+                  f"lm_long attention {key}: scaled error {scaled}")
+        del runs, want
+    return dict(shape=a, tol=LONG_ATTN_TOL, runs=out)
+
+
+def family_extras(cfg, rng, batch: int) -> dict:
+    """The stub frontends' inputs as ``launch.serve`` draws them (float32):
+    a VLM's patch embeddings, an encoder-decoder model's frame embeddings."""
+    out = {}
+    if cfg.vlm is not None:
+        out["patch_embeds"] = rng.standard_normal(
+            (batch, cfg.vlm.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.encoder is not None:
+        out["enc_frames"] = rng.standard_normal(
+            (batch, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def lm_families_phase(seed: int, card: str) -> None:
+    """The four families of the SSM, RG-LRU, encoder and VLM mixers (see the
+    module docstring), one at a time, under torch's deterministic mode."""
+    t_phase = time.perf_counter()
+    report = {}
+    with deterministic_mode():
+        for i, (arch, spec) in enumerate(FAMILIES.items()):
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            rec = family_published(arch, spec, seed + 20 + i)
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec["f32_parity"] = family_parity(arch, spec, seed + 30 + i)
+            rec["seconds"] = time.perf_counter() - t0
+            report[arch] = rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"lm_families": dict(families=report, reduced=FAMILY_REDUCED,
+                              phase_seconds=time.perf_counter() - t_phase, card=card)})
+
+
+def family_published(arch: str, spec: dict, seed: int) -> dict:
+    """bf16 at the published width and depth, B = 2 prompts, 16 greedy
+    tokens, twice (``served_twice``): besides, the caches' shapes and
+    dtypes those of ``init_caches``; the decode step's bound."""
+    cfg = get_config(arch)
+    params = t_tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab, (FAMILY_BATCH, spec["prompt"])).astype(np.int32)
+    extras = family_extras(cfg, rng, FAMILY_BATCH)
+    engine = Engine(cfg, params, ServeConfig(max_new_tokens=FAMILY_NEW), device="cuda")
+    rec = served_twice(engine, prompts, spec["path"], extras or None)
+    rec.pop("out")
+    caches = rec.pop("caches")
+    layout = lambda t: {p: (list(x.shape), str(x.dtype))  # noqa: E731
+                        for p, x in tree.flatten_with_path(t)}
+    got = layout(caches)
+    want = layout(t_tf.init_caches(cfg, FAMILY_BATCH, spec["prompt"] + FAMILY_NEW,
+                                   device="meta"))
+    bms, by = decode_bound(params, caches, FAMILY_BATCH)
+    report = dict(path=spec["path"], family=cfg.family, n_layers=cfg.n_layers,
+                  d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.dtype,
+                  params=sum(x.numel() for x in tree.leaves(params)),
+                  param_bytes=nbytes(params), cache_bytes=nbytes(caches),
+                  batch=FAMILY_BATCH, prompt_len=spec["prompt"],
+                  extras={k: list(v.shape) for k, v in extras.items()},
+                  max_new_tokens=FAMILY_NEW, cache_layout=got,
+                  decode_bound_ms=bms, decode_bound_by=by, **rec)
+    del engine, params, caches
+    check(got == want, f"{arch}: caches {got}, not init_caches' {want}")
+    return report
+
+
+def family_parity(arch: str, spec: dict, seed: int) -> dict:
+    """f32 at the published width cut in depth: the prefill's and the held
+    decode steps' logits against the no-cache forward
+    (``held_against_forward``); then, for a recurrent mixer, the gate's
+    control: the same steps replayed with every conv tail zeroed before
+    step ``plant_at`` must fail it."""
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              n_layers=spec["f32_layers"])
+    params = t_tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab, (FAMILY_BATCH, spec["f32_prompt"])).astype(np.int32)
+    extras = family_extras(cfg, rng, FAMILY_BATCH)
+    engine = Engine(cfg, params, ServeConfig(max_new_tokens=spec["f32_steps"] + 1),
+                    device="cuda")
+    out, seconds, rp, rs = lm_generate(engine, prompts, sync=False, keep_all=True,
+                                       extras=extras or None)
+    got = [rp.logits[0][:, -1]] + [lg[:, -1] for lg in rs.logits]
+    del rp, rs
+    t0 = time.perf_counter()
+    rec, wants = held_against_forward(cfg, params, prompts, extras, out, got,
+                                      spec["held"], f"{arch} f32")
+    rec.update(n_layers=cfg.n_layers, prompt_len=spec["f32_prompt"],
+               decode_steps=spec["f32_steps"], held_steps=list(spec["held"]),
+               generate_s=seconds, no_cache_forwards_s=time.perf_counter() - t0)
+    del got
+    if spec["plant_at"] is not None:
+        control = family_planted(engine, prompts, extras, out, wants, spec)
+        rec["control_zeroed_conv_tail"] = control
+        check(max(control["excess_over_rtol"].values()) > LM_DECODE_TOL[1],
+              f"{arch} f32: the gate passes a zeroed conv tail: {control}")
+    del engine, params, wants
+    return rec
+
+
+def family_planted(engine: Engine, prompts, extras, out, wants: dict, spec: dict) -> dict:
+    """A fresh prefill and relayout, then the sound run's tokens fed step by
+    step with every SSM and LRU conv tail zeroed before step ``plant_at``;
+    each held step's logits against the sound run's no-cache ``wants``."""
+    S0 = prompts.shape[1]
+    batch = {"tokens": torch.from_numpy(prompts).cuda(),
+             **{k: torch.from_numpy(v).cuda() for k, v in extras.items()}}
+    excess, abs_err = {}, {}
+    with torch.no_grad():
+        enc = (() if "enc_frames" not in batch
+               else (t_tf.encode(engine.cfg, engine.params, batch["enc_frames"]),))
+        _, caches = engine._prefill(engine.params, batch)
+        caches = engine._relayout(caches, S0, S0 + engine.scfg.max_new_tokens)
+        for t in range(max(spec["held"])):
+            if t == spec["plant_at"]:
+                for path, x in tree.flatten_with_path(caches):
+                    if path.endswith("/.conv"):
+                        x.zero_()
+            tok = torch.from_numpy(out[:, t:t + 1]).cuda()
+            lg, caches = engine._step(engine.params, tok, S0 + t, caches, *enc)
+            if t + 1 in spec["held"]:
+                excess[t + 1] = tol_excess(lg[:, -1], wants[t + 1], LM_DECODE_TOL[0])
+                abs_err[t + 1] = float((lg[:, -1] - wants[t + 1]).abs().max())
+    return dict(plant_at=spec["plant_at"], excess_over_rtol=excess, max_abs_err=abs_err)
+
+
+def train_families_phase(seed: int, card: str) -> None:
+    """The two new mixers through the FT training runtime (see the module
+    docstring), under torch's deterministic mode."""
+    t_phase = time.perf_counter()
+    report = {}
+    with deterministic_mode(), tempfile.TemporaryDirectory() as d:
+        for i, (arch, spec) in enumerate(TRAIN_FAMILIES.items()):
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            report[arch] = train_family(arch, spec, seed + 40 + i, d)
+            report[arch]["seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"train_families": dict(families=report, reduced=TRAIN_FAMILY_REDUCED,
+                                 phase_seconds=time.perf_counter() - t_phase,
+                                 card=card)})
+
+
+def train_family(arch: str, spec: dict, seed: int, d: str) -> dict:
+    """``caqr_muon`` through ``FTTrainer`` at ``arch``'s published width cut
+    to ``spec["layers"]``: failure-free (path ``spec["path"]``, every sweep's
+    R held to the Gram identity), then with a lane killed inside a sweep of
+    step 1 (path ``+ "_kill"``): params, optimizer state and losses
+    bit-equal to the failure-free run, one single-source REBUILD event;
+    K1-K4 at the path's shapes against their plain versions."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=spec["layers"])
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      seed=seed)
+    tcfg = train_tcfg(d, steps=TRAIN_FAMILY_STEPS,
+                      diskless_every=TRAIN_FAMILY_STEPS + 1)
+    make = lambda hooks=(): FTTrainer(  # noqa: E731
+        cfg, tcfg, dcfg, train_fcfg(), qr_fault_hooks=hooks)
+    path = spec["path"]
+    tr = make()
+    tasks = tr._tasks
+    clean = train_run(tr, path, gram=True)
+    grams = clean.pop("gram")
+    want_params = tree.map(lambda x: x.cpu(), tr.state.params)
+    want_opt = tree_digest(tr.state.opt_state)
+    kernels = train_kernel_check(tr.state.opt_state.mom, tasks,
+                                 torch.Generator().manual_seed(seed), spec["shapes"])
+    # the two trainers do not fit together: the first one's memory goes
+    # back to the card before the second is made
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    killer = StepSweepKiller(**spec["kill"])
+    tr = make([killer])
+    kill = train_run(tr, path + "_kill")
+    ev = tr.engine.events
+    kill_same = (same_as_host(tr.state.params, want_params)
+                 and tree_digest(tr.state.opt_state) == want_opt
+                 and kill["losses"] == clean["losses"])
+    kill.update(struck=killer.struck,
+                event_reads=[{str(k): int(v) for k, v in e.reads.items()} for e in ev])
+    del tr, want_params
+    gc.collect()
+    launches_ok = {p: all(PATH_LAUNCHES[p][op] > 0 for op in STEPPED)
+                   and PATH_LAUNCHES[p]["panel_qr_apply"] == 0
+                   and PATH_LAUNCHES[p]["fused_panel"] == 0
+                   for p in (path, path + "_kill")}
+    gram_max = max(g for *_, g in grams)
+    report = dict(
+        path=path, family=cfg.family, d_model=cfg.d_model, vocab=cfg.vocab,
+        dtype=cfg.dtype, n_layers=cfg.n_layers, mixer_pattern=cfg.mixer_pattern,
+        seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, data_lanes=TRAIN_LANES,
+        steps=TRAIN_FAMILY_STEPS, qr_lanes=TRAIN_LANES, panel_width=TRAIN_B,
+        tasks_per_step=len(tasks),
+        sweep_shapes=sorted({(t.rows, t.cols) for t in tasks}, reverse=True),
+        failure_free=clean, gram_checked=len(grams), gram_rel_err_max=gram_max,
+        kill=dict(**kill, bitwise_equal_failure_free=kill_same),
+        kernels=kernels, launches_ok=launches_ok)
+    losses = clean["losses"]
+    check(all(np.isfinite(x) for x in losses), f"{path}: a loss is not finite {losses}")
+    check(gram_max <= GRAM_TOL, f"{path} Gram identity: {gram_max} > {GRAM_TOL}")
+    check(len(grams) == TRAIN_FAMILY_STEPS * len(tasks),
+          f"{path}: {len(grams)} Gram-checked sweeps")
+    check(kill_same, f"{path}: the mid-sweep kill changed params, optimizer "
+                     "state or losses")
+    check(killer.struck is not None
+          and killer.struck[:2] == (spec["kill"]["at_step"], spec["kill"]["task"]),
+          f"{path}: kill struck {killer.struck}")
+    check(len(ev) == 1 and ev[0].lane == spec["kill"]["lane"] and ev[0].reads
+          and spec["kill"]["lane"] not in ev[0].reads.values(),
+          f"{path}: not one single-source REBUILD event: {ev}")
+    check(all(launches_ok.values()), f"{path}: launches {launches_ok}")
+    return report
 
 
 def wide_record(op: str, args: tuple, cost: tuple, lib, reps: int) -> dict:
@@ -3226,6 +3720,9 @@ def main() -> int:
     train_phase(args.seed, card)
     moe_phase(args.seed, card)
     lm_serve_phase(args.seed, card)
+    lm_long_phase(args.seed, card)
+    lm_families_phase(args.seed, card)
+    train_families_phase(args.seed, card)
     wide_records, gemm_rec = wide_phase(A, rng, args.seed, card)
     spread_phase(A)
     for rec in records:

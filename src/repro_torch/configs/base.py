@@ -6,8 +6,9 @@ the same in both packages; ``torch_dtype`` takes the place of ``jdtype``.
 Layer structure is two repeating pattern strings: ``mixer_pattern`` ('G'
 global attention, 'L' local attention, 'M' Mamba2, 'R' RG-LRU) and
 ``ffn_pattern`` ('D' dense MLP, 'E' mixture of experts, 'N' none). The
-port's model runs 'G', 'L', 'D', 'E' and 'N'; the other kinds and their
-sub-configs wait for their model families (``ROADMAP.md`` queue 1).
+encoder (whisper's, over precomputed frame embeddings) and the VLM stub
+(precomputed patch embeddings over the first token positions) are
+sub-configs.
 """
 from __future__ import annotations
 

@@ -22,7 +22,12 @@ flattened path strings (``repro.ckpt.save._flatten``, e.g.
 ``params_from_arrays`` and ``opt_state_from_arrays`` build the port's
 trees from them, ``params_to_arrays`` and ``opt_state_to_arrays`` are the
 inverse. The checkpoint files of ``ckpt/save.py`` hold the same keys.
-Decode caches cross the same way (``groups/l0/.k``, ``rem0/.v``):
+Every family's leaves cross, the SSM's and RG-LRU's, the encoder's
+(``enc_layers/attn/.wq``) and the cross-attention's
+(``groups/l0/cross/.wk``) included; each array must have its
+``param_template`` shape. Decode caches cross the same way
+(``groups/l0/.k``, ``rem0/.v``, an SSM state's ``groups/l0/.h`` and
+``.conv``):
 ``caches_from_arrays`` builds the port's cache tree, shaped as
 ``init_caches`` shapes it, from a flattened JAX cache tree, so a cache the
 JAX package's prefill made can be replayed by the port's ``decode_step``;
@@ -113,10 +118,21 @@ def elastic_result_from_fields(R, events: Iterable, transitions: Iterable,
         world=_world(world))
 
 
+def _checked_fill(like, flat: Mapping[str, np.ndarray], what: str, device):
+    """``fill`` after checking that every template leaf's array has the
+    template's shape."""
+    for path, t in tree.flatten_with_path(like):
+        got = tuple(np.shape(flat[path]))
+        if got != tuple(t.shape):
+            raise ValueError(f"{path}: shape {got}, {what} {tuple(t.shape)}")
+    return fill(like, flat, resolve_device(device))
+
+
 def params_from_arrays(flat: Mapping[str, np.ndarray], cfg, device="cuda"):
     """The port's parameter tree for ``cfg`` from arrays keyed by the JAX
-    package's path strings (``save._flatten(params)`` of a JAX tree)."""
-    return fill(param_template(cfg), flat, resolve_device(device))
+    package's path strings (``save._flatten(params)`` of a JAX tree); each
+    array must have its ``param_template`` shape."""
+    return _checked_fill(param_template(cfg), flat, "template", device)
 
 
 def params_to_arrays(params) -> Dict[str, np.ndarray]:
@@ -130,12 +146,8 @@ def caches_from_arrays(flat: Mapping[str, np.ndarray], cfg, batch: int,
     """The port's decode caches for ``cfg`` at ``(batch, seq_len)`` from
     arrays keyed by the JAX package's path strings (``save._flatten`` of a
     JAX cache tree); each array must have its ``init_caches`` shape."""
-    like = init_caches(cfg, batch, seq_len, device="meta")
-    for path, t in tree.flatten_with_path(like):
-        got = tuple(np.shape(flat[path]))
-        if got != tuple(t.shape):
-            raise ValueError(f"{path}: shape {got}, decode layout {tuple(t.shape)}")
-    return fill(like, flat, resolve_device(device))
+    return _checked_fill(init_caches(cfg, batch, seq_len, device="meta"), flat,
+                         "decode layout", device)
 
 
 def caches_to_arrays(caches) -> Dict[str, np.ndarray]:

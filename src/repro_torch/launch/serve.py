@@ -6,7 +6,10 @@
 
 Loads a checkpoint if given (params only, ``ckpt/save.py::restore_params``;
 else a random init from seed 0), then serves synthetic batched requests
-through the prefill + cached-decode engine and prints the tokens. The
+through the prefill + cached-decode engine and prints the tokens; a VLM
+gets random patch embeddings and an encoder-decoder model random frame
+embeddings (the stub frontends), drawn after the prompts as the JAX
+package's launcher draws them. The
 smoke-scale config by default, ``--full`` for the published one. The
 tensors live on ``--device`` (the card by default; without a GPU it raises
 unless given ``--device cpu``); on the card the deterministic mode of
@@ -54,7 +57,14 @@ def main(argv=None) -> None:
         max_new_tokens=args.max_new, temperature=args.temperature), device=dev)
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
-    out = engine.generate(prompts)
+    extras = {}
+    if cfg.vlm is not None:
+        extras["patch_embeds"] = rng.standard_normal(
+            (args.batch, cfg.vlm.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.encoder is not None:
+        extras["enc_frames"] = rng.standard_normal(
+            (args.batch, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)
+    out = engine.generate(prompts, extras=extras or None)
     print(f"served batch={args.batch}: generated {out.shape}")
     print(out)
 

@@ -16,8 +16,8 @@ def make_forward_loss(cfg: ModelConfig):
 
 
 def make_serve_step(cfg: ModelConfig):
-    def serve_step(params, token, pos, caches):
-        return tf.decode_step(cfg, params, caches, token, pos)
+    def serve_step(params, token, pos, caches, enc_out=None):
+        return tf.decode_step(cfg, params, caches, token, pos, enc_out=enc_out)
 
     return serve_step
 

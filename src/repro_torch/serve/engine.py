@@ -5,7 +5,10 @@ Static-batch engine (slots = batch rows): prefill a batch of prompts, then
 step all slots together; finished slots (EOS or max length) keep decoding
 into a sink but are masked from the outputs. Sliding-window layers convert
 the prefill cache into rolling form (roll by S0 mod window) so decode's
-``pos % window`` addressing lines up.
+``pos % window`` addressing lines up; SSM and LRU states pass through as
+the prefill left them. An encoder-decoder model encodes its frames once
+and passes the encoder's output to every decode step; a VLM's patch
+embeddings go to the prefill.
 
 The engine runs on its device (``Engine(..., device=)``, the card unless
 the caller asks for the CPU; the params are moved there) and returns
@@ -42,13 +45,16 @@ class ServeConfig:
 
 def _prefill_to_decode_caches(cfg: ModelConfig, cache, prompt_len: int,
                               cache_len: int, mixer: str = "G"):
-    """Convert a full prefill KV cache to decode layout: pad/crop the layer
+    """Convert a full prefill KV cache to decode layout (an SSM or LRU state
+    passes through as it is): pad/crop the layer
     to ITS decode cache length — ``_layer_cache_len(cfg, mixer, cache_len)``,
     the sliding window for "L" layers, the global ``cache_len`` otherwise.
     Cropped (rolling) layers keep the last ``window`` entries rolled into
     ``pos % window`` order — decode's rolling addressing and masking assume
     ``S_cache == window``. The sequence axis is -3 ((..., S, Kv, Dh)); a
     leading group axis may be present."""
+    if not isinstance(cache, attn.KVCache):
+        return cache
     tgt = _layer_cache_len(cfg, mixer, cache_len)
     S_full = cache.k.shape[-3]
 
@@ -97,14 +103,19 @@ class Engine:
 
     @torch.no_grad()
     def generate(self, prompts: np.ndarray, extras: Optional[Dict] = None) -> np.ndarray:
-        """prompts: (B, S0) int32. Returns (B, max_new_tokens)."""
-        if extras:
-            raise tf._unported("the encoder / VLM stub's extras")
-        scfg, dev = self.scfg, self.device
+        """prompts: (B, S0) int32; ``extras`` the numpy ``patch_embeds``
+        (B, n_patches, D) of a VLM or ``enc_frames`` (B, F, D) of an
+        encoder-decoder model. Returns (B, max_new_tokens)."""
+        cfg, scfg, dev = self.cfg, self.scfg, self.device
         B, S0 = prompts.shape
         total = scfg.cache_len or (S0 + scfg.max_new_tokens)
-        tokens = torch.from_numpy(np.asarray(prompts, np.int32)).to(dev)
-        logits, caches = self._prefill(self.params, {"tokens": tokens})
+        batch = {"tokens": torch.from_numpy(np.asarray(prompts, np.int32)).to(dev)}
+        for k, v in (extras or {}).items():
+            batch[k] = torch.from_numpy(np.array(v)).to(dev)
+        # the encoder's output, once, for every decode step
+        step_extra = (() if cfg.encoder is None
+                      else (tf.encode(cfg, self.params, batch["enc_frames"]),))
+        logits, caches = self._prefill(self.params, batch)
         caches = self._relayout(caches, S0, total)
 
         # emit-then-feed: out[:, t] is the prediction of position S0 + t,
@@ -130,6 +141,7 @@ class Engine:
                     break
             if t == scfg.max_new_tokens - 1:
                 break
-            logits, caches = self._step(self.params, tok, S0 + t, caches)
+            logits, caches = self._step(self.params, tok, S0 + t, caches,
+                                        *step_extra)
             lg = logits[:, -1]
         return torch.stack(out, dim=1).cpu().numpy()

@@ -1273,3 +1273,109 @@ def test_cuda_engine_equals_cpu(cuda):
             if margin[b, t] <= 2e-4:
                 break
             assert outs["cuda"][b, t] == outs["cpu"][b, t], (b, t, outs)
+
+
+def _engine_logits_along(e, prompts, extras, toks, new):
+    """The prefill's last logits and each decode step's, fed ``toks``."""
+    from repro_torch.models import transformer as tf
+
+    S0 = prompts.shape[1]
+    batch = {"tokens": torch.from_numpy(prompts).to(e.device),
+             **{k: torch.from_numpy(v).to(e.device) for k, v in extras.items()}}
+    with torch.no_grad():
+        enc = (() if "enc_frames" not in batch
+               else (tf.encode(e.cfg, e.params, batch["enc_frames"]),))
+        lg, caches = e._prefill(e.params, batch)
+        caches = e._relayout(caches, S0, S0 + new)
+        out = [lg[:, -1]]
+        for t in range(new - 1):
+            lg, caches = e._step(e.params, torch.from_numpy(toks[:, t:t + 1]).to(e.device),
+                                 S0 + t, caches, *enc)
+            out.append(lg[:, -1])
+    return torch.stack(out, dim=1).cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b", "whisper-base",
+                                  "pixtral-12b"])
+def test_cuda_family_engine_equals_cpu(cuda, arch):
+    """The token engine at the mamba2 (SSM states), recurrentgemma (LRU
+    states, a rolling local layer), whisper (encoder, cross-attention) and
+    pixtral (patch embeddings) smokes on the card against the same engine on
+    the CPU, as ``test_cuda_engine_equals_cpu`` holds gemma2's."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_smoke(arch)
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0))
+    S0, new = 24, 6
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (2, S0)).astype(np.int32)
+    extras = {}
+    if cfg.vlm is not None:
+        extras["patch_embeds"] = rng.standard_normal(
+            (2, cfg.vlm.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.encoder is not None:
+        extras["enc_frames"] = rng.standard_normal(
+            (2, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)
+    engines = {dev: Engine(cfg, params, ServeConfig(max_new_tokens=new), device=dev)
+               for dev in ("cpu", "cuda")}
+    outs = {dev: e.generate(prompts, extras or None) for dev, e in engines.items()}
+    want = _engine_logits_along(engines["cpu"], prompts, extras, outs["cpu"], new)
+    got = _engine_logits_along(engines["cuda"], prompts, extras, outs["cpu"], new)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4, atol=2e-4)
+    assert torch.equal(want.argmax(-1).to(torch.int32), torch.from_numpy(outs["cpu"]))
+    top2 = torch.topk(want, 2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).numpy()
+    for b in range(2):
+        for t in range(new):
+            if margin[b, t] <= 2e-4:
+                break
+            assert outs["cuda"][b, t] == outs["cpu"][b, t], (b, t, outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["tri", "scan"])
+def test_cuda_chunked_attention_equals_full(rng, cuda, schedule):
+    """Streaming attention on the card (S = 2048 in chunks of 512, gemma2's
+    softcap, GQA, a window that ends inside a chunk and none) against
+    ``full_attention`` on the same card: the output and the gradients of a
+    weighted sum with respect to q, k and v, within the f32 tolerance
+    scaled by max |full|."""
+    from repro_torch.models import attention as attn
+
+    B, S, H, Kv, Dh = 1, 2048, 8, 4, 64
+    q, k, v, w = (t(rng.standard_normal(s).astype(np.float32)).to(cuda)
+                  for s in ((B, S, H, Dh), (B, S, Kv, Dh), (B, S, Kv, Dh), (B, S, H, Dh)))
+    for window in (None, 700):
+        outs = []
+        for chunked in (True, False):
+            x = [a.clone().requires_grad_(True) for a in (q, k, v)]
+            if chunked:
+                o = attn.chunked_attention(*x, n_kv=Kv, window=window, cap=50.0,
+                                           q_chunk=512, kv_chunk=512, schedule=schedule)
+            else:
+                o = attn.full_attention(*x, n_kv=Kv, window=window, cap=50.0)
+            torch.sum(o * w).backward()
+            outs.append([o.detach()] + [a.grad for a in x])
+        close(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,b", [(512, 64), (4096, 128), (512, 256)])
+def test_cuda_panel_qr_zero_panel_matches_plain(cuda, m, b):
+    """K1 on an all-zero panel (a momentum whose gradient is zero, as
+    whisper's encoder weights get without frame embeddings) against its
+    plain version, and CAQR-Muon's orthonormalization of a zero momentum:
+    [I; 0], as the JAX package gives."""
+    from repro_torch.optim.caqr_muon import _orth2d
+
+    A = torch.zeros(4, m, b, device=cuda)
+    got, want = tpanel.panel_qr(A, 0), tref.panel_qr(A.cpu(), 0)
+    assert all(torch.isfinite(g).all() for g in got)
+    close(got, want)
+    Q = _orth2d(torch.zeros(m, b, device=cuda))
+    eye = torch.zeros(m, b)
+    eye[:b] = torch.eye(b)
+    assert torch.equal(Q.cpu().abs(), eye)

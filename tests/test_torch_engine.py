@@ -5,21 +5,25 @@ tensors at the smoke configs (f32).
 Against JAX, with the same numpy-seeded inputs and JAX's parameters
 carried across (``interop.params_from_arrays``): ``cache_update`` and
 ``decode_attention`` on full and rolling caches, before and after the wrap,
-within (1e-5, 1e-5); ``init_caches``' paths, shapes and dtypes exactly; at
-the gemma2 smoke (prompt 24 over a window of 16) the prefill's logits and
-caches, and one ``decode_step`` from JAX's prefill cache (crossed through
-``interop.caches_from_arrays``), within (2e-4, 2e-4); for the tinyllama,
-gemma2 and mixtral smokes, each engine's prefill and 12 decode steps on its
-own caches, fed one seeded token stream past twice the window, every
-step's logits within (2e-4, 2e-4); a 6-token greedy
-``Engine.generate`` equal to JAX's ``Engine`` for the tinyllama, gemma2 and
-mixtral smokes wherever JAX's top-two logit margin exceeds 1e-3.
+within (1e-5, 1e-5); ``init_caches``' paths, shapes and dtypes exactly
+(KV caches and the SSM and LRU states); at the gemma2 smoke (prompt 24 over
+a window of 16) the prefill's logits and caches, and one ``decode_step``
+from JAX's prefill cache (crossed through ``interop.caches_from_arrays``),
+within (2e-4, 2e-4); at the mamba2, recurrentgemma, whisper and pixtral
+smokes the prefill's logits and caches (recurrent states, the encoder's
+and the patch embeddings' effect included) within (2e-4, 2e-4); for every
+smoke, each engine's prefill and 12 decode steps on its own caches, fed one
+seeded token stream past twice the window, every step's logits within
+(2e-4, 2e-4) (whisper's steps with each package's own encoder output); a
+6-token greedy ``Engine.generate`` (with random frame or patch embeddings
+for whisper and pixtral) equal to JAX's ``Engine`` wherever JAX's top-two
+logit margin exceeds 1e-3.
 
 Inside the port: the engine equals its own no-cache greedy rollout; greedy
 decoding and a seeded ``temperature > 0`` run repeat; EOS masking; the
 per-layer crop of ``_prefill_to_decode_caches``; ``launch.serve`` restores
-a checkpoint; and the entry points raise without CUDA unless asked for the
-CPU.
+a checkpoint and serves every family; and the entry points raise without
+CUDA unless asked for the CPU.
 """
 import functools
 
@@ -46,7 +50,8 @@ from repro_torch.models import transformer as t_tf
 from repro_torch.serve import Engine, ServeConfig
 from repro_torch.serve.engine import _prefill_to_decode_caches
 
-ARCHS = ("tinyllama-1.1b", "gemma2-2b", "mixtral-8x22b")
+FAMILIES = ("mamba2-2.7b", "recurrentgemma-9b", "whisper-base", "pixtral-12b")
+ARCHS = ("tinyllama-1.1b", "gemma2-2b", "mixtral-8x22b") + FAMILIES
 B, S0, NEW = 2, 24, 6
 LONG = 12              # teacher-forced steps: positions S0 .. 35, past 2 windows
 MARGIN = 1e-3          # top-two logit margin above which tokens must agree
@@ -74,29 +79,71 @@ def _prompts(cfg, seed=0, shape=(B, S0)):
     return np.random.default_rng(seed).integers(0, cfg.vocab, shape).astype(np.int32)
 
 
+def _extras(cfg, seed=9):
+    """Random stub-frontend inputs (float32, as ``launch.serve`` draws
+    them): pixtral's patch embeddings, whisper's frame embeddings."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.vlm is not None:
+        out["patch_embeds"] = rng.standard_normal(
+            (B, cfg.vlm.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.encoder is not None:
+        out["enc_frames"] = rng.standard_normal(
+            (B, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _enc_out(engine, params, extras, lib):
+    """The encoder's output of ``extras`` by JAX's (lib jnp) or the
+    port's ``encode``, as the engines compute it, or None."""
+    if "enc_frames" not in extras:
+        return None
+    if lib is jnp:
+        return j_tf.encode(engine.cfg, params, jnp.asarray(extras["enc_frames"]))
+    return t_tf.encode(engine.cfg, params, torch.from_numpy(extras["enc_frames"]))
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_side(arch):
     """JAX's params (and the port's copy of them), its engine (whose jitted
     prefill and step the tests reuse), its greedy tokens, and the top-two
-    margin of the logits each token was read from: one no-cache forward
-    along JAX's trajectory, by the port (the two forwards agree to
+    margin of the logits each token was read from: the port's prefill and
+    cached steps along JAX's trajectory (the two packages' logits agree to
     round-off, and the port's is the cheaper one here)."""
     cfg = j_get_smoke(arch)
     params = j_tf.init_params(cfg, jax.random.key(0))
     prompts = _prompts(cfg)
+    extras = _extras(cfg)
     engine = JEngine(cfg, params, JServeConfig(max_new_tokens=NEW))
-    out = engine.generate(prompts)
+    out = engine.generate(prompts, extras or None)
     flat = j_flatten(params)
     tcfg = get_smoke(arch)
     tparams = interop.params_from_arrays(flat, tcfg, **CPU)
-    toks = torch.from_numpy(np.concatenate([prompts, out[:, :-1]], axis=1))
+    teng = Engine(tcfg, tparams, **CPU)
     with torch.no_grad():
-        hidden, _, _ = t_tf.forward(tcfg, tparams, toks)
-        lg = t_tf.logits_fn(tcfg, tparams, hidden)[:, S0 - 1:]
-    top2 = torch.topk(lg, 2, dim=-1).values.numpy()
+        lg, caches = teng._prefill(tparams, _t_batch(prompts, extras))
+        caches = teng._relayout(caches, S0, S0 + NEW)
+        enc = () if "enc_frames" not in extras else (
+            _enc_out(teng, tparams, extras, torch),)
+        lgs = [lg]
+        for t in range(NEW - 1):
+            lg, caches = teng._step(tparams, torch.from_numpy(out[:, t:t + 1]),
+                                    S0 + t, caches, *enc)
+            lgs.append(lg)
+    top2 = torch.topk(torch.cat(lgs, dim=1), 2, dim=-1).values.numpy()
     return dict(cfg=cfg, params=params, flat=flat, tparams=tparams,
-                prompts=prompts, engine=engine, out=out,
+                prompts=prompts, extras=extras, engine=engine, out=out,
                 margin=top2[..., 0] - top2[..., 1])
+
+
+def _t_batch(prompts, extras):
+    return {"tokens": torch.from_numpy(prompts),
+            **{k: torch.from_numpy(v) for k, v in extras.items()}}
+
+
+def _j_batch(prompts, extras):
+    return {"tokens": jnp.asarray(prompts),
+            **{k: jnp.asarray(v) for k, v in extras.items()}}
 
 
 def _port_params(arch):
@@ -186,6 +233,26 @@ def test_gemma2_decode_step_from_jax_prefill_cache():
                                    err_msg=path)
 
 
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_prefill_logits_and_caches_match_jax(arch):
+    """mamba2 (SSM states), recurrentgemma (LRU states and a rolling local
+    layer), whisper (the encoder and cross-attention), pixtral (the patch
+    embeddings over the first 8 positions)."""
+    side = _jax_side(arch)
+    cfg = get_smoke(arch)
+    jl, jc = side["engine"]._prefill(side["params"],
+                                     _j_batch(side["prompts"], side["extras"]))
+    with torch.no_grad():
+        tl, tc = api.make_prefill(cfg)(_port_params(arch),
+                                       _t_batch(side["prompts"], side["extras"]))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=2e-4, atol=2e-4)
+    want, got = j_flatten(jc), interop.caches_to_arrays(tc)
+    assert list(got) == list(want)
+    for path in want:
+        np.testing.assert_allclose(got[path], want[path], rtol=2e-4, atol=2e-4,
+                                   err_msg=path)
+
+
 # -- the engine against JAX's ----------------------------------------------------
 
 
@@ -220,18 +287,24 @@ def test_engine_steps_match_jax_logits_past_the_wrap(arch):
         assert S0 + LONG - 1 >= 2 * cfg.sliding_window
     total = S0 + LONG
     prompts, feed = side["prompts"], _prompts(cfg, seed=6, shape=(B, LONG))
-    jl, jc = side["engine"]._prefill(side["params"], {"tokens": jnp.asarray(prompts)})
+    extras = side["extras"]
+    jl, jc = side["engine"]._prefill(side["params"], _j_batch(prompts, extras))
     jc = _j_relayout(jcfg, jc, S0, total)
     engine = Engine(cfg, side["tparams"], **CPU)
+    j_enc = [x for x in (_enc_out(side["engine"], side["params"], extras, jnp),)
+             if x is not None]
     with torch.no_grad():
-        tl, tc = engine._prefill(engine.params, {"tokens": torch.from_numpy(prompts)})
+        t_enc = [x for x in (_enc_out(engine, engine.params, extras, torch),)
+                 if x is not None]
+        tl, tc = engine._prefill(engine.params, _t_batch(prompts, extras))
         tc = engine._relayout(tc, S0, total)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=2e-4, atol=2e-4)
         for t in range(LONG):
             tok = feed[:, t:t + 1]
             jl, jc = side["engine"]._step(side["params"], jnp.asarray(tok),
-                                          jnp.asarray(S0 + t, jnp.int32), jc)
-            tl, tc = engine._step(engine.params, torch.from_numpy(tok), S0 + t, tc)
+                                          jnp.asarray(S0 + t, jnp.int32), jc, *j_enc)
+            tl, tc = engine._step(engine.params, torch.from_numpy(tok), S0 + t, tc,
+                                  *t_enc)
             np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=2e-4,
                                        atol=2e-4, err_msg=f"{arch} pos {S0 + t}")
 
@@ -243,7 +316,7 @@ def test_engine_greedy_tokens_match_jax(arch):
     two trajectories may part), and most steps must qualify."""
     side = _jax_side(arch)
     out = Engine(get_smoke(arch), side["tparams"], ServeConfig(max_new_tokens=NEW),
-                 **CPU).generate(side["prompts"])
+                 **CPU).generate(side["prompts"], side["extras"] or None)
     assert out.shape == (B, NEW)
     held = 0
     for b in range(B):
@@ -379,6 +452,30 @@ def test_launch_serve_restores_a_checkpoint(tmp_path, capsys):
     assert str(want) in printed
 
 
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_launch_serve_serves_every_family(arch, capsys):
+    """The launcher draws the prompts, then the stub frontends' inputs, from
+    one seeded generator, as the JAX package's launcher does."""
+    cfg = get_smoke(arch)
+    t_launch.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                   "--prompt-len", "8", "--max-new", "3"])
+    printed = capsys.readouterr().out
+    assert "served batch=2: generated (2, 3)" in printed
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (2, 8)).astype(np.int32)
+    extras = {}
+    if cfg.vlm is not None:
+        extras["patch_embeds"] = rng.standard_normal(
+            (2, cfg.vlm.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.encoder is not None:
+        extras["enc_frames"] = rng.standard_normal(
+            (2, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)
+    params = t_tf.init_params(cfg, torch.Generator().manual_seed(0))
+    want = Engine(cfg, params, ServeConfig(max_new_tokens=3), **CPU).generate(
+        prompts, extras or None)
+    assert str(want) in printed
+
+
 def test_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -390,6 +487,3 @@ def test_entry_points_raise_without_cuda():
         t_tf.init_caches(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_launch.main(["--arch", "gemma2-2b", "--max-new", "2"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Engine(cfg, _port_params("gemma2-2b"), **CPU).generate(
-            _prompts(cfg), extras={"enc_frames": np.zeros((B, 4, cfg.d_model))})

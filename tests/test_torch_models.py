@@ -1,13 +1,21 @@
-"""The port's dense transformer (``repro_torch.models``) against the JAX
+"""The port's transformer (``repro_torch.models``) against the JAX
 package's, on CPU tensors at the ``tinyllama`` smoke config (f32; the loss
-and gradients also at the ``gemma2`` smoke).
+and gradients also at the ``gemma2``, ``mamba2``, ``recurrentgemma``,
+``whisper`` and ``pixtral`` smokes).
 
 Exactly: the parameter tree's flattened paths (the checkpoint keys, the
-Muon task names), shapes and dtypes, in JAX's leaf order. Within the f32
-pair of ``repro.kernels.ref.tolerances``: with JAX's parameters carried
-across (``interop.params_from_arrays``), the loss and every gradient
-leaf, for one and two microbatches and for the chunked CE; ``rope``,
-``rms_norm`` and ``full_attention`` on the same numpy inputs.
+Muon task names), shapes and dtypes, in JAX's leaf order, for tinyllama
+and the four families of the SSM, RG-LRU, encoder and VLM mixers, at smoke
+size and at the published widths. Within the f32 pair of
+``repro.kernels.ref.tolerances``: with JAX's parameters carried across
+(``interop.params_from_arrays``), the loss and every gradient leaf, for
+one and two microbatches and for the chunked CE (whisper with frame
+embeddings through its encoder, pixtral with patch embeddings; JAX's
+mamba2 at chunk 4, where its gradients are finite: see
+``tests/test_torch_ssm.py``); ``rope``, ``rms_norm`` and
+``full_attention`` on the same numpy inputs. The paths that still wait
+for their port raise, and so does a chunked length the reference's
+asserts refuse.
 """
 import dataclasses
 
@@ -34,6 +42,22 @@ from repro_torch.train.step import make_loss_and_grads
 
 RTOL, ATOL = tolerances(np.float32)
 ARCH = "tinyllama-1.1b"
+FAMILIES = ("mamba2-2.7b", "recurrentgemma-9b", "whisper-base", "pixtral-12b")
+
+
+def _j_smoke(arch):
+    """JAX's smoke config; mamba2's at chunk 4: at its own chunk of 8 the
+    reference's gradients hold NaN (``tests/test_torch_ssm.py``), and the
+    function is the same at any chunk."""
+    cfg = j_get_smoke(arch)
+    if cfg.ssm is not None:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, chunk=4))
+    return cfg
+
+
+def _paths(flat_items):
+    return [(p, tuple(x.shape), str(x.dtype).removeprefix("torch."))
+            for p, x in flat_items]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -62,6 +86,28 @@ def test_init_paths_shapes_and_dtypes_equal_jax(jax_params):
     assert "groups/l0/attn/.wq" in dict((k, 0) for k, *_ in want)
 
 
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_init_paths_shapes_and_dtypes_equal_jax(arch):
+    want = [(k, v.shape, str(v.dtype)) for k, v in
+            j_flatten(j_tf.init_params(j_get_smoke(arch), jax.random.key(0))).items()]
+    for params in (t_tf.init_params(get_smoke(arch), torch.Generator().manual_seed(0)),
+                   t_tf.param_template(get_smoke(arch))):
+        assert _paths(tree.flatten_with_path(params)) == want
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_full_width_templates_match_published_shapes(arch):
+    from repro.configs import get_config as j_get_config
+    from repro_torch.configs import get_config
+
+    abstract = jax.eval_shape(lambda k: j_tf.init_params(j_get_config(arch), k),
+                              jax.random.key(0))
+    want = [("/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path),
+             tuple(leaf.shape), str(leaf.dtype))
+            for path, leaf in jax.tree_util.tree_flatten_with_path(abstract)[0]]
+    assert _paths(tree.flatten_with_path(t_tf.param_template(get_config(arch)))) == want
+
+
 def test_full_width_template_matches_published_shapes():
     from repro.configs import get_config as j_get_config
     from repro_torch.configs import get_config
@@ -79,18 +125,29 @@ def test_full_width_template_matches_published_shapes():
 
 @pytest.mark.parametrize("arch,grad_accum,loss_chunk",
                          [(ARCH, 1, 8192), (ARCH, 2, 8192), (ARCH, 1, 64),
-                          ("gemma2-2b", 1, 8192)],
-                         ids=["one-chunk", "accum2", "chunked-ce", "gemma2"])
+                          ("gemma2-2b", 1, 8192)]
+                         + [(a, 1, 8192) for a in FAMILIES],
+                         ids=["one-chunk", "accum2", "chunked-ce", "gemma2",
+                              "mamba2", "recurrentgemma", "whisper", "pixtral"])
 def test_loss_and_every_gradient_leaf_within_tolerance(jax_params, arch, grad_accum,
                                                        loss_chunk):
     """gemma2's smoke adds local/global layers (sequence 32 over a window of
     16), geglu, sandwich norms, both softcaps, the embedding scale and tied
-    embeddings."""
-    jcfg = dataclasses.replace(j_get_smoke(arch), loss_chunk=loss_chunk)
+    embeddings; recurrentgemma's RG-LRU layers and a local layer past its
+    window; whisper's batch carries frame embeddings (its encoder and
+    cross-attention get gradients), pixtral's patch embeddings."""
+    jcfg = dataclasses.replace(_j_smoke(arch), loss_chunk=loss_chunk)
     tcfg = dataclasses.replace(get_smoke(arch), loss_chunk=loss_chunk)
     if arch != ARCH:
         jax_params = j_tf.init_params(j_get_smoke(arch), jax.random.key(0))
     batch = _batch(jcfg)
+    rng = np.random.default_rng(4)
+    if jcfg.vlm is not None:
+        batch["patch_embeds"] = rng.standard_normal(
+            (8, jcfg.vlm.n_patches, jcfg.d_model)).astype(np.float32)
+    if jcfg.encoder is not None:
+        batch["enc_frames"] = rng.standard_normal(
+            (8, jcfg.encoder.n_frames, jcfg.d_model)).astype(np.float32)
     jl, jg = jax.jit(j_loss_and_grads(jcfg, grad_accum))(
         jax_params, {k: jnp.asarray(v) for k, v in batch.items()})
     params = interop.params_from_arrays(j_flatten(jax_params), tcfg, device="cpu")
@@ -149,14 +206,49 @@ def test_full_attention_matches_jax(rng, window, cap):
 
 
 def test_unported_paths_raise():
-    cfg = get_smoke(ARCH)
-    chunked = dataclasses.replace(cfg, attn_chunk_threshold=4)
-    params = t_tf.init_params(chunked, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        t_tf.forward(chunked, params, torch.zeros(1, 4, dtype=torch.int32))
-    for bad in (dict(mixer_pattern="M"), dict(mixer_pattern="R")):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            t_tf.param_template(dataclasses.replace(cfg, **bad))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_tf.forward(cfg, {}, torch.zeros(1, 4, dtype=torch.int32), mode="prefill",
-                     enc_frames=torch.zeros(1, 4, cfg.d_model))
+    """The training half of the multi-process path still raises
+    (``ROADMAP.md`` queue 1, item 4c). The model families and streaming
+    attention are ported; a length their chunked paths cannot take raises,
+    as the reference asserts: attention's chunk at S >= the threshold, the
+    SSD chunk in a mamba2 layer."""
+    from repro_torch.train.step import make_pod_train_step
+
+    with pytest.raises(NotImplementedError, match="item 4c"):
+        make_pod_train_step(get_smoke(ARCH), None, lambda s: 0.0)
+    tokens = torch.zeros(1, 12, dtype=torch.int32)
+    chunked = dataclasses.replace(get_smoke(ARCH), attn_chunk_threshold=8, attn_chunk=8)
+    mamba = get_smoke("mamba2-2.7b")
+    assert 12 % mamba.ssm.chunk
+    for cfg in (chunked, mamba):
+        params = t_tf.init_params(cfg, torch.Generator().manual_seed(0))
+        for mode in ("train", "prefill"):
+            with pytest.raises(ValueError, match="not a multiple"):
+                t_tf.forward(cfg, params, tokens, mode=mode)
+
+
+def test_zero_momentum_orthonormalizes_as_jax():
+    """Whisper trains without frame embeddings (the data pipeline has none),
+    so its encoder and cross-attention weights get zero gradients and
+    CAQR-Muon orthonormalizes a zero momentum: [I; 0] in both packages."""
+    from repro.optim.caqr_muon import _orth2d as j_orth2d
+    from repro_torch.optim.caqr_muon import _orth2d
+
+    want = np.asarray(j_orth2d(jnp.zeros((512, 64), jnp.float32)))
+    got = _orth2d(torch.zeros(512, 64)).numpy()
+    eye = np.zeros((512, 64), np.float32)
+    eye[:64] = np.eye(64)
+    np.testing.assert_array_equal(np.abs(want), eye)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "pixtral-12b"])
+def test_launcher_trains_the_stub_families_on_cpu(arch, capsys):
+    """The data pipeline gives tokens alone: whisper trains its decoder (the
+    encoder and cross-attention weights get zero gradients), pixtral its
+    backbone."""
+    from repro_torch.launch import train as t_launch
+
+    t_launch.main(["--arch", arch, "--device", "cpu", "--optimizer", "caqr_muon",
+                   "--steps", "2", "--global-batch", "8", "--seq-len", "32"])
+    out = capsys.readouterr().out
+    assert "step     0 loss" in out and "nan" not in out
