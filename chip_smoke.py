@@ -251,7 +251,45 @@ non-zero and prints no result):
    REBUILD event; K1-K4 launched and K5/K6 not; K1-K4 at the paths' Muon
    shapes against their plain versions on 4 lanes and one; step seconds
    and their split, peak memory.
-20. wide: K1-K4 above 128 columns: K1 (and K3, K1's route on the stacked
+20. train_mesh: one process per lane in training. Four ranks spawned once
+   (``make_lane_group``) on the card, shared with train_pod and closed
+   before wide. TinyLlama-1.1B at its published width cut to 1 layer,
+   sequence 1024, batch 8 over 4 data lanes, ``caqr_muon`` through
+   ``FTTrainer(FTRunConfig(use_mesh=True, qr_lanes=4, panel_width=256))``
+   on a lane mesh over the four ranks: every point of the step's 7 sweeps
+   is a ``sweep_step`` in each rank (``QREngine(mesh=)``; K1 and K3 the one
+   wide launch, K2 and K4 the wide routes). One step
+   failure-free (path ``train_mesh``) and one with lane 1 killed inside the
+   first ``w_in`` sweep (``train_mesh_kill``), under torch's deterministic
+   mode: params and loss bit-equal to each other and to the same step on
+   the SimComm engine, one single-source REBUILD event; every sweep's R of
+   the failure-free step held to the Gram identity of its momentum slice;
+   K1-K4 at the sweeps' shapes at b = 256 (``MESH_SHAPES``) against their
+   plain versions on the step's momentum, on 4 lanes and on one; K1-K4
+   launched on every rank and ``wide_gemm`` inside them, K5/K6 on none (the
+   paths count the ranks' launches and the parent's). Prints the step
+   seconds, boundaries, a point's round trip
+   (the runners' seconds a point, and of those the wait for the ranks),
+   and each rank's seconds, collectives and seconds inside them.
+21. train_pod: the multi-pod step (``make_pod_train_step``) over the first
+   two of the same ranks, one a pod: TinyLlama at its published width, 4
+   layers, per-pod batch 4 x 1024, ``adamw``, two steps with PowerSGD-QR
+   at rank 4 (path ``train_pod``) and two with the plain pmean (rank 0),
+   deterministic mode (4 layers, not 2: at 2 or 3 the stacked norms are
+   compressible matrices with fewer rows than the rank, where the
+   reference's TSQR chain asserts, as the port's does). Checks: the
+   params bit-equal across the pods after every step, every step's
+   returned state, loss and each pod's own state bit-equal to the same
+   steps run as two threads of this process (the
+   one-process per-pod emulation), finite losses, K1 launched in the
+   ranks, and K1 at the compressed TSQR chain's shapes ((256, 4) and
+   (260, 4) for the embedding, (512, 4) and (516, 4) for the head, (4, 4)
+   for the norm stacks) within
+   (3e-4, 3e-4) of its plain version, timed beside its bound and
+   ``torch.geqrf``. Prints each step's seconds, the bytes each rank sends
+   and stages in the gradient reduction at rank 4 and at 0, and each
+   rank's and this process's peak memory.
+22. wide: K1-K4 above 128 columns: K1 (and K3, K1's route on the stacked
    triangles) in one cooperative launch (``csrc/panel_qr_wide.cu``: K1's
    team on sub-panels of 128 columns, on clusters or, for 8 lanes of 4096
    rows, a plain grid; the products between them and in the T join as
@@ -298,7 +336,7 @@ non-zero and prints no result):
    than four times the f32 plain version, on the columns ``leading_rank``
    keeps), K1 launched and no sub-kernel (K1's team kernel, ``wide_gemm``);
    step seconds, each ``_orth2d`` shape's share of the step, peak memory.
-21. spread: each full-width sweep (``caqr_factorize``, the state machine
+23. spread: each full-width sweep (``caqr_factorize``, the state machine
    stepped and fused, the four-kill FT sweep, the online sweeps stepped,
    fused and double-buffered) run five times: median and min-max seconds.
 
@@ -306,7 +344,8 @@ The kernels line gives each kernel's launches on every path above, each
 counted from 0 just before the path ran (``lm_serve``, ``lm_long`` and
 the four ``lm_families`` paths: 0 for every kernel; on the spmd paths ``spmd``,
 ``spmd_kill``, ``spmd_mds`` and ``spmd_b256``, the sum of the ranks' own
-counters); its ``wide_gemm`` record counts
+counters; on ``train_mesh``, ``train_mesh_kill`` and ``train_pod`` the
+ranks' counters and this process's); its ``wide_gemm`` record counts
 the products' kernel's launches inside the wide calls
 (``backend.SUB_LAUNCHES``: K2's and K4's wide routes; K1 and K3 launch no
 sub-kernel, and the muon path none at all). The line before it holds the
@@ -363,14 +402,23 @@ from repro_torch.kernels import wide  # noqa: E402
 from repro_torch.kernels import wy_apply as twy  # noqa: E402
 from repro_torch import tree  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.data.pipeline import DataConfig  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, make_batch  # noqa: E402
+from repro_torch.dist import compat  # noqa: E402
 from repro_torch.launch import spmd_qr  # noqa: E402
 from repro_torch.launch.serve_qr import make_requests  # noqa: E402
 from repro_torch.models import attention as t_attn  # noqa: E402
 from repro_torch.models import moe as t_moe  # noqa: E402
 from repro_torch.models import transformer as t_tf  # noqa: E402
 from repro_torch.serve import Engine, QRService, ServeConfig  # noqa: E402
-from repro_torch.train import TrainConfig, Trainer  # noqa: E402
+from repro_torch.optim import powersgd  # noqa: E402
+from repro_torch.optim.adamw import adamw  # noqa: E402
+from repro_torch.optim.schedule import constant  # noqa: E402
+from repro_torch.train import (  # noqa: E402
+    PodTrainState,
+    TrainConfig,
+    Trainer,
+    make_pod_train_step,
+)
 from repro_torch.train.ftrun import (  # noqa: E402
     FTRunConfig,
     FTTrainer,
@@ -586,6 +634,42 @@ TRAIN_FAMILY_REDUCED = {
     "seq_len": "1024, as the train phase: time (recurrentgemma's window of "
                "2048 then masks nothing; the CPU tests hold the window)",
     "steps": "2: a kill inside step 1",
+}
+# the train_mesh and train_pod phases: four ranks on the card (one a lane,
+# or one a pod for the first two); TinyLlama at its published width, cut in
+# depth. The mesh trainer's one step at panel width 256 and its kill,
+# inside step 0's first w_in sweep (8 panels) after panel 4's last
+# butterfly level
+MESH_RANKS = 4
+MESH_LAYERS, MESH_STEPS, MESH_B = 1, 1, 256
+MESH_KILL = dict(at_step=0, lane=1, task="groups/l0/ffn/.w_in#0",
+                 point=sweep_point(4, "tsqr", 1))
+# K1-K4's shapes on the mesh trainer's sweeps (m_loc, n, b), one lane a
+# rank: w_in, w_gate and w_out (5632 x 2048), wq and wo (2048 x 2048), wk
+# and wv (2048 x 256)
+MESH_SHAPES = ((1408, 2048, MESH_B), (512, 2048, MESH_B), (512, 256, MESH_B))
+MESH_REDUCED = {
+    "n_layers": "22 -> 1: time (each layer adds 7 sweeps of about 60 "
+                "points a step, each point a round trip to the ranks)",
+    "seq_len": "2048 -> 1024, as the train phase",
+    "steps": "1 failure-free and 1 with a kill inside a sweep",
+    "panel_width": "128 -> 256: time (half the points a sweep; the whole "
+                   "script passed 840 s at 128)",
+}
+POD_PODS, POD_BATCH, POD_LAYERS, POD_STEPS = 2, 4, 4, 2
+POD_RANK, POD_LR = 4, 1e-3
+# K1's shapes on the compressed reduction's TSQR chain (m, b): the
+# embedding's P (32000 x 4) in tiles of 256, the head's (2048 x 4) in 512,
+# the stacked norms' (4 x 4) in one tile
+POD_K1 = ((256, 4), (260, 4), (512, 4), (516, 4), (4, 4))
+POD_REDUCED = {
+    "n_layers": "22 -> 4: time. At 2 or 3 layers the stacked norms "
+                "(n_layers, 2048) reach compress_tree's min_size of 4096 "
+                "with fewer rows than the rank, and the TSQR chain asserts "
+                "tile_rows >= rank, in the reference as in the port",
+    "seq_len": "2048 -> 1024, as the train phase",
+    "pods": "2 (the reference's multi-pod mesh has 2 pods) on one card",
+    "steps": "2 at compression rank 4 and 2 at rank 0 (plain pmean)",
 }
 # launches of every kernel on every path, counters at 0 before each path
 PATH_LAUNCHES = {}
@@ -2099,12 +2183,12 @@ def train_run(tr, path: str = "", schedule=None, gram: bool = False,
 
 
 def train_kernel_check(mom, tasks: list, g: torch.Generator,
-                       shapes=TRAIN_SHAPES) -> dict:
+                       shapes=TRAIN_SHAPES, random: bool = True) -> dict:
     """K1-K4 at a train path's shapes ((m_loc, n, b), TRAIN_SHAPES by
     default) against their plain versions, on 4 lanes and on one
     (``stepped_kernel_check``): the Muon shapes on a momentum slice of the
-    failure-free run laid out as the engine lays it out, and on random
-    data; the projection shapes on random data."""
+    failure-free run laid out as the engine lays it out, and (with
+    ``random``) on random data; the projection shapes on random data."""
     dev = tree.leaves(mom)[0].device
     by_shape = {}
     for task in tasks:
@@ -2116,10 +2200,12 @@ def train_kernel_check(mom, tasks: list, g: torch.Generator,
         geom = sweep_geometry(TRAIN_LANES, m_loc, n, b)
         rs_last = panel_geometry(SimComm(TRAIN_LANES), geom.n_panels - 1, b,
                                  m_loc)[2]
-        inputs = [torch.randn(TRAIN_LANES, m_loc, n, generator=g).to(dev)]
+        inputs = [torch.randn(TRAIN_LANES, m_loc, n, generator=g).to(dev)
+                  ] if random else []
         if (m_loc, n) in by_shape:
             inputs.append(by_shape[(m_loc, n)].reshape(TRAIN_LANES, m_loc, n)
                           .contiguous())
+        check(inputs, f"no input for the kernel check at {(m_loc, n, b)}")
         worst, ranks = {}, []
         for X in inputs:
             ranks.append(leading_rank(X, b))
@@ -3128,6 +3214,211 @@ def train_family(arch: str, spec: dict, seed: int, d: str) -> dict:
     return report
 
 
+def multi_process_phases(seed: int, card: str) -> None:
+    """train_mesh and train_pod on one group of ranks, closed after them
+    (see the module docstring)."""
+    t0 = time.perf_counter()
+    group = spmd_qr.make_lane_group(MESH_RANKS, timeout_s=SPMD_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    try:
+        with deterministic_mode(), tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            report = train_mesh_runs(seed + 60, d, group)
+            report.update(phase_seconds=time.perf_counter() - t0,
+                          spawn_seconds=spawn_s, card=card)
+            emit({"train_mesh": report})
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            report = train_pod_runs(seed + 70, group)
+            report.update(phase_seconds=time.perf_counter() - t0, card=card)
+            emit({"train_pod": report})
+    finally:
+        group.close()
+    check(not any(p.is_alive() for p in group._procs),
+          "a rank outlived its group")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def rank_launches(reports, parent: dict) -> dict:
+    """A path's launches: the ranks' counters summed by kernel, and this
+    process's (counted from 0 before the path)."""
+    return {op: sum(r.launches[op] for r in reports) + parent.get(op, 0)
+            for op in backend.OPS}
+
+
+def rank_account(reports) -> list:
+    return [dict(rank=r.rank, seconds=r.seconds, launches=r.launches,
+                 collectives=r.staged["collectives"],
+                 collective_seconds=r.staged["seconds"],
+                 bytes_sent=r.staged["bytes_sent"],
+                 bytes_d2h=r.staged["bytes_d2h"]) for r in reports]
+
+
+def train_mesh_runs(seed: int, d: str, group) -> dict:
+    """``caqr_muon`` through ``FTTrainer(FTRunConfig(use_mesh=True))`` on a
+    lane mesh over ``group``: one step failure-free and one with a kill
+    inside a sweep, against the same step on the SimComm engine."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=MESH_LAYERS)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=seed)
+    tcfg = train_tcfg(d, steps=MESH_STEPS)
+    mesh = spmd_qr.make_lane_mesh(TRAIN_LANES, group=group)
+    fcfg = lambda **kw: FTRunConfig(qr_lanes=TRAIN_LANES, panel_width=MESH_B,  # noqa: E731
+                                    **kw)
+    runs, finals = {}, {}
+    killer = StepSweepKiller(**MESH_KILL)
+    for path, hooks in (("train_mesh", ()), ("train_mesh_kill", [killer])):
+        tr = FTTrainer(cfg, tcfg, dcfg, fcfg(use_mesh=True),
+                       qr_fault_hooks=hooks, mesh=mesh)
+        tasks = tr._tasks
+        # every sweep's R of the failure-free run held to the Gram identity
+        # of its momentum slice
+        rec = train_run(tr, path, gram=not hooks)
+        e = tr.engine
+        PATH_LAUNCHES[path] = rank_launches(e.rank_reports, PATH_LAUNCHES[path])
+        # the wide routes' inner kernels (b = 256), the ranks' and this
+        # process's (REBUILD's one-lane replay)
+        PATH_SUB[path] = {k: backend.SUB_LAUNCHES[k] + sum(
+            r.launches[k] for r in e.rank_reports) for k in backend.SUB_KERNELS}
+        pts = e.step_stats["points"]
+        rec.update(points=pts, runner=e.step_stats,
+                   point_ms=1e3 * e.step_stats["seconds"] / pts,
+                   point_rank_wait_ms=1e3 * e.step_stats["rank_seconds"] / pts,
+                   ranks=rank_account(e.rank_reports),
+                   event_reads=[{str(k): int(v) for k, v in ev.reads.items()}
+                                for ev in e.events])
+        for r in e.rank_reports:
+            check(all(r.launches[op] > 0 for op in STEPPED),
+                  f"{path}: rank {r.rank} did not launch K1-K4: {r.launches}")
+        runs[path], finals[path] = rec, (tr.state.params, tr.state.opt_state,
+                                         list(e.events))
+        del tr
+    sim = FTTrainer(cfg, tcfg, dcfg, fcfg())
+    sim_rec = train_run(sim)
+    (p_ff, o_ff, _), (p_k, o_k, ev) = finals["train_mesh"], finals["train_mesh_kill"]
+    ff, kill = runs["train_mesh"], runs["train_mesh_kill"]
+    grams = ff.pop("gram")
+    gram_max = max(g for *_, g in grams)
+    # the ranks' K1-K4 (the wide routes at b = 256) at the sweeps' shapes
+    # on the failure-free step's momentum, in this process
+    kernels = train_kernel_check(o_ff.mom, tasks, torch.Generator().manual_seed(seed),
+                                 MESH_SHAPES, random=False)
+    sim_same = (same_tree(p_ff, sim.state.params) and same_tree(o_ff, sim.state.opt_state)
+                and ff["losses"] == sim_rec["losses"])
+    kill_same = (same_tree(p_k, p_ff) and same_tree(o_k, o_ff)
+                 and kill["losses"] == ff["losses"])
+    del sim, finals
+    launches_ok = {p: all(PATH_LAUNCHES[p][op] > 0 for op in STEPPED)
+                   and PATH_LAUNCHES[p]["panel_qr_apply"] == 0
+                   and PATH_LAUNCHES[p]["fused_panel"] == 0
+                   and PATH_SUB[p]["wide_gemm_kernel"] > 0
+                   for p in ("train_mesh", "train_mesh_kill")}
+    report = dict(
+        arch=TRAIN_ARCH, d_model=cfg.d_model, n_layers=cfg.n_layers,
+        dtype=cfg.dtype, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        data_lanes=TRAIN_LANES, qr_lanes=TRAIN_LANES, ranks=group.size,
+        panel_width=MESH_B, steps=MESH_STEPS, reduced=MESH_REDUCED,
+        failure_free=ff, kill=dict(**kill, struck=killer.struck),
+        simcomm=sim_rec, bitwise_equal_simcomm=sim_same,
+        kill_bitwise_equal_failure_free=kill_same, gram_checked=len(grams),
+        gram_rel_err_max=gram_max, kernels=kernels, launches_ok=launches_ok)
+    check(all(np.isfinite(x) for x in ff["losses"]), f"train_mesh: losses {ff['losses']}")
+    check(gram_max <= GRAM_TOL, f"train_mesh Gram identity: {gram_max} > {GRAM_TOL}")
+    check(len(grams) == MESH_STEPS * len(tasks),
+          f"train_mesh: {len(grams)} Gram-checked sweeps")
+    check(sim_same, "train_mesh: the mesh trainer differs from the SimComm trainer")
+    check(kill_same, "train_mesh: the kill changed params, optimizer state or losses")
+    check(killer.struck is not None and killer.struck[:2] == (
+        MESH_KILL["at_step"], MESH_KILL["task"]), f"train_mesh: kill struck {killer.struck}")
+    check(len(ev) == 1 and ev[0].lane == MESH_KILL["lane"] and ev[0].reads
+          and MESH_KILL["lane"] not in ev[0].reads.values(),
+          f"train_mesh: not one single-source REBUILD event: {ev}")
+    check(all(launches_ok.values()), f"train_mesh: launches {launches_ok}")
+    return report
+
+
+def train_pod_runs(seed: int, group) -> dict:
+    """``make_pod_train_step`` over the first ``POD_PODS`` ranks of
+    ``group``, at compression rank ``POD_RANK`` and 0, each step held to
+    the same step on two threads of this process."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=POD_LAYERS)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=POD_PODS * POD_BATCH, seed=seed)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in make_batch(dcfg, s).items()}
+               for s in range(POD_STEPS)]
+    params = t_tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    opt = adamw()
+    psgd = powersgd.init_state(torch.Generator(device="cuda").manual_seed(seed + 1),
+                               params, rank=POD_RANK)
+    state0 = PodTrainState(params, opt.init(params), psgd,
+                           torch.zeros((), dtype=torch.int32))
+    del params, psgd
+    meshes = (compat.make_mesh((POD_PODS,), ("pod",), group=group),
+              compat.make_mesh((POD_PODS,), ("pod",), threads=True))
+    runs = {}
+    # the path's launches are the ranks' (each call's counted from 0 in the
+    # rank); the emulation's in this process only compare
+    launches = {op: 0 for op in backend.OPS}
+    for rank in (POD_RANK, 0):
+        ranks_step, emu_step = (make_pod_train_step(cfg, opt, constant(POD_LR), m,
+                                                    compression_rank=rank)
+                                for m in meshes)
+        s_r = s_e = state0
+        steps = []
+        try:
+            for s, batch in enumerate(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s_r, m_r = ranks_step(s_r, batch)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                reps = ranks_step.reports
+                launches = rank_launches(reps, launches)
+                pods = ranks_step.rank_states()
+                across = same_tree(pods[0].params, pods[1].params)
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                s_e, m_e = emu_step(s_e, batch)
+                torch.cuda.synchronize()
+                emu_dt = time.perf_counter() - t0
+                emu_same = (same_tree(s_r, s_e) and float(m_r["loss"]) == float(m_e["loss"])
+                            and all(same_tree(a, b) for a, b in
+                                    zip(pods, emu_step.rank_states())))
+                del pods
+                steps.append(dict(
+                    seconds=dt, emulation_seconds=emu_dt, loss=float(m_r["loss"]),
+                    ranks=rank_account(reps), rank_peak_gb=[b / 1e9 for b in
+                                                            ranks_step.peak_bytes],
+                    emulation_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    params_equal_across_pods=across,
+                    bitwise_equal_emulation=emu_same))
+                check(across, f"train_pod rank {rank} step {s}: pods' params differ")
+                check(emu_same, f"train_pod rank {rank} step {s}: the ranks differ "
+                                "from the one-process emulation")
+                check(np.isfinite(float(m_r["loss"])),
+                      f"train_pod rank {rank} step {s}: loss {float(m_r['loss'])}")
+        finally:
+            ranks_step.close()
+        del s_r, s_e, emu_step
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[f"rank_{rank}"] = steps
+    PATH_LAUNCHES["train_pod"] = launches
+    check(PATH_LAUNCHES["train_pod"]["panel_qr"] > 0,
+          f"train_pod: K1 not launched: {PATH_LAUNCHES['train_pod']}")
+    g = torch.Generator().manual_seed(seed + 2)
+    k1 = [k1_record(torch.randn(m, b, generator=g).cuda(), 0, 20) for m, b in POD_K1]
+    sent = {k: [r["bytes_sent"] for r in v[0]["ranks"]] for k, v in runs.items()}
+    return dict(arch=TRAIN_ARCH, d_model=cfg.d_model, n_layers=cfg.n_layers,
+                dtype=cfg.dtype, pods=POD_PODS, per_pod_batch=POD_BATCH,
+                seq_len=TRAIN_SEQ, compression_rank=POD_RANK, steps=POD_STEPS,
+                reduced=POD_REDUCED, runs=runs, bytes_sent_per_rank_step=sent,
+                compression_ratio=(sum(sent["rank_0"]) / sum(sent[f"rank_{POD_RANK}"])),
+                k1_chain=k1)
+
+
 def wide_record(op: str, args: tuple, cost: tuple, lib, reps: int) -> dict:
     """One kernel above 128 columns against its plain version (within the
     tolerance, scaled as ``max_err`` scales it): events' time, device time
@@ -3723,6 +4014,7 @@ def main() -> int:
     lm_long_phase(args.seed, card)
     lm_families_phase(args.seed, card)
     train_families_phase(args.seed, card)
+    multi_process_phases(args.seed, card)
     wide_records, gemm_rec = wide_phase(A, rng, args.seed, card)
     spread_phase(A)
     for rec in records:

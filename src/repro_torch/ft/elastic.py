@@ -27,10 +27,12 @@ controller, so scheduled == online is bitwise.
 A shrunken world keeps a power-of-two slot count: ``"pad"`` (ceil-pow2
 slots, trailing ghost slots of zero rows) or ``"fold"`` (floor-pow2 slots,
 rows re-split evenly). The harvest and the plan run on the host in numpy,
-and the new world's matrix goes back to the state's device. The JAX
-package's mesh helpers (``make_data_model_mesh``, ``shrink_mesh``,
-``reshard``, ``rebalance_batch``) wait for the training half of the
-multi-process path (ROADMAP.md queue 1, item 4c).
+and the new world's matrix goes back to the state's device.
+
+The training-mesh helpers at the bottom (``make_data_model_mesh``,
+``shrink_mesh``, ``reshard``, ``rebalance_batch``) are the training
+loop's elastic re-mesh path, on the port's ``repro_torch.dist.compat``
+meshes.
 """
 from __future__ import annotations
 
@@ -430,3 +432,55 @@ def ft_caqr_sweep_elastic(
             continue  # bookkeeping only: drain any remaining requests
         comm = new_comm
     return ctrl.finish(comm, state, events)
+
+
+# -- training-loop elastic re-mesh (mesh-level helpers) ----------------------
+
+
+def make_data_model_mesh(n_data: int, n_model: int, devices=None,
+                         device="cuda"):
+    """A (data, model) mesh over the first ``n_data * n_model`` of
+    ``devices`` (rank ids; default all of them in order)."""
+    from repro_torch.dist import compat
+
+    need = n_data * n_model
+    devices = np.arange(need) if devices is None else np.asarray(devices).ravel()
+    assert len(devices) >= need, (len(devices), need)
+    arr = devices[:need].reshape(n_data, n_model)
+    return compat.make_mesh(arr.shape, ("data", "model"), devices=arr,
+                            device=device)
+
+
+def shrink_mesh(mesh, dead_data_lane: int):
+    """Drop one data-axis row of the mesh (the failed host's devices)."""
+    from repro_torch.dist import compat
+
+    survivors = np.delete(np.asarray(mesh.devices), dead_data_lane, axis=0)
+    return compat.make_mesh(survivors.shape, mesh.axis_names,
+                            devices=survivors, device=mesh._device)
+
+
+def reshard(t: Any, mesh, spec_fn=None) -> Any:
+    """Every leaf laid out on ``mesh``: each device's block by the spec
+    (``spec_fn(leaf) -> PartitionSpec``; default fully replicated, the
+    parameters of pure data parallelism), then the leaf reassembled from
+    the blocks, so the values pass through unchanged."""
+    from repro_torch import tree
+    from repro_torch.dist.compat import PartitionSpec
+    from repro_torch.dist.params_sharding import NamedSharding
+
+    def put(leaf):
+        sh = NamedSharding(mesh, PartitionSpec() if spec_fn is None
+                           else spec_fn(leaf))
+        blocks = {c: sh.block(leaf, c) for c in np.ndindex(mesh.devices.shape)}
+        return sh.assemble(blocks, leaf.shape)
+
+    return tree.map(put, t)
+
+
+def rebalance_batch(global_batch: int, n_lanes_old: int,
+                    n_lanes_new: int) -> Tuple[int, int]:
+    """Keep the global batch if it divides, else shrink it to the nearest
+    multiple. Returns (new_global_batch, per_lane)."""
+    per = global_batch // n_lanes_new
+    return per * n_lanes_new, per

@@ -31,7 +31,12 @@ Every family's leaves cross, the SSM's and RG-LRU's, the encoder's
 ``caches_from_arrays`` builds the port's cache tree, shaped as
 ``init_caches`` shapes it, from a flattened JAX cache tree, so a cache the
 JAX package's prefill made can be replayed by the port's ``decode_step``;
-``caches_to_arrays`` is the inverse.
+``caches_to_arrays`` is the inverse. PowerSGD state and the multi-pod
+step's state cross the same way: ``psgd_state_from_arrays`` takes a
+flattened ``PowerSGDState`` (``.error/embed``, ``.sketch/lm_head``; the
+sketches keep their rank, the skipped leaves their empty arrays),
+``pod_state_from_arrays`` a flattened ``PodTrainState`` (``.params/...``,
+``.opt_state/...``, ``.psgd/...``, ``.step``).
 """
 from __future__ import annotations
 
@@ -51,6 +56,8 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.models.transformer import init_caches, param_template
 from repro_torch.optim.adamw import adamw
 from repro_torch.optim.caqr_muon import caqr_muon
+from repro_torch.optim.powersgd import PowerSGDState
+from repro_torch.train.step import PodTrainState
 
 
 def to_tensor(x, device="cuda") -> torch.Tensor:
@@ -167,6 +174,38 @@ def opt_state_from_arrays(flat: Mapping[str, np.ndarray], params,
     dev = (resolve_device(device) if device is not None
            else tree.leaves(params)[0].device)
     return fill(like, flat, dev)
+
+
+def psgd_state_from_arrays(flat: Mapping[str, np.ndarray], params,
+                           device=None) -> PowerSGDState:
+    """The port's ``PowerSGDState`` for ``params`` from arrays keyed by
+    the JAX package's path strings (``save._flatten(psgd_state)``), float32
+    on the parameters' device unless ``device`` is given."""
+    meta = tree.map(lambda p: torch.empty((), dtype=torch.float32,
+                                          device="meta"), params)
+    dev = (resolve_device(device) if device is not None
+           else tree.leaves(params)[0].device)
+    return fill(PowerSGDState(error=meta, sketch=meta), flat, dev)
+
+
+def _sub(flat: Mapping[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
+    return {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+
+
+def pod_state_from_arrays(flat: Mapping[str, np.ndarray], cfg,
+                          optimizer: str = "adamw", device="cuda"
+                          ) -> PodTrainState:
+    """The port's ``PodTrainState`` for ``cfg`` from a flattened JAX
+    ``PodTrainState`` (``save._flatten(state)``): parameters, the
+    ``optimizer``'s state, the PowerSGD state (None when the arrays hold
+    none) and the step count."""
+    params = params_from_arrays(_sub(flat, ".params/"), cfg, device=device)
+    opt = opt_state_from_arrays(_sub(flat, ".opt_state/"), params, optimizer)
+    psgd = _sub(flat, ".psgd/")
+    return PodTrainState(
+        params=params, opt_state=opt,
+        psgd=psgd_state_from_arrays(psgd, params) if psgd else None,
+        step=torch.tensor(int(np.asarray(flat[".step"])), dtype=torch.int32))
 
 
 def opt_state_to_arrays(opt_state) -> Dict[str, np.ndarray]:

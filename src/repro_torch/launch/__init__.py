@@ -3,4 +3,6 @@ engine's serving launcher, ``python -m repro_torch.launch.serve``, the QR
 service driver, ``python -m repro_torch.launch.serve_qr``, the training
 driver, ``python -m repro_torch.launch.train``, and ``spmd_qr``, the
 FT-CAQR sweep with one process per lane (spawned ranks in a gloo group:
-``make_lane_group``, ``ft_caqr_sweep_spmd``)."""
+``make_lane_group``, ``ft_caqr_sweep_spmd``; ``make_lane_mesh``, the lane
+mesh of ``QREngine(mesh=)``), and ``mesh``, the production and QR
+meshes."""

@@ -125,12 +125,32 @@ class RankError(RuntimeError):
 class RankReport(NamedTuple):
     """One rank's account of one task: seconds (the device synchronised
     before and after), K1-K6 launches (``backend.LAUNCHES`` counted from 0
-    at the task's start), and its ``AxisComm``'s staging statistics."""
+    at the task's start) and the kernels' launches inside wide calls
+    (``backend.SUB_LAUNCHES``), its ``AxisComm``'s staging statistics, and
+    where it was measured (a body of ``compat.run_manual``), its peak
+    device memory in the task."""
 
     rank: int
     seconds: float
     launches: Dict[str, int]
     staged: Dict[str, float]
+    peak_bytes: int = 0
+
+
+def make_lane_mesh(n_lanes: Optional[int] = None, axis_name: str = "qr",
+                   device="cuda", group: Optional["LaneGroup"] = None):
+    """A one-axis mesh (``repro_torch.dist.compat.Mesh``), one lane a rank:
+    ``n_lanes`` (default: ``group``'s size, else ``pow2_lanes()``) ranks on
+    ``device``, spawned at the mesh's first use, or the first ``n_lanes``
+    ranks of ``group``. The counterpart of the reference's
+    ``make_lane_mesh``; close the mesh when done (a shared group stays
+    open)."""
+    from repro_torch.dist import compat
+
+    if n_lanes is None:
+        n_lanes = group.size if group is not None else pow2_lanes()
+    return compat.make_mesh((n_lanes,), (axis_name,), device=device,
+                            group=group)
 
 
 def pow2_lanes(n: Optional[int] = None) -> int:
@@ -210,16 +230,29 @@ def _rank_main(rank: int, n: int, port: int, device: str, timeout_s: float,
     dist.destroy_process_group()
 
 
-# A rank's gloo subgroups of the first n ranks (``LaneGroup.subgroup``); a
-# rank outside one holds ``GroupMember.NON_GROUP_MEMBER`` there.
-_SUBGROUPS: Dict[int, Any] = {}
+# A rank's gloo subgroups by their ranks (``LaneGroup.groups``); a rank
+# outside one holds ``GroupMember.NON_GROUP_MEMBER`` there.
+_GROUPS: Dict[tuple, Any] = {}
 
 
-def _new_subgroup(n: int, timeout_s: float) -> None:
+def _new_groups(lines: Sequence[tuple], timeout_s: float) -> None:
     import torch.distributed as dist
 
-    _SUBGROUPS[n] = dist.new_group(
-        list(range(n)), timeout=datetime.timedelta(seconds=timeout_s))
+    for line in lines:
+        _GROUPS[line] = dist.new_group(
+            list(line), timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def rank_group(ranks: Sequence[int]):
+    """In a rank: the process group of ``ranks`` (None, the default group,
+    when they are the whole group; else a subgroup ``LaneGroup.groups``
+    made)."""
+    import torch.distributed as dist
+
+    ranks = tuple(ranks)
+    if ranks == tuple(range(dist.get_world_size())):
+        return None
+    return _GROUPS[ranks]
 
 
 def _shutdown(procs, tasks) -> None:
@@ -298,11 +331,21 @@ class LaneGroup:
 
     def subgroup(self, n: int) -> None:
         """Make every rank join a gloo subgroup of the first ``n`` ranks
-        (once per ``n``): ``torch.distributed.new_group`` must be entered by
-        every rank of the group, in the same order, members or not."""
-        if n < self.size and n not in self._subgroups:
-            self.run(_new_subgroup, n, self.timeout_s)
-            self._subgroups.add(n)
+        (once per ``n``)."""
+        self.groups([tuple(range(n))])
+
+    def groups(self, lines: Sequence[Sequence[int]]) -> None:
+        """Make every rank join a gloo subgroup for each tuple of ranks in
+        ``lines`` not made before (the whole group is the default group):
+        ``torch.distributed.new_group`` must be entered by every rank of the
+        group, in the same order, members or not. ``rank_group`` finds them
+        in a rank."""
+        new = [tuple(line) for line in lines
+               if len(line) < self.size and tuple(line) not in self._subgroups]
+        new = list(dict.fromkeys(new))
+        if new:
+            self.run(_new_groups, new, self.timeout_s)
+            self._subgroups.update(new)
 
     def _abort(self) -> None:
         """Terminate every rank: the group cannot go on."""
@@ -386,8 +429,8 @@ def make_lane_group(n_lanes: Optional[int] = None, device="cuda",
     in one gloo group on ``device`` (the card by default; raises without
     CUDA unless ``device="cpu"``). On the card, build the kernels first
     (``repro_torch.kernels.build.build_all()``): the ranks load the built
-    libraries and start no nvcc. The counterpart of the reference's
-    ``make_lane_mesh``."""
+    libraries and start no nvcc. ``make_lane_mesh`` wraps one in a
+    mesh."""
     return LaneGroup(pow2_lanes() if n_lanes is None else n_lanes, device,
                      timeout_s)
 
@@ -395,21 +438,33 @@ def make_lane_group(n_lanes: Optional[int] = None, device="cuda",
 # -- rank bodies ---------------------------------------------------------------
 
 
-def _sync(device: torch.device) -> None:
+def sync_device(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def launch_counts() -> Dict[str, int]:
+    """This process's launch counters: K1-K6 and the kernels inside wide
+    calls."""
+    return {**backend.LAUNCHES, **backend.SUB_LAUNCHES}
+
+
+def measured_call(device: torch.device, body: Callable) -> tuple:
+    """``(body(), seconds, launches)``: the device synchronised before and
+    after, the launches counted from 0 at the start."""
+    before = launch_counts()
+    sync_device(device)
+    t0 = time.perf_counter()
+    out = body()
+    sync_device(device)
+    seconds = time.perf_counter() - t0
+    return out, seconds, {k: n - before[k] for k, n in launch_counts().items()}
 
 
 def _measured(comm: AxisComm, device: torch.device, body: Callable):
     """``(body(), RankReport)``: seconds, launches and staging of one
     rank body."""
-    before = dict(backend.LAUNCHES)
-    _sync(device)
-    t0 = time.perf_counter()
-    out = body()
-    _sync(device)
-    seconds = time.perf_counter() - t0
-    launches = {op: backend.LAUNCHES[op] - before[op] for op in backend.OPS}
+    out, seconds, launches = measured_call(device, body)
     return out, RankReport(comm.rank, seconds, launches,
                            dataclasses.asdict(comm.stats))
 
@@ -637,7 +692,7 @@ _ALIGN = 256
 _STAGING_KEEP = 1 << 26
 
 
-def _layout(leaves: Dict[str, torch.Tensor]) -> tuple:
+def staging_layout(leaves: Dict[str, torch.Tensor]) -> tuple:
     """``(plan, nbytes)``: the leaves packed one after another into a byte
     buffer, ``plan`` a tuple of (key, offset, dtype, shape)."""
     plan, off = [], 0
@@ -647,14 +702,14 @@ def _layout(leaves: Dict[str, torch.Tensor]) -> tuple:
     return tuple(plan), off
 
 
-def _slot(buf: torch.Tensor, off: int, dtype, shape) -> torch.Tensor:
+def staging_slot(buf: torch.Tensor, off: int, dtype, shape) -> torch.Tensor:
     """The leaf at ``off`` of the byte buffer ``buf``, a view."""
     n = math.prod(shape) * dtype.itemsize
     return buf[off:off + n].view(dtype).view(shape)
 
 
-def _staging(nbytes: int, device: torch.device,
-             old: Optional[torch.Tensor]) -> tuple:
+def staging_buffer(nbytes: int, device: torch.device,
+                   old: Optional[torch.Tensor]) -> tuple:
     """``(buffer, fresh)``: ``old`` when it holds ``nbytes``, else a new
     byte buffer (with a quarter to spare up to ``_STAGING_KEEP``), in shared
     memory on the CPU (the other process maps it once, when it is first
@@ -703,14 +758,11 @@ def _point_rank(msg: tuple, token: str, n: int, device: str, deltas: bool):
     output leaf "new" (offset, dtype, shape), "value" (in the answer's
     values), "held" (one of its input leaves, by key; only with
     ``deltas``) or "host"; rank 0 adds the output's structure."""
-    import torch.distributed as dist
-
     # out of the registry while the point runs: a point that raises leaves
     # no session, and the parent starts the next one afresh
     sess = _SESSIONS.pop(token, None)
     if sess is None:
-        group = None if n == dist.get_world_size() else _SUBGROUPS[n]
-        sess = _RankSession(AxisComm(group))
+        sess = _RankSession(AxisComm(rank_group(range(n))))
     comm = sess.comm
     comm.stats = StagingStats()
     dev = torch.device(device)
@@ -718,7 +770,7 @@ def _point_rank(msg: tuple, token: str, n: int, device: str, deltas: bool):
     if inbox is not None:
         sess.inbox = inbox
     # the rank's own copies: the parent rewrites its buffer at later points
-    got = {k: _slot(sess.inbox, off, dt, shape).clone()
+    got = {k: staging_slot(sess.inbox, off, dt, shape).clone()
            for k, off, dt, shape in ships}
     got.update((k, torch.from_numpy(a)) for k, a in values.items())
     if release:
@@ -740,11 +792,11 @@ def _point_rank(msg: tuple, token: str, n: int, device: str, deltas: bool):
     # travels by value
     values = {k: new.pop(k).numpy() for k in list(new)
               if new[k].device.type != dev.type}
-    layout, nbytes = _layout(new)
-    sess.outbox, fresh = _staging(nbytes, dev, sess.outbox)
+    layout, nbytes = staging_layout(new)
+    sess.outbox, fresh = staging_buffer(nbytes, dev, sess.outbox)
     for k, off, dt, shape in layout:
-        _slot(sess.outbox, off, dt, shape).copy_(new[k])
-    _sync(dev)
+        staging_slot(sess.outbox, off, dt, shape).copy_(new[k])
+    sync_device(dev)
     where = {entry[0]: entry for entry in layout}
     plan = tuple(
         (k, "new") + where[k][1:] if k in where
@@ -786,7 +838,8 @@ def _add_reports(a: List[RankReport], b: List[RankReport]
         out.append(RankReport(
             x.rank, x.seconds + y.seconds,
             {op: x.launches[op] + y.launches[op] for op in x.launches},
-            {k: x.staged[k] + y.staged[k] for k in x.staged}))
+            {k: x.staged[k] + y.staged[k] for k in x.staged},
+            max(x.peak_bytes, y.peak_bytes)))
     return out
 
 
@@ -865,14 +918,14 @@ class SpmdSweepStep:
             v = ship.pop(k)
             for r in range(self.n):
                 values[r][k] = v.narrow(axes[k], r, 1).numpy()
-        layout, nbytes = _layout(
+        layout, nbytes = staging_layout(
             {k: v.narrow(axes[k], 0, 1) for k, v in ship.items()})
         fresh = []
         for r in range(self.n):
-            self._inbox[r], new_buf = _staging(nbytes, device, self._inbox[r])
+            self._inbox[r], new_buf = staging_buffer(nbytes, device, self._inbox[r])
             fresh.append(new_buf)
             for k, off, dt, shape in layout:
-                _slot(self._inbox[r], off, dt, shape).copy_(
+                staging_slot(self._inbox[r], off, dt, shape).copy_(
                     ship[k].narrow(axes[k], r, 1))
         if (last is not None and state.geom == last.geom
                 and flat.keys() == flat_arrays(last).keys()):
@@ -882,7 +935,7 @@ class SpmdSweepStep:
                 k: (_HostOnly() if axes[k] < 0 else _SLOT if k in shipped
                     else _Held(k)) for k in flat})
         release = nbytes > _STAGING_KEEP
-        _sync(device)
+        sync_device(device)
         self._open = True
         t1 = time.perf_counter()
         try:
@@ -913,7 +966,7 @@ class SpmdSweepStep:
         for k, kind, *rest in answers[0][2]:
             if kind in ("new", "value"):
                 new[k] = torch.cat(
-                    [_slot(box, *rest) for box in self._outbox]
+                    [staging_slot(box, *rest) for box in self._outbox]
                     if kind == "new" else
                     [torch.from_numpy(a[3][k]) for a in answers],
                     dim=out_axes[k])
@@ -923,7 +976,7 @@ class SpmdSweepStep:
                 new[k] = flat[rest[0] if kind == "held" else k]
         # the joins read the ranks' buffers before their next point rewrites
         # them
-        _sync(device)
+        sync_device(device)
         out = replace_arrays(structure, new)
         if self.deltas:
             self._synced = {k: v for k, v in new.items() if out_axes[k] >= 0}

@@ -19,6 +19,9 @@ class AdamWState(NamedTuple):
 class Optimizer(NamedTuple):
     init: Any
     update: Any
+    # (factory, keyword arguments) that rebuild it in another process: the
+    # rank processes of a pod step rebuild their optimizer from it
+    recipe: Any = None
 
 
 def adamw(
@@ -48,7 +51,8 @@ def adamw(
         updates = tree.map(delta, mu, nu, params)
         return updates, AdamWState(step=step, mu=mu, nu=nu)
 
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update=update, recipe=(adamw, dict(
+        b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)))
 
 
 def apply_updates(params, updates):

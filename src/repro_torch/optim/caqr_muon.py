@@ -129,4 +129,6 @@ def caqr_muon(
             weight_decay=weight_decay, adam_scale=adam_scale)
         return updates, MuonState(step=step, mom=mom, nu=nu)
 
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update=update, recipe=(caqr_muon, dict(
+        b1=b1, adam_b2=adam_b2, eps=eps, weight_decay=weight_decay,
+        adam_scale=adam_scale)))

@@ -7,10 +7,13 @@ the error feedback E <- (G + E) - G_hat; the next sketch is R (power
 iteration warm start). The three phases (``psgd_project``,
 ``psgd_rfactor``, ``psgd_complete``) are the FT runtime's split form.
 
-Reduction over a named axis (``axis_name`` not None) waits for the
-training half of the multi-process path (``ROADMAP.md`` queue 1, item 4c)
-and raises until then;
-``axis_name=None`` runs the compression locally (the rank-r filter).
+Over a named axis (a manual axis of a body mapped over a mesh,
+``repro_torch.dist.compat``, e.g. "pod"), P and R are averaged across its
+elements with ``compat.pmean`` (the elements' values summed in element
+order), so r(m + n) values a matrix cross the axis instead of m n; the
+TSQR of the reduced P runs on every element, redundantly, as in the
+reference. ``axis_name=None`` runs the compression locally (the rank-r
+filter).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import tree
+from repro_torch.dist import compat
 from repro_torch.core.tsqr import tsqr_orthonormalize
 
 
@@ -33,13 +37,6 @@ def _tile_for(rows: int, cols: int) -> int:
         if rows % cand == 0 and cand >= cols:
             return cand
     return rows
-
-
-def _no_axis(axis_name: Optional[str]) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"reduction over axis {axis_name!r} waits for the training half "
-            "of the multi-process path (ROADMAP.md queue 1, item 4c)")
 
 
 def psgd_project(G: torch.Tensor, omega: torch.Tensor,
@@ -68,14 +65,17 @@ def compress_reduce(
     error: torch.Tensor,
     axis_name: Optional[str],
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (G_hat, new error, next sketch); ``axis_name`` must be None
-    (the local rank-r filter)."""
-    _no_axis(axis_name)
+    """Returns (G_hat averaged over the axis, new error, next sketch);
+    with ``axis_name=None`` the compression runs locally."""
     m, n = G.shape
     r = omega.shape[1]
     Gc, P = psgd_project(G, omega, error)
+    if axis_name is not None:
+        P = compat.pmean(P, axis_name)
     Q, _ = tsqr_orthonormalize(P, _tile_for(m, r))
     R = psgd_rfactor(Gc, Q)
+    if axis_name is not None:
+        R = compat.pmean(R, axis_name)
     G_hat, new_error = psgd_complete(Gc, Q, R, G.dtype)
     return G_hat, new_error, R
 
@@ -107,16 +107,19 @@ def init_state(gen: torch.Generator, params, rank: int = 8,
 
 def compress_tree(grads, state: PowerSGDState, axis_name: Optional[str],
                   rank: int = 8, min_size: int = 4096):
-    """Compress every eligible leaf (the rest pass through); returns
-    (grads, new state). ``axis_name`` must be None."""
-    _no_axis(axis_name)
+    """Compress-reduce every eligible leaf and average the rest over the
+    axis (with ``axis_name=None`` they pass through); returns (grads, new
+    state)."""
     out = {}
     flat_om = dict(tree.flatten_with_path(state.sketch))
     flat_err = dict(tree.flatten_with_path(state.error))
     for path, g in tree.flatten_with_path(grads):
         om, e = flat_om[path], flat_err[path]
-        out[path] = (compress_reduce(g, om, e, None)
-                     if _compressible(g, min_size) else (g, e, om))
+        if _compressible(g, min_size):
+            out[path] = compress_reduce(g, om, e, axis_name)
+        else:
+            out[path] = (g if axis_name is None
+                         else compat.pmean(g, axis_name), e, om)
     pick = lambda i: tree.unflatten_like(  # noqa: E731
         grads, {k: v[i] for k, v in out.items()})
     return pick(0), PowerSGDState(error=pick(1), sketch=pick(2))

@@ -20,14 +20,17 @@ boundary-consistent state; the runtime persists it
 (``repro_torch.ckpt.sweep``, wire v2) and a later process resumes the
 sweep through the orchestrator's ``from_state``.
 
-The JAX package's ``mesh=`` backend (shard_map segments over a lane mesh)
-waits for the training half of the multi-process path (``ROADMAP.md``
-queue 1, item 4c) and raises until then.
+With ``mesh=`` (a one-axis lane mesh, ``repro_torch.launch.spmd_qr.
+make_lane_mesh``) every point runs over the mesh's rank processes, one
+lane a rank: each sweep's orchestrator gets a ``SpmdSweepStep`` as its
+``step_fn`` (the reference's shard_map segment backend), which the engine
+closes when the sweep ends. The fused panel does not combine with a
+runner, so K5/K6 are off that path, as in the reference.
 """
 from __future__ import annotations
 
 import time
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -77,9 +80,15 @@ class QREngine:
     ``persist_every`` go to every sweep's ``SweepOrchestrator``; hooks are
     shared across sweeps. The sweep runs on the matrix's device.
 
+    ``mesh`` (optional) runs the points over its ranks; its lane count
+    must equal ``n_lanes``.
+
     Stats (cumulative): ``sweeps``, ``boundaries``, ``segments``,
     ``poll_s``, ``sweep_s``, ``recover_s``, and ``events``, every sweep's
-    ``RecoveryEvent`` ledger in order.
+    ``RecoveryEvent`` ledger in order; with a mesh also ``rank_reports``
+    (each rank's ``RankReport`` summed over the sweeps) and ``step_stats``
+    (the runners' accounts summed: points, seconds, bytes shipped and
+    joined).
     """
 
     def __init__(
@@ -87,6 +96,7 @@ class QREngine:
         n_lanes: int = 4,
         panel_width: int = 16,
         mesh=None,
+        axis_name: str = "qr",
         scheme=None,
         semantics: Semantics = Semantics.REBUILD,
         async_segments: bool = False,
@@ -98,10 +108,10 @@ class QREngine:
     ):
         assert n_lanes & (n_lanes - 1) == 0, "lanes must be a power of two"
         if mesh is not None:
-            raise NotImplementedError(
-                "QREngine(mesh=) runs its segments over a lane group: it "
-                "waits for the training half of the multi-process path "
-                "(ROADMAP.md queue 1, item 4c)")
+            (mesh_lanes,) = mesh.devices.shape
+            assert mesh_lanes == n_lanes, (mesh_lanes, n_lanes)
+            assert mesh.axis_names == (axis_name,), (mesh.axis_names, axis_name)
+        self.mesh = mesh
         self.n_lanes = n_lanes
         self.panel_width = panel_width
         self.comm = SimComm(n_lanes)
@@ -120,11 +130,30 @@ class QREngine:
         self.sweep_s = 0.0
         self.recover_s = 0.0
         self.events: List = []
+        self.rank_reports: List = []
+        self.step_stats: Dict[str, float] = {}
+
+    def _runner(self):
+        if self.mesh is None:
+            return None
+        from repro_torch.launch.spmd_qr import SpmdSweepStep
+
+        return SpmdSweepStep(self.mesh.ranks(self.n_lanes), self.n_lanes)
+
+    def _close_runner(self, runner) -> None:
+        from repro_torch.launch.spmd_qr import _add_reports
+
+        runner.close()
+        self.rank_reports = _add_reports(self.rank_reports, runner.reports)
+        for k, v in runner.stats().items():
+            if k not in ("n_slots", "deltas"):
+                self.step_stats[k] = self.step_stats.get(k, 0) + v
 
     def _orchestrator(self, A0, panel_width: int,
-                      resume_state: Optional[SweepState]):
+                      resume_state: Optional[SweepState], runner=None):
         kw = dict(
             detector=self.detector_factory(),
+            step_fn=runner,
             fault_hooks=self.fault_hooks,
             boundary_hooks=self.boundary_hooks,
             semantics=self.semantics,
@@ -148,11 +177,15 @@ class QREngine:
         pad = (-m) % P
         Ap = M if pad == 0 else torch.cat([M, M.new_zeros((pad, n))], dim=0)
         A0 = Ap.reshape(P, (m + pad) // P, n).contiguous()
-        orch = self._orchestrator(A0, min(self.panel_width, n), resume_state)
+        runner = self._runner()
+        orch = self._orchestrator(A0, min(self.panel_width, n), resume_state,
+                                  runner)
         t0 = time.perf_counter()
         try:
             res = orch.run()
         finally:
+            if runner is not None:
+                self._close_runner(runner)
             self.sweeps += 1
             self.boundaries += orch.boundaries
             self.segments += orch.segments_run

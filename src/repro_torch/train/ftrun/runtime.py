@@ -28,6 +28,12 @@ continues bit-identically in a fresh trainer.
 
 ``phase_s`` accumulates the host seconds of the three phases (the device
 is synchronised at the end of each), for the train bench.
+
+``FTRunConfig(use_mesh=True)`` runs every sweep's points over a lane
+mesh, one rank process a lane (``QREngine(mesh=)``), bit-equal to the
+single-process engine. The trainer spawns the mesh's ranks at its first
+sweep and stops them at ``close()`` (or the end of a ``with`` block); a
+mesh passed in (``mesh=``, e.g. on a group other work shares) stays open.
 """
 from __future__ import annotations
 
@@ -70,10 +76,10 @@ class FTRunConfig:
     """Knobs of the FT factorization layer (the training knobs stay on
     ``TrainConfig``)."""
 
-    qr_lanes: Optional[int] = None    # None: 4
+    qr_lanes: Optional[int] = None    # None: 4, or pow2_lanes() with a mesh
     panel_width: int = 16
     min_qr_size: int = 8192           # per-slice element floor for routing
-    use_mesh: bool = False            # waits for ROADMAP queue 1, item 4c
+    use_mesh: bool = False            # points over a lane mesh's ranks
     async_segments: bool = False      # double-buffered segment dispatch
     mds_f: int = 0                    # >0: MDSScheme(f) parity lanes
     compression_rank: int = 0         # >0: PowerSGD bridge (adamw only)
@@ -153,15 +159,26 @@ class FTTrainer(Trainer):
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, dcfg: DataConfig,
                  fcfg: Optional[FTRunConfig] = None,
-                 qr_fault_hooks: Sequence = (), device="cuda"):
+                 qr_fault_hooks: Sequence = (), device="cuda", mesh=None):
         super().__init__(cfg, tcfg, dcfg, device=device)
         self.fcfg = fcfg = fcfg or FTRunConfig()
+        lanes = fcfg.qr_lanes
+        self._own_mesh = False
         if fcfg.use_mesh:
-            raise NotImplementedError(
-                "use_mesh runs the sweeps over a lane group: it waits for "
-                "the training half of the multi-process path (ROADMAP.md "
-                "queue 1, item 4c)")
-        lanes = 4 if fcfg.qr_lanes is None else fcfg.qr_lanes
+            if mesh is None:
+                from repro_torch.launch.spmd_qr import make_lane_mesh, pow2_lanes
+
+                if lanes is None:
+                    lanes = pow2_lanes()
+                mesh = make_lane_mesh(lanes, device=self.device)
+                self._own_mesh = True
+            elif lanes is None:
+                (lanes,) = mesh.devices.shape
+        else:
+            assert mesh is None, "a mesh runs the sweeps only with use_mesh"
+            if lanes is None:
+                lanes = 4
+        self.mesh = mesh
         self._qr_hooks = list(qr_fault_hooks)
         for h in self._qr_hooks:
             if hasattr(h, "trainer"):
@@ -172,6 +189,7 @@ class FTTrainer(Trainer):
         self.engine = QREngine(
             n_lanes=lanes,
             panel_width=fcfg.panel_width,
+            mesh=mesh,
             scheme=MDSScheme(fcfg.mds_f) if fcfg.mds_f else None,
             semantics=Semantics.REBUILD,
             async_segments=fcfg.async_segments,
@@ -206,6 +224,17 @@ class FTTrainer(Trainer):
                 "mid-sweep suspension is supported on the caqr_muon routing "
                 "(the PowerSGD bridge's host-side error buffers are not in "
                 "the model checkpoint)")
+
+    def close(self) -> None:
+        """Stop the mesh's ranks if the trainer made the mesh."""
+        if self._own_mesh:
+            self.mesh.close()
+
+    def __enter__(self) -> "FTTrainer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -391,13 +420,15 @@ class FTTrainer(Trainer):
     @classmethod
     def resume(cls, cfg: ModelConfig, tcfg: TrainConfig, dcfg: DataConfig,
                fcfg: Optional[FTRunConfig] = None,
-               qr_fault_hooks: Sequence = (), device="cuda") -> "FTTrainer":
+               qr_fault_hooks: Sequence = (), device="cuda",
+               mesh=None) -> "FTTrainer":
         """Rebuild a trainer from a suspended run's checkpoints (either
         package's): params/opt state as of entering the suspended step, the
         persisted in-flight sweep queued for ``from_state`` continuation,
         and the loop set to replay from that step. Pass a ``fcfg`` without
         ``suspend_after_boundaries`` unless another suspension is wanted."""
-        tr = cls(cfg, tcfg, dcfg, fcfg, qr_fault_hooks, device=device)
+        tr = cls(cfg, tcfg, dcfg, fcfg, qr_fault_hooks, device=device,
+                 mesh=mesh)
         params, opt_state, manifest = save.restore(
             tcfg.ckpt_dir, tr.state.params, tr.state.opt_state)
         step = int(manifest["step"])

@@ -38,6 +38,7 @@ from repro_torch.configs import get_smoke
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.ft.online.detect import ScriptedKiller
 from repro_torch.ft.semantics import Semantics
+from repro_torch.launch import spmd_qr
 from repro_torch.models import transformer as t_tf
 from repro_torch.train import TrainConfig, TrainState
 from repro_torch.train import ftrun as T
@@ -174,6 +175,34 @@ def jax_suspended(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def lane_group():
+    g = spmd_qr.make_lane_group(4, device="cpu", timeout_s=60.0)
+    yield g
+    g.close()
+    assert not any(p.is_alive() for p in g._procs)
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(lane_group):
+    """The mesh trainer over the group's four ranks, 3 steps, failure-free
+    and with lane 3 killed inside step 1's first sweep, and the SimComm
+    trainer at the same lane count: the port's counterpart of
+    ``tests/test_spmd_bigp.py``'s ``_FTRUN_TRAIN_BODY``."""
+    mesh = spmd_qr.make_lane_mesh(4, device="cpu", group=lane_group)
+    tcfg = _tt(optimizer="caqr_muon", steps=3)
+    out = {}
+    ref = _port(tcfg=tcfg, fcfg=T.FTRunConfig(use_mesh=True, qr_lanes=4), mesh=mesh)
+    out["ff"] = (ref, ref.run())
+    killer = T.StepSweepKiller(at_step=1, lane=3)
+    tr = _port(tcfg=tcfg, fcfg=T.FTRunConfig(use_mesh=True, qr_lanes=4), mesh=mesh,
+               qr_fault_hooks=[killer])
+    out["kill"] = (tr, tr.run(), killer)
+    sim = _port(tcfg=tcfg, fcfg=T.FTRunConfig(qr_lanes=4))
+    out["sim"] = (sim, sim.run())
+    return out
+
+
+@pytest.fixture(scope="module")
 def port_ff():
     tr = _port(tcfg=_tt(optimizer="caqr_muon"))
     hist = tr.run()
@@ -232,11 +261,18 @@ def test_engine_async_matches_sync(rng):
     assert torch.equal(Qs, Qa)
 
 
-def test_mesh_waits_for_axis_comm():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        T.QREngine(mesh=object())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        _port(tcfg=_tt(optimizer="caqr_muon"), fcfg=T.FTRunConfig(use_mesh=True))
+def test_mesh_waits_for_axis_comm(lane_group):
+    """A mesh whose lane count is not the engine's raises, as the
+    reference asserts; nothing is spawned for it."""
+    mesh = spmd_qr.make_lane_mesh(4, device="cpu", group=lane_group)
+    with pytest.raises(AssertionError):
+        T.QREngine(n_lanes=2, mesh=mesh)
+    with pytest.raises(AssertionError):
+        _port(tcfg=_tt(optimizer="caqr_muon"),
+              fcfg=T.FTRunConfig(use_mesh=True, qr_lanes=2), mesh=mesh)
+    with pytest.raises(AssertionError):
+        T.QREngine(n_lanes=4, mesh=spmd_qr.make_lane_mesh(4, axis_name="lanes",
+                                                          device="cpu"))
 
 
 # -- against JAX ---------------------------------------------------------------
@@ -349,3 +385,49 @@ def test_psgd_bridge_kill_equals_failure_free(port_psgd_ff):
     assert [h["loss"] for h in hist] == [h["loss"] for h in hist_ref]
     assert all(torch.equal(tr._psgd[k][f], ref._psgd[k][f])
                for k in ref._psgd for f in ("omega", "err"))
+
+
+# -- one process per lane --------------------------------------------------------
+
+
+def test_mesh_trainer_equals_simcomm_trainer(mesh_runs):
+    """Every sweep's points over four rank processes: params and the loss
+    curve bit-equal to the SimComm engine's, K1-K4's plain path in every
+    rank and every point joined back."""
+    (ref, hist), (sim, hist_sim) = mesh_runs["ff"], mesh_runs["sim"]
+    assert _equal(ref.state.params, sim.state.params)
+    assert _equal(ref.state.opt_state, sim.state.opt_state)
+    assert [h["loss"] for h in hist] == [h["loss"] for h in hist_sim]
+    assert _stats(ref.engine) == _stats(sim.engine)
+    e = ref.engine
+    assert e.step_stats["points"] == e.boundaries == 3 * 6 * 20
+    assert len(e.rank_reports) == 4
+    assert all(r.staged["collectives"] > 0 for r in e.rank_reports)
+
+
+def test_mesh_trainer_kill_equals_failure_free(mesh_runs):
+    """A lane killed inside step 1's first sweep on the ranks: healed by
+    one single-source REBUILD inside the step, params and losses bit-equal
+    to the failure-free mesh run, no training-level rewind."""
+    (ref, hist), (tr, hist_k, killer) = mesh_runs["ff"], mesh_runs["kill"]
+    assert killer.fired and killer.struck[:2] == (1, "groups/l0/ffn/.w_in#0")
+    assert _equal(tr.state.params, ref.state.params)
+    assert [h["loss"] for h in hist_k] == [h["loss"] for h in hist]
+    assert [h["step"] for h in hist_k] == [0, 1, 2]
+    assert len(tr.engine.events) == 1 and tr.engine.events[0].lane == 3
+
+
+def test_mesh_trainer_owns_and_closes_its_ranks():
+    """``FTRunConfig(use_mesh=True)`` with no mesh given: the trainer
+    spawns its mesh's ranks at the first sweep and stops them on leaving
+    its ``with`` block; the engine's Q equals the SimComm engine's."""
+    M = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (64, 16)).astype(np.float32))
+    with _port(tcfg=_tt(optimizer="caqr_muon"),
+               fcfg=T.FTRunConfig(use_mesh=True, qr_lanes=2)) as tr:
+        assert tr.mesh.group is None
+        Q = tr.engine.orthonormalize(M)
+        procs = tr.mesh.group._procs
+        assert len(procs) == 2 and all(p.is_alive() for p in procs)
+    assert not any(p.is_alive() for p in procs) and tr.mesh.group is None
+    assert torch.equal(Q, T.QREngine(n_lanes=2, panel_width=16).orthonormalize(M))

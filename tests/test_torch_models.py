@@ -206,15 +206,30 @@ def test_full_attention_matches_jax(rng, window, cap):
 
 
 def test_unported_paths_raise():
-    """The training half of the multi-process path still raises
-    (``ROADMAP.md`` queue 1, item 4c). The model families and streaming
-    attention are ported; a length their chunked paths cannot take raises,
-    as the reference asserts: attention's chunk at S >= the threshold, the
-    SSD chunk in a mamba2 layer."""
-    from repro_torch.train.step import make_pod_train_step
+    """A length the chunked paths cannot take raises, as the reference
+    asserts: attention's chunk at S >= the threshold, the SSD chunk in a
+    mamba2 layer. The multi-pod step runs (two pods as threads of one
+    process: a finite loss, one step) and refuses a mesh without a 'pod'
+    axis."""
+    from repro_torch.dist import compat
+    from repro_torch.optim import adamw, schedule
+    from repro_torch.train.step import PodTrainState, make_pod_train_step
 
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        make_pod_train_step(get_smoke(ARCH), None, lambda s: 0.0)
+    cfg = get_smoke(ARCH)
+    opt = adamw.adamw()
+    with pytest.raises(ValueError, match="'pod'"):
+        make_pod_train_step(cfg, opt, schedule.constant(1e-3),
+                            compat.make_mesh((2,), ("data",), device="cpu"))
+    step = make_pod_train_step(
+        cfg, opt, schedule.constant(1e-3),
+        compat.make_mesh((2,), ("pod",), device="cpu", threads=True))
+    params = t_tf.init_params(cfg, torch.Generator().manual_seed(0))
+    state = PodTrainState(params, opt.init(params), None,
+                          torch.zeros((), dtype=torch.int32))
+    batch = {"tokens": torch.zeros(4, 8, dtype=torch.int32),
+             "labels": torch.ones(4, 8, dtype=torch.int32)}
+    state, metrics = step(state, batch)
+    assert int(state.step) == 1 and torch.isfinite(metrics["loss"])
     tokens = torch.zeros(1, 12, dtype=torch.int32)
     chunked = dataclasses.replace(get_smoke(ARCH), attn_chunk_threshold=8, attn_chunk=8)
     mamba = get_smoke("mamba2-2.7b")

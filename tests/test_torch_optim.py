@@ -4,11 +4,16 @@ on the same numpy inputs, CPU tensors, f32.
 Within the f32 pair of ``repro.kernels.ref.tolerances``: ``adamw`` (two
 successive updates from the same state), ``warmup_cosine``,
 ``muon_moments``/``muon_deltas`` on the smoke model's tree, the three
-PowerSGD phases and ``compress_tree(axis_name=None)`` from JAX's state.
+PowerSGD phases and ``compress_tree(axis_name=None)`` from JAX's state;
+over a "pod" axis of two identical pods ``compress_tree`` equals the local
+compression bit for bit (``tests/test_torch_pod.py`` holds it against
+JAX over two ranks).
 ``_orth2d`` (tall, wide) and ``_orth`` (stacked) within the tolerance
 times the condition number of the input: Q = A R^-1 amplifies a last-bit
 difference of R by cond(R) = cond(A).
 """
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -25,6 +30,7 @@ from repro.optim import powersgd as j_psgd
 from repro.optim import schedule as j_schedule
 from repro_torch import interop, tree
 from repro_torch.configs import get_smoke
+from repro_torch.dist import compat
 from repro_torch.optim import adamw as t_adamw
 from repro_torch.optim import caqr_muon as t_muon
 from repro_torch.optim import powersgd as t_psgd
@@ -169,5 +175,12 @@ def test_compress_tree_matches_jax(smoke_trees):
         _close(tout, jout)
         _close(tst.error, jst.error)
         _close(tst.sketch, jst.sketch)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        t_psgd.compress_tree(tg, tst, "pod", rank=4)
+    # over a "pod" axis of two pods holding the same gradients and state
+    # (threads of one process), the pod mean is the local compression bit
+    # for bit: x + x and its half are exact
+    mesh = compat.make_mesh((2,), ("pod",), device="cpu", threads=True)
+    body = functools.partial(t_psgd.compress_tree, axis_name="pod", rank=4)
+    local = t_psgd.compress_tree(tg, tst, None, rank=4)
+    for pod in compat.run_manual(body, mesh, [(tg, tst)] * 2):
+        assert all(torch.equal(a, b) for a, b in zip(tree.leaves(pod),
+                                                     tree.leaves(local)))
