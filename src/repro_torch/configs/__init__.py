@@ -1,9 +1,9 @@
 """Architecture registry of the port (counterpart of
 ``src/repro/configs/``): the ten architectures of the JAX package, dense,
 MoE, SSM (``mamba2-2.7b``), hybrid (``recurrentgemma-9b``), audio
-(``whisper-base``) and VLM (``pixtral-12b``). The paper's own QR problem
-configs (``paper_qr``) wait for the dry-run's port (``ROADMAP.md`` queue
-1, item 9)."""
+(``whisper-base``) and VLM (``pixtral-12b``), and the paper's own QR
+problems (``paper_qr``: ``PRODUCTION`` and ``SMOKE``), the dry run's
+``caqr`` cell."""
 from repro_torch.configs import (
     gemma2_2b,
     gemma_7b,
@@ -11,6 +11,7 @@ from repro_torch.configs import (
     mamba2_2p7b,
     mixtral_8x22b,
     nemotron_4_340b,
+    paper_qr,
     pixtral_12b,
     recurrentgemma_9b,
     tinyllama_1p1b,
@@ -46,5 +47,5 @@ def get_smoke(name: str) -> ModelConfig:
 
 __all__ = [
     "ARCHS", "SHAPES", "ModelConfig", "ShapeConfig", "get_config",
-    "get_smoke", "get_shape",
+    "get_smoke", "get_shape", "paper_qr",
 ]

@@ -36,7 +36,10 @@ step's state cross the same way: ``psgd_state_from_arrays`` takes a
 flattened ``PowerSGDState`` (``.error/embed``, ``.sketch/lm_head``; the
 sketches keep their rank, the skipped leaves their empty arrays),
 ``pod_state_from_arrays`` a flattened ``PodTrainState`` (``.params/...``,
-``.opt_state/...``, ``.psgd/...``, ``.step``).
+``.opt_state/...``, ``.psgd/...``, ``.step``). Adafactor's state crosses
+as a flattened ``AdafactorState`` (``.step``, ``.vr/embed``, ``.vc/...``;
+a leaf that is not factored has an empty ``vc``):
+``adafactor_state_from_arrays`` and ``adafactor_state_to_arrays``.
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ from repro_torch.ft.elastic import ElasticSweepResult, LaneWorld, TransitionEven
 from repro_torch.ft.online.state import SweepState, sweep_state_from_host
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models.transformer import init_caches, param_template
+from repro_torch.optim.adafactor import AdafactorState, adafactor
 from repro_torch.optim.adamw import adamw
 from repro_torch.optim.caqr_muon import caqr_muon
 from repro_torch.optim.powersgd import PowerSGDState
@@ -164,11 +168,13 @@ def caches_to_arrays(caches) -> Dict[str, np.ndarray]:
 
 def opt_state_from_arrays(flat: Mapping[str, np.ndarray], params,
                           optimizer: str = "adamw", device=None):
-    """The port's ``AdamWState`` (``optimizer="adamw"``) or ``MuonState``
-    (``"caqr_muon"``) for ``params`` from arrays keyed by the JAX
+    """The port's ``AdamWState`` (``optimizer="adamw"``), ``MuonState``
+    (``"caqr_muon"``) or ``AdafactorState`` (``"adafactor"``) for
+    ``params`` from arrays keyed by the JAX
     package's path strings (``save._flatten(opt_state)``); on the
     parameters' device unless ``device`` is given."""
-    opt = {"adamw": adamw, "caqr_muon": caqr_muon}[optimizer]()
+    opt = {"adamw": adamw, "caqr_muon": caqr_muon,
+           "adafactor": adafactor}[optimizer]()
     # moments on the meta device take ``dev``; the step count stays on the host
     like = opt.init(tree.map(lambda p: torch.empty_like(p, device="meta"), params))
     dev = (resolve_device(device) if device is not None
@@ -186,6 +192,19 @@ def psgd_state_from_arrays(flat: Mapping[str, np.ndarray], params,
     dev = (resolve_device(device) if device is not None
            else tree.leaves(params)[0].device)
     return fill(PowerSGDState(error=meta, sketch=meta), flat, dev)
+
+
+def adafactor_state_from_arrays(flat: Mapping[str, np.ndarray], params,
+                                device=None) -> AdafactorState:
+    """The port's ``AdafactorState`` for ``params`` from a flattened JAX
+    ``AdafactorState`` (``save._flatten(state)``), the moments float32 on
+    the parameters' device unless ``device`` is given."""
+    return opt_state_from_arrays(flat, params, "adafactor", device)
+
+
+def adafactor_state_to_arrays(state: AdafactorState) -> Dict[str, np.ndarray]:
+    """Numpy arrays of an ``AdafactorState`` keyed by path string."""
+    return _flatten(state)
 
 
 def _sub(flat: Mapping[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:

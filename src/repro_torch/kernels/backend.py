@@ -16,6 +16,8 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import build
+
 ENGINE_CUDA = "cuda"
 ENGINE_PLAIN = "plain"
 
@@ -168,6 +170,21 @@ def team_blocks(m: int, b: int) -> int:
 
 def team_slab_in_smem(m: int, b: int, C: int) -> bool:
     return team_smem_bytes(m, b, C) <= SMEM_LIMIT
+
+
+def backend_fingerprint() -> str:
+    """A stable identity of the card and the build of its kernels, the
+    autotuner's cache key (``kernels/autotune.py``): the card's name,
+    compute capability and SM count, the torch and CUDA versions, and a
+    digest of the kernel sources (``build.sources_digest``), so winners
+    tuned on another card or for another build of the kernels are never
+    consulted. Without a card, a ``cpu:`` fingerprint."""
+    src = f"src-{build.sources_digest()}"
+    if not torch.cuda.is_available():
+        return f"cpu:torch-{torch.__version__}:{src}"
+    p = torch.cuda.get_device_properties(torch.cuda.current_device())
+    return (f"cuda:{p.name}:sm_{p.major}{p.minor}:{p.multi_processor_count}"
+            f"sms:torch-{torch.__version__}:cuda-{torch.version.cuda}:{src}")
 
 
 def stream_ptr(x: torch.Tensor) -> int:

@@ -14,6 +14,7 @@ returns ``cudaGetLastError()``; ``check()`` raises if that is not 0.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -48,6 +49,18 @@ def _target(name: str) -> pathlib.Path:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+@functools.cache
+def sources_digest() -> str:
+    """A digest of every source the libraries are built from (the
+    ``csrc/*.cu`` and ``*.cuh`` files) and the flags: what makes one build
+    of the kernels differ from another."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
 
 
 def _start(name: str):

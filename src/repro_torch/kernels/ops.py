@@ -4,19 +4,25 @@
 One rule per call, no fallback:
 
 * tensors on the CPU run the plain PyTorch version (``ref``);
+* tensors on the meta device run the plain version too, for their shapes
+  alone (the dry run, ``launch/dryrun.py``): no launch is counted and no
+  engine is reported;
 * CUDA tensors run the hand-written CUDA kernel; a dtype other than
   float32 raises ``NotImplementedError`` (bf16 kernels are later work);
 * anything else raises.
 
-The JAX package's alignment padding, autotuned block shapes and
-interpret/oracle modes are not ported: the CUDA kernels take any shape
-they accept, and a failed launch raises.
+K2 and K4 take the autotuner's winner for the call's cell, its column
+tile and above 128 columns the products' k range (``autotune.lookup``, a
+dict probe; nothing when no cell is loaded), else the static default.
+No candidate changes a bit. The JAX package's
+alignment padding and interpret/oracle modes are not ported: the CUDA
+kernels take any shape they accept, and a failed launch raises.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import backend, ref
+from repro_torch.kernels import autotune, backend, ref
 from repro_torch.kernels import fused_sweep as _fused
 from repro_torch.kernels import panel_qr as _panel
 from repro_torch.kernels import stacked_qr as _stacked
@@ -24,10 +30,12 @@ from repro_torch.kernels import wy_apply as _wy
 
 
 def _plain(op: str, *tensors: torch.Tensor) -> bool:
-    """True for a call on CPU tensors, False for CUDA tensors."""
+    """True for a call on CPU (or meta) tensors, False for CUDA tensors."""
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         backend.note_plain(op)
+        return True
+    if kinds == {"meta"}:
         return True
     if kinds == {"cuda"}:
         return False
@@ -42,11 +50,17 @@ def panel_qr(A: torch.Tensor, row_start=0):
     return _panel.panel_qr(A, row_start)
 
 
+def _lanes(x: torch.Tensor) -> int:
+    return x.shape[0] if x.dim() == 3 else 1
+
+
 def wy_apply(Y: torch.Tensor, T: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """Fused Q^T C = C - Y (T^T (Y^T C))."""
     if _plain("wy_apply", Y, T, C):
         return ref.lanewise(ref.wy_apply, Y, T, C)
-    return _wy.wy_apply(Y, T, C)
+    tuned = autotune.lookup("wy_apply", (_lanes(C), *Y.shape[-2:], C.shape[-1]),
+                            C.dtype)
+    return _wy.wy_apply(Y, T, C, bn=tuned.get("bn"), kbs=tuned.get("kbs"))
 
 
 def stacked_qr(R_top: torch.Tensor, R_bot: torch.Tensor):
@@ -60,7 +74,10 @@ def stacked_apply(Y2, T, C_top, C_bot):
     """Fused trailing combine; returns (C_top_hat, C_bot_hat, W)."""
     if _plain("stacked_apply", Y2, T, C_top, C_bot):
         return ref.lanewise(ref.stacked_apply, Y2, T, C_top, C_bot)
-    return _stacked.stacked_apply(Y2, T, C_top, C_bot)
+    tuned = autotune.lookup("stacked_apply", (_lanes(C_top), *C_top.shape[-2:]),
+                            C_top.dtype)
+    return _stacked.stacked_apply(Y2, T, C_top, C_bot, bn=tuned.get("bn"),
+                                  kbs=tuned.get("kbs"))
 
 
 def panel_qr_apply(W: torch.Tensor, row_start=0, b=None):

@@ -102,7 +102,8 @@ def stacked_qr_composed(R_top: torch.Tensor, R_bot: torch.Tensor):
 
 
 def stacked_apply(Y2: torch.Tensor, T: torch.Tensor, C_top: torch.Tensor,
-                  C_bot: torch.Tensor, bn: Optional[int] = None):
+                  C_bot: torch.Tensor, bn: Optional[int] = None,
+                  kbs: Optional[int] = None):
     """(C_top - W, C_bot - Y2 W, W) with W = T^T (C_top + Y2^T C_bot), for
     contiguous CUDA f32 tensors: Y2, T (P, b, b), upper triangular as
     ``stacked_qr`` makes them (up to MAX_B the kernel skips their zero
@@ -110,8 +111,9 @@ def stacked_apply(Y2: torch.Tensor, T: torch.Tensor, C_top: torch.Tensor,
     the plain version does); C_top, C_bot (P, b, n); or the same without
     the lane axis. ``bn`` is
     the kernel's column tile (32, 64 or 128; by default
-    ``backend.tile_bn``, above MAX_B the tile of ``wide.gemm_plan``); it
-    does not change the result's bits."""
+    ``backend.tile_bn``, above MAX_B the tile of ``wide.gemm_plan``);
+    ``kbs``, above MAX_B, the products' k range (``wide.gemm``). Neither
+    changes the result's bits."""
     squeeze = C_top.dim() == 2
     Y3 = backend.contiguous_lanes(Y2, "stacked_apply")
     T3 = backend.contiguous_lanes(T, "stacked_apply")
@@ -124,7 +126,7 @@ def stacked_apply(Y2: torch.Tensor, T: torch.Tensor, C_top: torch.Tensor,
     _b(b, "stacked_apply")
     if b > MAX_B:
         ot, ob, W = wide.stacked_apply_wide(Y3, T3, Ct, Cb, gemm=wide.gemm,
-                                            bn=bn)
+                                            bn=bn, kbs=kbs)
     else:
         bn = backend.launch_bn(P, n, Ct, bn)
         ot, ob, W = (torch.empty_like(Ct) for _ in range(3))

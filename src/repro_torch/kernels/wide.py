@@ -187,7 +187,8 @@ def gemm_order(A, B, D=None, *, sub=False, out=None, minuend=None):
     return out if diff is None else (out, diff)
 
 
-def gemm_plain(A, B, D=None, *, sub=False, out=None, bn=None, minuend=None):
+def gemm_plain(A, B, D=None, *, sub=False, out=None, bn=None, minuend=None,
+               kbs=None):
     """The plain version of ``gemm``."""
     AB = A @ B
     res = (D - AB if sub else D + AB) if D is not None else (-AB if sub else AB)
@@ -232,11 +233,12 @@ def panel_qr_blocked(A: torch.Tensor, rs: torch.Tensor, *, qr, apply, gemm):
     return Y, T, R.triu()
 
 
-def wy_apply_wide(Y, T, C, *, gemm, bn=None):
+def wy_apply_wide(Y, T, C, *, gemm, bn=None, kbs=None):
     """Q^T C = C - Y (T^T (Y^T C)) for any b; Y (P, m, b), T (P, b, b),
-    C (P, m, n)."""
-    W = gemm(T.mT, gemm(Y.mT, C, bn=bn), bn=bn)
-    return gemm(Y, W, C, sub=True, bn=bn)
+    C (P, m, n). ``bn`` and ``kbs`` (the products' tile and k range) apply
+    to each of the three products; None leaves each its ``gemm_plan``."""
+    W = gemm(T.mT, gemm(Y.mT, C, bn=bn, kbs=kbs), bn=bn, kbs=kbs)
+    return gemm(Y, W, C, sub=True, bn=bn, kbs=kbs)
 
 
 def cuda_apply(Y, T, C):
@@ -256,11 +258,13 @@ def stacked_qr_wide(R_top, R_bot, *, qr, apply, gemm):
     return Y[..., b:, :].triu(), T, R
 
 
-def stacked_apply_wide(Y2, T, C_top, C_bot, *, gemm, bn=None):
+def stacked_apply_wide(Y2, T, C_top, C_bot, *, gemm, bn=None, kbs=None):
     """(C_top - W, C_bot - Y2 W, W), W = T^T (C_top + Y2^T C_bot), for any
-    b; every entry of Y2 and T is read, as the plain version reads it."""
-    W, top = gemm(T.mT, gemm(Y2.mT, C_bot, C_top, bn=bn), bn=bn, minuend=C_top)
-    return top, gemm(Y2, W, C_bot, sub=True, bn=bn), W
+    b; every entry of Y2 and T is read, as the plain version reads it.
+    ``bn`` and ``kbs`` as in ``wy_apply_wide``."""
+    W, top = gemm(T.mT, gemm(Y2.mT, C_bot, C_top, bn=bn, kbs=kbs), bn=bn,
+                  kbs=kbs, minuend=C_top)
+    return top, gemm(Y2, W, C_bot, sub=True, bn=bn, kbs=kbs), W
 
 
 # The plain bodies: the blocked routes composed of the plain versions.

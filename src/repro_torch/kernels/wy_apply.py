@@ -31,14 +31,15 @@ def _kernel():
 
 
 def wy_apply(Y: torch.Tensor, T: torch.Tensor, C: torch.Tensor,
-             bn: Optional[int] = None) -> torch.Tensor:
+             bn: Optional[int] = None, kbs: Optional[int] = None) -> torch.Tensor:
     """Q^T C for CUDA f32 tensors: Y (P, m, b), T (P, b, b), C (P, m, n), or
     the same without the lane axis; any b >= 1, and T need not be Y's own
     (all of it is read). C may be a strided view (unit column stride),
     such as the sweep's live window; the result is contiguous. ``bn`` is
     the kernel's column tile (32, 64 or 128; by default
-    ``backend.tile_bn``, above MAX_B the tile of ``wide.gemm_plan``); it
-    does not change the result's bits."""
+    ``backend.tile_bn``, above MAX_B the tile of ``wide.gemm_plan``);
+    ``kbs``, above MAX_B, the products' k range (``wide.gemm``). Neither
+    changes the result's bits."""
     squeeze = C.dim() == 2
     Y3 = backend.contiguous_lanes(Y, "wy_apply")
     T3 = backend.contiguous_lanes(T, "wy_apply")
@@ -51,7 +52,7 @@ def wy_apply(Y: torch.Tensor, T: torch.Tensor, C: torch.Tensor,
     if b < 1:
         raise ValueError(f"wy_apply: needs b >= 1, got {b}")
     if b > MAX_B:
-        out = wide.wy_apply_wide(Y3, T3, C3, gemm=wide.gemm, bn=bn)
+        out = wide.wy_apply_wide(Y3, T3, C3, gemm=wide.gemm, bn=bn, kbs=kbs)
     else:
         bn = backend.launch_bn(P, n, C3, bn)
         out = torch.empty(P, m, n, device=C3.device, dtype=C3.dtype)

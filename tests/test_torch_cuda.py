@@ -1379,3 +1379,67 @@ def test_cuda_panel_qr_zero_panel_matches_plain(cuda, m, b):
     eye = torch.zeros(m, b)
     eye[:b] = torch.eye(b)
     assert torch.equal(Q.cpu().abs(), eye)
+
+
+# Small cells of the autotuner: K2 and K4 up to 128 columns (the tile) and
+# above (the products' tile and k range).
+TUNE_CELLS = (("wy_apply", (3, 300, 128, 259)), ("wy_apply", (2, 600, 160, 300)),
+              ("stacked_apply", (3, 128, 259)), ("stacked_apply", (2, 160, 300)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,geometry", TUNE_CELLS)
+def test_cuda_autotune_candidates_keep_bits(cuda, op, geometry):
+    """Every candidate of a cell gives the static default's bits (``tune``
+    raises otherwise) and the winner is one of the candidates."""
+    from repro_torch.kernels import autotune
+
+    autotune.clear()
+    try:
+        rec = autotune.tune(op, geometry, reps=1)
+        assert rec["params"] in autotune.candidates(op, "cuda", geometry)
+        assert rec["us"] <= rec["static_us"]
+        assert autotune.lookup(op, geometry, torch.float32) == rec["params"]
+    finally:
+        autotune.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,planted", [(128, {"bn": 32}), (160, {"bn": 64, "kbs": 1})])
+def test_cuda_autotune_planted_winner_reaches_the_launch(rng, cuda, monkeypatch, b, planted):
+    """A winner planted in the tuner's cells is what ``ops.wy_apply``
+    passes to the kernel's wrapper (and, above 128, to each product), and
+    the result keeps the static tile's bits."""
+    from repro_torch.kernels import autotune
+
+    P, m, n = 2, 600, 300
+    Y = t(rng.standard_normal((P, m, b)).astype(np.float32) * 0.1).to(cuda)
+    T = t(np.triu(rng.standard_normal((P, b, b))).astype(np.float32) * 0.1).to(cuda)
+    C = t(rng.standard_normal((P, m, n)).astype(np.float32)).to(cuda)
+    seen = []
+    real_wy, real_gemm = twy.wy_apply, twide.gemm
+
+    def spy_wy(*a, bn=None, kbs=None):
+        seen.append(("wy_apply", bn, kbs))
+        return real_wy(*a, bn=bn, kbs=kbs)
+
+    def spy_gemm(*a, **kw):
+        seen.append(("gemm", kw.get("bn"), kw.get("kbs")))
+        return real_gemm(*a, **kw)
+
+    monkeypatch.setattr(twy, "wy_apply", spy_wy)
+    monkeypatch.setattr(twide, "gemm", spy_gemm)
+    autotune.clear()
+    try:
+        static = ops.wy_apply(Y, T, C)
+        assert seen[0] == ("wy_apply", None, None)
+        seen.clear()
+        autotune._CELLS[autotune.cell_key("wy_apply", (P, m, b, n), torch.float32,
+                                          "cuda")] = {"params": planted, "us": 1.0}
+        tuned = ops.wy_apply(Y, T, C)
+        assert seen[0] == ("wy_apply", planted["bn"], planted.get("kbs"))
+        if b > twy.MAX_B:
+            assert seen[1:] == [("gemm", planted["bn"], planted["kbs"])] * 3
+        assert torch.equal(tuned, static)
+    finally:
+        autotune.clear()

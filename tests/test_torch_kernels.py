@@ -209,9 +209,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_ops_refuse_other_devices():
-    x = torch.zeros(8, 4, device="meta")
+    """A call whose tensors are not all on the CPU, all on the card or all
+    on the meta device (the dry run's shapes) raises."""
+    x = torch.zeros(8, 4)
     with pytest.raises(ValueError):
-        ops.panel_qr(x, 0)
+        ops.wy_apply(x, torch.zeros(4, 4), torch.zeros(8, 4, device="meta"))
+    with pytest.raises(ValueError):
+        ops.stacked_qr(torch.zeros(4, 4), torch.zeros(4, 4, device="meta"))
 
 
 def test_launch_counters_reset():
