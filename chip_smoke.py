@@ -6,7 +6,8 @@ Phases, each of which raises on a failed check (the script then exits
 non-zero and prints no result):
 
 1. report and build: the card's name and power limit; every CUDA kernel
-   built from ``src/repro_torch/csrc`` (one nvcc per source, in parallel),
+   built from ``src/repro_torch/csrc`` (one nvcc per source, in parallel;
+   the build's seconds and each source's),
    while this process runs the CPU's work meanwhile: the dry run (26) and
    the adafactor phase's CPU step (25).
 2. kernels: K1-K6 at the sweep's first-panel shapes against their plain
@@ -365,6 +366,28 @@ non-zero and prints no result):
    cell (``paper_qr.PRODUCTION``, 65536 x 4096 at b = 128 over 256 lanes)
    and kimi-k2 x train_4k (adafactor) at mesh ``single`` (path
    ``dryrun``: no kernel launched); both records printed.
+27. bf16 (run after phase 7): the tall matrix cast to bf16 through the
+   bf16 kernels (b = 128). K1-K6 one at a time at the first panel's
+   shapes, K2 and K4 also at w = 512: K1-K4 equal to the f32 kernel on
+   the widened inputs rounded once, bit for bit; K5 equal to K1 then K2
+   at bf16; each within the bf16 pair of ``ref.tolerances`` of its plain
+   version on the card (scaled by max(1, |plain|)); one lane of the
+   P-lane launch equal to a launch of it alone (K1-K5); timed (events and
+   device alone) beside the plain version, the f32 twin, the library
+   call (the ``torch.matmul`` chain in bf16; ``torch.geqrf`` on the
+   widened input for K1 and K3, which takes no bf16; the stepped bf16
+   kernels for K5/K6) and the bound (989 TFLOP/s, 2 bytes an element).
+   Then, counters at 0 before each: ``caqr_factorize`` (path
+   ``bf16_sweep``: K1-K4 at bf16 launched, R replicated bitwise, its
+   float64 Gram residual at most 0.1, printed beside the floor, the f32
+   sweep of the same matrix with R rounded to bf16); ``ft_caqr_sweep``
+   with the four kills (``bf16_kill``: bit-equal to failure-free, the
+   f32 sweep's ledger); the state machine stepped and fused
+   (``bf16_stepped``, ``bf16_fused``: both bit-equal to the sweep, K6
+   once a panel); the fused leaf entry (``bf16_fused_leaf``: K5, equal to
+   K1 then K2); and every op at b = 256 raising NotImplementedError. The
+   kernels line lists the bf16 records (``*_bf16``) beside the f32 ones,
+   their launches counted in ``backend.BF16_LAUNCHES`` on the bf16 paths.
 
 The kernels line gives each kernel's launches on every path above, each
 counted from 0 just before the path ran (``lm_serve``, ``lm_long`` and
@@ -478,9 +501,9 @@ KERNELS = {
                    "src/repro/kernels/stacked_qr.py:108"),
     "stacked_apply": ("src/repro_torch/csrc/stacked_qr.cu",
                       "src/repro/kernels/stacked_qr.py:171"),
-    "panel_qr_apply": ("src/repro_torch/csrc/fused_sweep.cu",
+    "panel_qr_apply": ("src/repro_torch/csrc/fused_panel_f32.cu",
                        "src/repro/kernels/fused_sweep.py:226"),
-    "fused_panel": ("src/repro_torch/csrc/fused_sweep.cu",
+    "fused_panel": ("src/repro_torch/csrc/fused_panel_f32.cu",
                     "src/repro/kernels/fused_sweep.py:167"),
 }
 STEPPED = ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply")
@@ -798,8 +821,8 @@ def device_ms(fn, reps: int, kernel: str = ""):
     return None
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -822,17 +845,18 @@ def same_bits(got, want) -> bool:
     return all(torch.equal(g, w) for g, w in zip(as_tuple(got), as_tuple(want)))
 
 
-def wy_cost(P, m, b, n):
+def wy_cost(P, m, b, n, eb=4.0):
     """(FLOPs, bytes) of K2: Y^T C and Y W at 2mbn each, T^T W1 at b^2 n
-    (T triangular, counted once); Y, T, C read and out written once."""
+    (T triangular, counted once); Y, T, C read and out written once, at
+    ``eb`` bytes an element."""
     return (P * (4.0 * m * b * n + b * b * n),
-            4.0 * P * (m * b + b * b + 2 * m * n))
+            eb * P * (m * b + b * b + 2 * m * n))
 
 
-def sa_cost(P, b, n):
+def sa_cost(P, b, n, eb=4.0):
     """(FLOPs, bytes) of K4: three triangular products at b^2 n each;
     Y2, T, Ct, Cb read and ot, ob, W written once."""
-    return P * 3.0 * b * b * n, 4.0 * P * (2 * b * b + 5 * b * n)
+    return P * 3.0 * b * b * n, eb * P * (2 * b * b + 5 * b * n)
 
 
 def wy_library(Y, T, C):
@@ -844,6 +868,31 @@ def sa_library(Y2, T2, Ct, Cb):
     return Ct - W, Cb - Y2 @ W, W
 
 
+def template_args(mangled: str) -> list:
+    """The template arguments at the start of a mangled name's remainder
+    (``I...E``): Li128E (int 128), Lb1E (true), f (float), and a named
+    type (13__nv_bfloat16, shown as bf16)."""
+    if not mangled.startswith("I"):
+        return []
+    args, i = [], 1
+    while i < len(mangled) and mangled[i] != "E":
+        if m := re.match(r"L([ib])(\d+)E", mangled[i:]):
+            t, v = m.groups()
+            args.append(v if t == "i" else ("false", "true")[int(v)])
+            i += m.end()
+        elif mangled[i] == "f":
+            args.append("float")
+            i += 1
+        elif m := re.match(r"(\d+)", mangled[i:]):
+            n = int(m.group(1))
+            name = mangled[i + m.end():i + m.end() + n]
+            args.append("bf16" if name == "__nv_bfloat16" else name)
+            i += m.end() + n
+        else:
+            break
+    return args
+
+
 def ptxas(source: str, kernel: str) -> dict:
     """Registers and spill bytes of every instance of ``kernel`` (a
     ``__global__`` name) in the build log of ``source``."""
@@ -852,22 +901,18 @@ def ptxas(source: str, kernel: str) -> dict:
         m = re.match(r"_Z(\d+)", fn)  # the name's length, then the name
         end = m.end() + int(m.group(1)) if m else 0
         if m and fn[m.end():end] == kernel:
-            # template arguments: Li128E (int 128), Lb1E (true)
-            tmpl = re.match(r"I((?:L[ib]\d+E)+)E", fn[end:])
-            args = [v if t == "i" else ("false", "true")[int(v)]
-                    for t, v in re.findall(r"L([ib])(\d+)E",
-                                           tmpl.group(1) if tmpl else "")]
+            args = template_args(fn[end:])
             out[kernel + (f"<{', '.join(args)}>" if args else "")] = use
     return out
 
 
-def leaf_cost(P, m, b, rs):
+def leaf_cost(P, m, b, rs, eb=4.0):
     """(FLOPs, bytes) of K1 on P panels whose column loops start at row rs:
     3 m' b^2 - b^3 / 3 a lane over the m' = m - rs rows the loop touches;
     those rows read, Y (m x b), T and R written once."""
     ma = m - rs
     return (P * (3.0 * ma * b * b - b ** 3 / 3.0),
-            4.0 * P * (ma * b + m * b + 2 * b * b))
+            eb * P * (ma * b + m * b + 2 * b * b))
 
 
 def k1_record(panel: torch.Tensor, rs: int, reps: int) -> dict:
@@ -1086,7 +1131,8 @@ def kernel_phase(A: torch.Tensor) -> list:
                 rec["bn"] = backend.tile_bn(P, N, backend.sm_count(0))
                 rec["bn_bitwise"] = bn_bitwise[name]
             rec.update(other_shapes[name])
-        rec["ptxas"] = ptxas(source, name + "_kernel")
+        rec["ptxas"] = {k: v for k, v in ptxas(source, name + "_kernel").items()
+                        if "bf16" not in k}
         emit({"kernel": rec})
         records.append(rec)
     return records
@@ -1330,6 +1376,312 @@ def ft_driver_phase(A: torch.Tensor, want: tuple) -> dict:
                                 seconds=ends["seconds"],
                                 events=ends["events"]))})
     return ledgers
+
+
+BF16 = torch.bfloat16
+PEAK_BF16 = 989e12     # FLOP/s, H100 SXM dense bf16 (tensor cores)
+BF16_GRAM_TOL = 0.1    # float64 Gram residual of the bf16 sweep's R
+# the bf16 kernels' sources (K5/K6's bf16 instances are a file of their own)
+BF16_SOURCES = {**{op: src for op, (src, _) in KERNELS.items()},
+                "panel_qr_apply": "src/repro_torch/csrc/fused_panel_bf16.cu",
+                "fused_panel": "src/repro_torch/csrc/fused_panel_bf16.cu"}
+# each bf16 path's bf16 launches (backend.BF16_LAUNCHES), by path
+PATH_LAUNCHES_BF16 = {}
+
+
+def widened(x, dtype=torch.float32):
+    return tuple(t.to(dtype) for t in as_tuple(x))
+
+
+def held_bf16(name: str, got: tuple, want: tuple, want64: tuple) -> dict:
+    """Each bf16 output against the plain version at bf16 (``want``), within
+    ref.tolerances(bf16) scaled by max(1, |plain|). The plain version's
+    column loop runs in bf16, and where a pivot's entry is below bf16's
+    round-off of its column (|x0| < 2^-8 ||x||: its sign is not fixed at
+    bf16) it can choose the other reflector, a different valid QR whose Y,
+    T and R row differ from the kernel's by O(1); its K4 rounds W before
+    C_bot - Y2 W. The kernel keeps f32 state, as the JAX package's kernels
+    accumulate in f32. So an output off its bf16 plain version passes only
+    where that plain version is itself off the plain version in float64 on
+    the widened inputs (``want64``) by more than the tolerance, and the
+    kernel is within the tolerance of the float64 one. Returns the errors
+    against what each output was held to (max_abs_err, scaled_err), against
+    the bf16 and the float64 plain versions, and the outputs held to
+    float64."""
+    tol = ref.tolerances(BF16)[0]
+    held, on64 = [], []
+    for i, (g, w, w64) in enumerate(zip(got, want, want64)):
+        err, e = max_err((g.float(),), (w.float(),))
+        err64, e64 = max_err((g.double(),), (w64,))
+        if e > tol:
+            _, off = max_err((w.double(),), (w64,))
+            check(off > tol and e64 <= tol,
+                  f"{name}: bf16 output {i} scaled error {e} over {tol} "
+                  f"(float64 plain: {e64}; bf16 plain off float64 by {off})")
+            on64.append(dict(output=i, plain_bf16_scaled_err=e,
+                             float64_scaled_err=e64, plain_off_float64=off))
+            err, e = err64, e64
+        held.append((err, e))
+    return dict(max_abs_err=max(a for a, _ in held),
+                scaled_err=max(e for _, e in held),
+                plain_bf16_scaled_err=max_err(widened(got), widened(want))[1],
+                float64_scaled_err=max_err(widened(got, torch.float64), want64)[1],
+                held_to_float64=on64)
+
+
+def bf16_record(name: str, run, plain, plain64, cost: tuple, reps: int, *,
+                f32=None, stepped=None, lane=None, lib=None, lib_route=None,
+                slow_plain: bool = False) -> dict:
+    """One bf16 kernel at the first panel's shapes: ``f32`` (K1-K4) the f32
+    kernel on the widened inputs, whose outputs rounded once must equal the
+    bf16 kernel's bit for bit; ``stepped`` (K5) the stepped bf16 kernels,
+    equal bit for bit; ``lane`` (k, one-lane call), equal to lane k of the
+    P-lane launch; each output within ref.tolerances(bf16) of the plain
+    version on the card, scaled by max(1, |plain|) (``held_bf16``;
+    ``plain64`` the plain version in float64 on the widened inputs); timed
+    (events and device alone) beside the plain version, the f32 twin, the
+    library call and the bound at 989 TFLOP/s and 2 bytes an element."""
+    got = as_tuple(run())
+    torch.cuda.synchronize()
+    source = BF16_SOURCES[name]
+    rec = dict(name=f"{name}_bf16", op=name, dtype="bfloat16", route="cuda",
+               source=source, replaces=KERNELS[name][1], launches=0)
+    if f32 is not None:
+        rounded = tuple(x.to(BF16) for x in as_tuple(f32()))
+        rec["f32_rounded_bitwise"] = same_bits(got, rounded)
+        check(rec["f32_rounded_bitwise"],
+              f"{name}: bf16 kernel != f32 kernel rounded once")
+        rec["f32_ms"] = time_ms(f32, reps)
+    if stepped is not None:
+        rec["stepped_bitwise"] = same_bits(got, stepped())
+        check(rec["stepped_bitwise"], f"{name}: bf16 differs from the stepped kernels")
+        rec["stepped_ms"] = time_ms(stepped, reps)
+    if lane is not None:
+        k, one = lane
+        rec["lane_bitwise"] = all(torch.equal(g[k], o)
+                                  for g, o in zip(got, as_tuple(one())))
+        check(rec["lane_bitwise"], f"{name}: bf16 lane bits depend on the launch")
+    rec.update(held_bf16(name, got, as_tuple(plain()), as_tuple(plain64())))
+    del got
+    bms, by = bound_ms(*cost, peak=PEAK_BF16)
+    rec.update(tolerance=ref.tolerances(BF16)[0], ms=time_ms(run, reps),
+               device_ms=device_ms(run, reps, name + "_kernel"),
+               plain_ms=time_ms(plain, 1 if slow_plain else reps),
+               bound_ms=bms, bound_by=by,
+               library_ms=time_ms(lib, reps) if lib is not None else None,
+               library_route=lib_route,
+               ptxas={k: v for k, v in ptxas(source, name + "_kernel").items()
+                      if "bf16" in k})
+    return rec
+
+
+def bf16_kernel_records(Ab: torch.Tensor) -> list:
+    """K1-K6 at bf16 on the first panel's data of the bf16 sweep, K2 and
+    K4 also at a late panel's window (w = LATE_W)."""
+    eb = 2.0  # bytes an element
+    k = P - 3
+    panel = Ab[..., :B].contiguous()
+    Y, T, R = ops.panel_qr(panel, 0)
+    rows = [i ^ 1 for i in range(P)]
+    R_top, R_bot = R.contiguous(), R[rows].contiguous()
+    Y2, T2, _ = ops.stacked_qr(R_top, R_bot)
+    Ct = ops.wy_apply(Y, T, Ab)[:, :B].contiguous()
+    Cb = Ct[rows].contiguous()
+    late = N - LATE_W
+    Ctl, Cbl = Ct[..., :LATE_W].contiguous(), Cb[..., :LATE_W].contiguous()
+    panel32, stack32 = panel.float(), torch.cat([R_top, R_bot], 1).float()
+    # the f32 twins' inputs, widened once outside the timed calls
+    A32, Y32, T32, Rt32, Rb32, Y2_32, T2_32, Ct32, Cb32, Ctl32, Cbl32 = widened(
+        (Ab, Y, T, R_top, R_bot, Y2, T2, Ct, Cb, Ctl, Cbl))
+
+    def f64(fn, *xs, **kw):  # the plain version in float64 on widened inputs
+        return lambda: fn(*widened(xs, torch.float64), **kw)
+
+    recs = [
+        bf16_record("panel_qr", lambda: ops.panel_qr(panel, 0),
+                    lambda: ref.panel_qr(panel, 0),
+                    f64(ref.panel_qr, panel, row_start=0),
+                    leaf_cost(P, M_LOC, B, 0, eb),
+                    20, f32=lambda: ops.panel_qr(panel32, 0),
+                    lane=(k, lambda: ops.panel_qr(panel[k], 0)),
+                    lib=lambda: torch.geqrf(panel32),
+                    lib_route="torch.geqrf on the panel widened to f32 "
+                              "(geqrf takes no bf16)", slow_plain=True),
+        bf16_record("wy_apply", lambda: ops.wy_apply(Y, T, Ab),
+                    lambda: ref.wy_apply(Y, T, Ab), f64(ref.wy_apply, Y, T, Ab),
+                    wy_cost(P, M_LOC, B, N, eb),
+                    10, f32=lambda: ops.wy_apply(Y32, T32, A32),
+                    lane=(k, lambda: ops.wy_apply(Y[k], T[k], Ab[k])),
+                    lib=lambda: wy_library(Y, T, Ab),
+                    lib_route="the torch.matmul chain in bf16"),
+        bf16_record("stacked_qr", lambda: ops.stacked_qr(R_top, R_bot),
+                    lambda: ref.stacked_qr(R_top, R_bot),
+                    f64(ref.stacked_qr, R_top, R_bot),
+                    (P * float(B ** 3), eb * P * 5 * B * B), 10,
+                    f32=lambda: ops.stacked_qr(Rt32, Rb32),
+                    lane=(k, lambda: ops.stacked_qr(R_top[k], R_bot[k])),
+                    lib=lambda: torch.geqrf(stack32),
+                    lib_route="torch.geqrf on the stack widened to f32 "
+                              "(geqrf takes no bf16)"),
+        bf16_record("stacked_apply", lambda: ops.stacked_apply(Y2, T2, Ct, Cb),
+                    lambda: ref.stacked_apply(Y2, T2, Ct, Cb),
+                    f64(ref.stacked_apply, Y2, T2, Ct, Cb),
+                    sa_cost(P, B, N, eb), 10,
+                    f32=lambda: ops.stacked_apply(Y2_32, T2_32, Ct32, Cb32),
+                    lane=(k, lambda: ops.stacked_apply(Y2[k], T2[k], Ct[k], Cb[k])),
+                    lib=lambda: sa_library(Y2, T2, Ct, Cb),
+                    lib_route="the torch.matmul chain in bf16"),
+    ]
+    recs[1]["late_panel"] = bf16_record(
+        "wy_apply", lambda: ops.wy_apply(Y, T, Ab[..., late:]),
+        lambda: ref.wy_apply(Y, T, Ab[..., late:]),
+        f64(ref.wy_apply, Y, T, Ab[..., late:]),
+        wy_cost(P, M_LOC, B, LATE_W, eb), 20,
+        f32=lambda: ops.wy_apply(Y32, T32, A32[..., late:]),
+        lib=lambda: wy_library(Y, T, Ab[..., late:]),
+        lib_route="the torch.matmul chain in bf16")
+    recs[3]["late_panel"] = bf16_record(
+        "stacked_apply", lambda: ops.stacked_apply(Y2, T2, Ctl, Cbl),
+        lambda: ref.stacked_apply(Y2, T2, Ctl, Cbl),
+        f64(ref.stacked_apply, Y2, T2, Ctl, Cbl), sa_cost(P, B, LATE_W, eb),
+        50, f32=lambda: ops.stacked_apply(Y2_32, T2_32, Ctl32, Cbl32),
+        lib=lambda: sa_library(Y2, T2, Ctl, Cbl),
+        lib_route="the torch.matmul chain in bf16")
+    for sub in (recs[1]["late_panel"], recs[3]["late_panel"]):
+        for key in ("name", "op", "dtype", "route", "source", "replaces",
+                    "launches", "ptxas"):
+            sub.pop(key)
+    del Ctl, Cbl, A32, Y32, T32, Rt32, Rb32, Y2_32, T2_32, Ct32, Cb32, Ctl32, Cbl32
+
+    def k1_k2():
+        Yl, Tl, Rl = ops.panel_qr(Ab[..., :B], 0)
+        C = ops.wy_apply(Yl, Tl, Ab)
+        return Yl, Tl, Rl, C, C[:, :B]
+
+    leaf_flops = 3.0 * M_LOC * B * B - B ** 3 / 3.0
+    apply_flops = 4.0 * M_LOC * B * N + B * B * N
+    recs.append(bf16_record(
+        "panel_qr_apply", lambda: ops.panel_qr_apply(Ab, 0, B),
+        lambda: ref.panel_qr_apply(Ab, 0, B),
+        f64(ref.panel_qr_apply, Ab, row_start=0, b=B),
+        (P * (leaf_flops + apply_flops),
+         eb * P * (2 * M_LOC * N + M_LOC * B + 2 * B * B + B * N)), 3,
+        stepped=k1_k2, lane=(k, lambda: ops.panel_qr_apply(Ab[k], 0, B)),
+        slow_plain=True))
+    comm = SimComm(P)
+    s0 = sm.initial_sweep_state(comm, Ab, B)
+    pts = sm.panel_points(s0.geom)
+    recs.append(bf16_record(
+        "fused_panel",
+        lambda: ops.fused_panel(Ab, 0, b=B, m_loc_pad=M_LOC, levels=L),
+        lambda: ref.fused_panel(Ab, 0, b=B, m_loc_pad=M_LOC, levels=L),
+        f64(ref.fused_panel, Ab, k=0, b=B, m_loc_pad=M_LOC, levels=L),
+        (P * (leaf_flops + apply_flops + L * (B ** 3 + 3.0 * B * B * N)),
+         eb * P * (2 * M_LOC * N + M_LOC * B + (3 + 2 * L) * B * B
+                   + (1 + 3 * L) * B * N)), 3, slow_plain=True))
+    # no single PyTorch call computes K5 or K6: the yardstick is the stepped
+    # bf16 kernels doing the same work
+    recs[-1]["stepped_ms"] = time_ms(lambda: sm.run_steps(comm, s0, pts), 3)
+    recs[-1]["stepped_route"] = "the stepped bf16 panel (K1, 3 x K3, K2, 3 x K4)"
+    recs[-2]["stepped_route"] = "K1+K2 at bf16 (panel_qr, wy_apply)"
+    return recs
+
+
+def bf16_phase(A: torch.Tensor, ledgers: dict) -> list:
+    """The sweep of a bf16 matrix (the tall matrix cast to bf16) through the
+    bf16 kernels K1-K6 at b = 128; returns their records."""
+    Ab = A.to(BF16)
+    records = bf16_kernel_records(Ab)
+    comm = SimComm(P)
+    backend.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = caqr_factorize(Ab, comm, B, use_scan=False, collect_bundles=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(backend.BF16_LAUNCHES)
+    PATH_LAUNCHES_BF16["bf16_sweep"] = launches
+    check(all(launches[op] > 0 for op in STEPPED)
+          and launches == backend.LAUNCHES,
+          f"a bf16 kernel was not launched by the bf16 sweep: {launches}, "
+          f"all launches {backend.LAUNCHES}")
+    check(res.R.dtype == BF16 and bool((res.R == res.R[:1]).all()),
+          "bf16 R is not replicated bitwise")
+    want = flat_result(res)
+    A64 = Ab.reshape(-1, N).double()
+    gram = gram_error(A64, res.R[0])
+    # the floor: the f32 sweep of the same (widened) matrix, R rounded once
+    floor = gram_error(A64, caqr_factorize(Ab.float(), comm, B,
+                                           use_scan=False).R[0].to(BF16))
+    del A64, res
+    check(gram <= BF16_GRAM_TOL, f"bf16 Gram residual {gram} > {BF16_GRAM_TOL}")
+    kill = kill_check(Ab, SimComm(P), KILLS, want)
+    PATH_LAUNCHES_BF16["bf16_kill"] = dict(backend.BF16_LAUNCHES)
+    check(kill["ledger"] == ledgers["kills"],
+          "the bf16 kill ledger differs from the f32 sweep's")
+    res_s, sec_s, _, _ = timed_sweep(Ab, fused=False)
+    PATH_LAUNCHES_BF16["bf16_stepped"] = dict(backend.BF16_LAUNCHES)
+    ok_s = same_bits(flat_result(res_s), want)
+    del res_s
+    res_f, sec_f, _, _ = timed_sweep(Ab, fused=True)
+    launch_f = PATH_LAUNCHES_BF16["bf16_fused"] = dict(backend.BF16_LAUNCHES)
+    ok_f = same_bits(flat_result(res_f), want)
+    del res_f
+    check(ok_s and ok_f, f"bf16 state machine differs from caqr_factorize: "
+                         f"stepped {ok_s}, fused {ok_f}")
+    check(launch_f["fused_panel"] == N // B and
+          all(launch_f[op] == 0 for op in STEPPED),
+          f"bf16 fused sweep launches: {launch_f}")
+    # K5's path: the fused leaf entry on the first window, bit-equal to K1
+    # then K2
+    _c0, _t, row_start, _act = panel_geometry(comm, 0, B, M_LOC)
+    backend.reset_launches()
+    wy, C, Cp = householder.panel_qr_apply(Ab, row_start, B)
+    torch.cuda.synchronize()
+    PATH_LAUNCHES_BF16["bf16_fused_leaf"] = dict(backend.BF16_LAUNCHES)
+    wy1 = householder.householder_qr_masked(Ab[..., :B], row_start)
+    C1 = householder.apply_qt(wy1.Y, wy1.T, Ab)
+    leaf_same = same_bits((*wy, C, Cp), (*wy1, C1, C1[:, :B]))
+    check(leaf_same and PATH_LAUNCHES_BF16["bf16_fused_leaf"]["panel_qr_apply"] == 1,
+          "bf16 fused leaf differs from the stepped leaf or did not launch K5")
+    del wy, C, Cp, wy1, C1
+    # above 128 columns bf16 is not ported: every op raises
+    wide_b = Ab[..., :WIDE_B].contiguous()
+    sq = wide_b[:, :WIDE_B].contiguous()
+    calls = {
+        "panel_qr": lambda: ops.panel_qr(wide_b, 0),
+        "wy_apply": lambda: ops.wy_apply(wide_b, sq, Ab),
+        "stacked_qr": lambda: ops.stacked_qr(sq, sq),
+        "stacked_apply": lambda: ops.stacked_apply(sq, sq, sq, sq),
+        "panel_qr_apply": lambda: ops.panel_qr_apply(Ab, 0, WIDE_B),
+        "fused_panel": lambda: ops.fused_panel(Ab, 0, b=WIDE_B,
+                                               m_loc_pad=M_LOC, levels=L),
+    }
+    raised = {}
+    for op, call in calls.items():
+        try:
+            call()
+            raised[op] = False
+        except NotImplementedError:
+            raised[op] = True
+    del wide_b, sq
+    check(all(raised.values()), f"bf16 at b = {WIDE_B} did not raise: {raised}")
+    probe = backend.probe_report()
+    check(all(v["engine"] == backend.ENGINE_CUDA for v in probe.values()),
+          f"an op's last engine is not the CUDA kernel: {probe}")
+    emit({"bf16": dict(
+        shape=[P * M_LOC, N], P=P, b=B, dtype="bfloat16", sweep_seconds=seconds,
+        launches=launches, gram_rel_err=gram, gram_floor_f32_rounded=floor,
+        gram_tol=BF16_GRAM_TOL, ft_kills=dict(
+            seconds=kill["seconds"], events=kill["events"],
+            bitwise_equal=kill["bitwise_equal"],
+            ledger_equals_f32=True),
+        state_machine=dict(stepped_seconds=sec_s, fused_seconds=sec_f,
+                           stepped_equals_sweep=ok_s, fused_equals_sweep=ok_f,
+                           fused_launches=launch_f),
+        fused_leaf_bitwise_equal_stepped=leaf_same,
+        b256_raises=raised, probe=probe)})
+    return records
 
 
 class TimedScheme:
@@ -3883,9 +4235,9 @@ def fused_wide_records(A: torch.Tensor) -> list:
         del got, want
         check(scaled <= tol, f"wide {name}: scaled error {scaled} over {tol}")
         bms, by = bound_ms(c["flops"], c["nbytes"])
-        source, replaces = KERNELS[name]
+        source = "src/repro_torch/csrc/fused_sweep.cu"  # fused_wide_kernel
         recs.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
+            name=name, route="cuda", source=source, replaces=KERNELS[name][1],
             shapes=[list(A.shape)], b=b, max_abs_err=err, scaled_err=scaled,
             tolerance=tol, ms=time_ms(c["run"], 5),
             device_ms=device_ms(c["run"], 5, "fused_wide_kernel"),
@@ -4249,7 +4601,8 @@ def main() -> int:
     if "error" in built:
         raise built["error"]
     PHASE_SECONDS["build"] = built["seconds"]
-    emit({"build_seconds": built["seconds"], "card": card})
+    emit({"build_seconds": built["seconds"], "per_source": build.SECONDS,
+          "card": card})
 
     rng = np.random.default_rng(args.seed)
     A = block_row_layout(rng.standard_normal((P * M_LOC, N)).astype(np.float32), P)
@@ -4273,6 +4626,8 @@ def main() -> int:
         ledgers = ft_driver_phase(A, want)
     with timed("online"):
         online_phase(A, want, ledgers)
+    with timed("bf16"):
+        bf16_records = bf16_phase(A, ledgers)
     with timed("spmd"):
         spmd_phase(A, want, ledgers, args.seed)
     del want
@@ -4316,6 +4671,16 @@ def main() -> int:
     check(all(gemm_rec["launches_by_path"][p] for p in ("wide", "wide_kill")),
           f"wide_gemm not launched on a wide path: {gemm_rec['launches_by_path']}")
     records.append(gemm_rec)
+    # the bf16 kernels' launches: K1-K4 on the bf16 sweep, K5 on the bf16
+    # fused leaf, K6 on the bf16 fused sweep
+    main_path = {"panel_qr_apply": "bf16_fused_leaf", "fused_panel": "bf16_fused"}
+    for rec in bf16_records:
+        op = rec.pop("op")
+        rec["launches"] = PATH_LAUNCHES_BF16[main_path.get(op, "bf16_sweep")][op]
+        rec["launches_by_path"] = {path: counts[op]
+                                   for path, counts in PATH_LAUNCHES_BF16.items()}
+        check(rec["launches"] > 0, f"{rec['name']} not launched on its bf16 path")
+    records.extend(bf16_records)
     emit({"wide_kernels": wide_records})
     emit({"phase_seconds": PHASE_SECONDS,
           "script_seconds": time.perf_counter() - T_START})

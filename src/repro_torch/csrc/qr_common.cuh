@@ -22,15 +22,76 @@
 // element, see their section below); there are no atomics, and no sum
 // depends on the lane or the launch size. So a lane gives the same bits in
 // any launch, which the FT butterfly and recovery rely on.
+//
+// Element types: the bodies are templates on the type E of the tensors
+// they read and write in global memory, float or bf16. Only global loads
+// and stores see E: a bf16 load widens to float exactly, a bf16 store
+// rounds to nearest even; shared memory, registers, the team's exchange
+// slots and every sum stay float, in the same order. So a bf16 instance
+// is the float instance run on the widened inputs with each output rounded
+// once: K(x) at bf16 == K(float(x)) rounded, bit for bit. The T factor's
+// strict lower triangle holds G^T during a QR (team_t's input): at bf16
+// that goes to a float scratch G beside T; at float G is T itself.
 #pragma once
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "async_copy.cuh"
 
 namespace repro {
 
 namespace cg = cooperative_groups;
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
+
+template <class E>
+__device__ __forceinline__ E narrow(float x) {
+  if constexpr (std::is_same_v<E, float>) return x;
+  else return __float2bfloat16_rn(x);
+}
+
+// One element through L2 only (data written earlier in the same launch).
+__device__ __forceinline__ float ldcg1(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float ldcg1(const bf16* p) {
+  return __uint_as_float(
+      (unsigned)__ldcg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// Four consecutive elements as one aligned access (16 bytes of float, 8 of
+// bf16) through L2 only, and their store.
+__device__ __forceinline__ float4 ldcg4(const float* p) {
+  return __ldcg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ldcg4(const bf16* p) {
+  const uint2 u = __ldcg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ void stv4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+__device__ __forceinline__ void stv4(bf16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16x2(v.x, v.y),
+                                            pack_bf16x2(v.z, v.w));
+}
+
+// The float scratch that holds G^T during a QR whose T is `T`: T itself at
+// float, else `g` (b x b floats).
+template <class E>
+__device__ __forceinline__ float* gram_scratch(E* T, float* g) {
+  if constexpr (std::is_same_v<E, float>) return T;
+  else return g;
+}
 
 constexpr int QR_THREADS = 512;
 constexpr int QR_MAX_B = 128;
@@ -348,16 +409,19 @@ __device__ __forceinline__ void team_pass(float* S, int ld, int lo, int nr,
 // T[j, j] = tau_j (the blocks at once, four threads a row), then, block
 // column by block column, T[:L0, L] = -T[:L0, :L0] (G[:L0, L] T[L, L])
 // for the block L starting at column L0, which is the same recurrence
-// applied to the blocks. Every sum runs in index order. Writes T; uses
+// applied to the blocks. Every sum runs in index order. Reads G^T from the
+// strict lower triangle of G (which may be T itself), then writes T; uses
 // team_t_floats(b) floats of shared memory at `work`.
-__device__ inline void team_t(float* T, int b, float* work, const float* taus) {
+template <class E>
+__device__ inline void team_t(const float* G, E* T, int b, float* work,
+                              const float* taus) {
   constexpr int NB = 32;
   const int tid = threadIdx.x, tb = b + 1;
   float* Gt = work;            // b * b, row j holds G[:j, j]
   float* Ts = Gt + b * b;      // b * (b + 1), padded rows
   float* M = Ts + b * tb;      // (b - NB) x NB: G[:L0, L] T[L, L]
   for (int e = tid; e < b * b; e += QR_THREADS)
-    Gt[e] = e % b < e / b ? T[e] : 0.f;
+    Gt[e] = e % b < e / b ? G[e] : 0.f;
   for (int e = tid; e < b * tb; e += QR_THREADS) Ts[e] = 0.f;
   __syncthreads();
   // the diagonal blocks: block k on threads [128k, 128k + 128), row
@@ -398,13 +462,15 @@ __device__ inline void team_t(float* T, int b, float* work, const float* taus) {
     }
     __syncthreads();
   }
-  for (int e = tid; e < b * b; e += QR_THREADS) T[e] = Ts[(e / b) * tb + e % b];
+  for (int e = tid; e < b * b; e += QR_THREADS)
+    T[e] = narrow<E>(Ts[(e / b) * tb + e % b]);
 }
 
 // One team block's share of the masked QR of the (m x b) panel A (row
 // stride a_ld, unit column stride): rows [rank * rows, ...) of team_rows(m,
-// C). Writes this block's rows of Y and R; rank 0 writes T (its strict
-// lower triangle holds G^T during the loop). kSlabInSmem =
+// C). Writes this block's rows of Y and R; rank 0 writes T (the strict
+// lower triangle of G, T itself at float, holds G^T during the loop).
+// kSlabInSmem =
 // team_slab_in_smem(m, b, C); when false, slab_g is this block's slab in
 // global scratch (team_cols(b) x team_ld floats, 16-byte aligned). Both
 // instances run the same arithmetic through the same float* S; the flag
@@ -412,9 +478,9 @@ __device__ inline void team_t(float* T, int b, float* work, const float* taus) {
 // addresses it as such (32-bit shared loads, not generic 64-bit ones).
 // Needs team_smem_floats(m, b, C, kSlabInSmem) floats at smem (16-byte
 // aligned).
-template <bool kSlabInSmem, class Ex>
-__device__ void team_qr(const float* A, long long a_ld, float* Y, float* T,
-                        float* R, int m, int b, int rs, int C, int rank,
+template <bool kSlabInSmem, class Ex, class E>
+__device__ void team_qr(const E* A, long long a_ld, E* Y, E* T, E* R,
+                        float* G, int m, int b, int rs, int C, int rank,
                         float* slab_g, float* smem, Ex& ex) {
   const int tid = threadIdx.x;
   const int rows = team_rows(m, C), ld = team_ld(rows);
@@ -428,7 +494,7 @@ __device__ void team_qr(const float* A, long long a_ld, float* Y, float* T,
 
   for (int e = tid; e < nr * b; e += QR_THREADS) {
     const int i = e / b, c = e % b;
-    S[(size_t)c * ld + i] = A[(size_t)(lo + i) * a_ld + c];
+    S[(size_t)c * ld + i] = widen(A[(size_t)(lo + i) * a_ld + c]);
   }
   __syncthreads();
   auto holds = [&](int row) { return row >= lo && row < lo + nr; };
@@ -473,7 +539,7 @@ __device__ void team_qr(const float* A, long long a_ld, float* Y, float* T,
         if (c == j) continue;
         const float s = c == nxt ? wn : w_of(c, denom);
         sm.w[c] = s;
-        if (rank == 0 && c < j) T[(size_t)j * b + c] = s;  // G[c, j]
+        if (rank == 0 && c < j) G[(size_t)j * b + c] = s;  // G[c, j]
       }
     } else {
       // v over this block's rows at and below the pivot, in place of
@@ -503,21 +569,22 @@ __device__ void team_qr(const float* A, long long a_ld, float* Y, float* T,
   // Y: v below the pivots, zero above
   for (int e = tid; e < nr * b; e += QR_THREADS) {
     const int i = e / b, c = e % b;
-    Y[(size_t)(lo + i) * b + c] = lo + i < rs + c ? 0.f : S[(size_t)c * ld + i];
+    Y[(size_t)(lo + i) * b + c] =
+        narrow<E>(lo + i < rs + c ? 0.f : S[(size_t)c * ld + i]);
   }
   // R: rows [rs', rs' + b) that this block holds, rs' = clamp(rs, 0, m - b)
   const int rstart = rs < 0 ? 0 : (rs > m - b ? m - b : rs);
   const int r0 = max(rstart, lo) - rstart, r1 = min(rstart + b, lo + nr) - rstart;
   for (int e = r0 * b + tid; e < r1 * b; e += QR_THREADS) {
     const int r = e / b, c = e % b, i = rstart + r, pv = rs + c;
-    R[e] = r > c ? 0.f
-           : i < pv ? S[(size_t)c * ld + (i - lo)]
-           : i == pv ? sm.rdiag[c] : 0.f;
+    R[e] = narrow<E>(r > c ? 0.f
+                     : i < pv ? S[(size_t)c * ld + (i - lo)]
+                     : i == pv ? sm.rdiag[c] : 0.f);
   }
 
   if (rank == 0) {
     __syncthreads();  // the slab is read; the region now holds G^T and T
-    team_t(T, b, sm.region, sm.taus);
+    team_t(G, T, b, sm.region, sm.taus);
   }
 }
 
@@ -608,11 +675,12 @@ __device__ __forceinline__ void st4s(float* p, float4 v) {
 
 // K3's body for one lane: (Y2, T, R) of QR([triu(Rt); triu(Rb)]), all
 // (b x b) row-major (the strict lower triangles of Rt and Rb are not
-// used). Needs stacked_smem_floats(b) floats of shared memory at smem
-// (16-byte aligned); ends with a barrier, after which smem may be reused.
-__device__ inline void stacked_qr_lane(const float* Rt, const float* Rb,
-                                       float* Y2, float* T, float* R, int b,
-                                       float* smem) {
+// used); G (b x b floats, T itself at float) holds G^T during the loop.
+// Needs stacked_smem_floats(b) floats of shared memory at smem (16-byte
+// aligned); ends with a barrier, after which smem may be reused.
+template <class E>
+__device__ inline void stacked_qr_lane(const E* Rt, const E* Rb, E* Y2, E* T,
+                                       E* R, float* G, int b, float* smem) {
   const int tid = threadIdx.x;
   const StackLayout L(b);
   const int ld = L.ld, bo = L.bo, b16 = L.b16;
@@ -639,8 +707,8 @@ __device__ inline void stacked_qr_lane(const float* Rt, const float* Rb,
     S[(size_t)(e / (b16 - b)) * ld + bo + b + e % (b16 - b)] = 0.f;
   for_tiles([&](int r, int cc, int e) {
     const bool up = r <= cc;
-    S[(size_t)cc * ld + r] = up ? Rt[e] : 0.f;
-    S[(size_t)cc * ld + bo + r] = up ? Rb[e] : 0.f;
+    S[(size_t)cc * ld + r] = up ? widen(Rt[e]) : 0.f;
+    S[(size_t)cc * ld + bo + r] = up ? widen(Rb[e]) : 0.f;
   });
   __syncthreads();
 
@@ -656,7 +724,7 @@ __device__ inline void stacked_qr_lane(const float* Rt, const float* Rb,
   }
   float z = 0.f;  // Y2[:, c]^T x of the step before, for G
   for (int j = 0; j < b; ++j) {
-    if (g == 0 && c < j - 1) T[(size_t)(j - 1) * b + c] = z * rinvs[j - 1];
+    if (g == 0 && c < j - 1) G[(size_t)(j - 1) * b + c] = z * rinvs[j - 1];
     const bool upd = c < b && c > j, gram = c < j;
     const int last = upd ? j : gram ? c : -1;  // this column's rows in play
     const int plast = gram ? c : j;            // the pivot's rows it reads
@@ -735,7 +803,7 @@ __device__ inline void stacked_qr_lane(const float* Rt, const float* Rb,
     }
     __syncthreads();
   }
-  if (g == 0 && c < b - 1) T[(size_t)(b - 1) * b + c] = z * rinvs[b - 1];
+  if (g == 0 && c < b - 1) G[(size_t)(b - 1) * b + c] = z * rinvs[b - 1];
 #pragma unroll
   for (int k = 0; k < SQ_CHUNKS; ++k) {  // Y2: every column's v
     if (SQ_CHUNK * k > c || c >= b) break;
@@ -744,11 +812,12 @@ __device__ inline void stacked_qr_lane(const float* Rt, const float* Rb,
   __syncthreads();
 
   for_tiles([&](int r, int cc, int e) {
-    R[e] = r < cc ? S[(size_t)cc * ld + r] : r == cc ? rdiag[r] : 0.f;
-    Y2[e] = r <= cc ? S[(size_t)cc * ld + bo + r] : 0.f;
+    R[e] = narrow<E>(r < cc    ? S[(size_t)cc * ld + r]
+                     : r == cc ? rdiag[r] : 0.f);
+    Y2[e] = narrow<E>(r <= cc ? S[(size_t)cc * ld + bo + r] : 0.f);
   });
   __syncthreads();  // the stack is read; its region now holds team_t's scratch
-  team_t(T, b, S, taus);
+  team_t(G, T, b, S, taus);
   __syncthreads();
 }
 
@@ -855,40 +924,58 @@ __device__ __forceinline__ float lane4(const float4& v, int j) {
 //   cols   rows [row0, row0 + BK), columns [col0, col0 + BN) -> dst[BK][BN];
 //   block  rows [row0, row0 + TILE_M), columns [col0, col0 + BK)
 //          -> dst[TILE_M][AS].
-// CopyPlan copies them in 16-byte units (cp.async) when every stride,
+// CopyPlan copies them in units of four elements when every stride,
 // width and pointer allows: unit u of a thread covers row first + u * step
 // of the slice and four columns from its fixed column, all worked out once
-// per tile. load_scalar copies any of them element by element through L2.
+// per tile. A float unit is one 16-byte cp.async; a bf16 unit is one 8-byte
+// load through registers, widened, then one 16-byte shared store (the
+// slice is float in shared memory, so a raw copy cannot fill it); the
+// barrier before a slice is read orders both. load_scalar copies any of
+// them element by element through L2.
 struct CopyPlan {
   int first, step, col;
   __device__ CopyPlan(int per_row, int tid)
       : first(tid / per_row), step(TILE_THREADS / per_row),
         col((tid % per_row) * 4) {}
 
-  // UNITS 16-byte copies into dst (row stride dld) from src: row k of the
-  // slice is row row0 + k of src, column c is column col0 + c.
-  template <int UNITS>
-  __device__ __forceinline__ void copy(float* dst, int dld, const float* src,
+  // UNITS copies of four elements into dst (row stride dld) from src: row
+  // k of the slice is row row0 + k of src, column c is column col0 + c.
+  template <int UNITS, class E>
+  __device__ __forceinline__ void copy(float* dst, int dld, const E* src,
                                        long long ld, int row0, int nrows,
                                        int col0, int ncols) const {
     const bool col_ok = col0 + col < ncols;
+    if constexpr (std::is_same_v<E, float>) {
 #pragma unroll
-    for (int u = 0; u < UNITS; ++u) {
-      const int k = first + u * step, r = row0 + k;
-      const bool ok = col_ok && r < nrows;
-      cp_async16(dst + k * dld + col,
-                 ok ? src + (size_t)r * ld + col0 + col : src, ok ? 16 : 0);
+      for (int u = 0; u < UNITS; ++u) {
+        const int k = first + u * step, r = row0 + k;
+        const bool ok = col_ok && r < nrows;
+        cp_async16(dst + k * dld + col,
+                   ok ? src + (size_t)r * ld + col0 + col : src, ok ? 16 : 0);
+      }
+    } else {
+      float4 v[UNITS];
+#pragma unroll
+      for (int u = 0; u < UNITS; ++u) {
+        const int r = row0 + first + u * step;
+        v[u] = col_ok && r < nrows ? ldcg4(src + (size_t)r * ld + col0 + col)
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < UNITS; ++u)
+        stv4(dst + (first + u * step) * dld + col, v[u]);
     }
   }
 };
 
+template <class E>
 __device__ inline void load_scalar(float* dst, int dld, int rows, int cols,
-                                   const float* src, long long ld, int row0,
+                                   const E* src, long long ld, int row0,
                                    int nrows, int col0, int ncols, int tid) {
   for (int u = tid; u < rows * cols; u += TILE_THREADS) {
     const int k = u / cols, c = u % cols, r = row0 + k, col = col0 + c;
     dst[k * dld + c] =
-        (r < nrows && col < ncols) ? __ldcg(src + (size_t)r * ld + col) : 0.f;
+        (r < nrows && col < ncols) ? ldcg1(src + (size_t)r * ld + col) : 0.f;
   }
 }
 
@@ -978,33 +1065,35 @@ __device__ __forceinline__ void mma_rows(TileAcc<BN>& acc, const float* A,
 }
 
 // Four consecutive elements at (r, col..col+3) of an (nrows x ncols)
-// matrix with row stride ld, zero outside; vec: one aligned float4 load.
-__device__ __forceinline__ float4 ld4(const float* p, long long ld, int r,
+// matrix with row stride ld, zero outside; vec: one aligned access.
+template <class E>
+__device__ __forceinline__ float4 ld4(const E* p, long long ld, int r,
                                       int nrows, int col, int ncols, bool vec) {
   float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
   if (r >= nrows || col >= ncols) return v;
-  const float* q = p + (size_t)r * ld + col;
-  if (vec) return __ldcg(reinterpret_cast<const float4*>(q));
-  v.x = __ldcg(q);
-  if (col + 1 < ncols) v.y = __ldcg(q + 1);
-  if (col + 2 < ncols) v.z = __ldcg(q + 2);
-  if (col + 3 < ncols) v.w = __ldcg(q + 3);
+  const E* q = p + (size_t)r * ld + col;
+  if (vec) return ldcg4(q);
+  v.x = ldcg1(q);
+  if (col + 1 < ncols) v.y = ldcg1(q + 1);
+  if (col + 2 < ncols) v.z = ldcg1(q + 2);
+  if (col + 3 < ncols) v.w = ldcg1(q + 3);
   return v;
 }
 
 // Store the elements of v that fall inside the matrix (see ld4).
-__device__ __forceinline__ void st4(float* p, long long ld, int r, int nrows,
+template <class E>
+__device__ __forceinline__ void st4(E* p, long long ld, int r, int nrows,
                                     int col, int ncols, bool vec, float4 v) {
   if (r >= nrows || col >= ncols) return;
-  float* q = p + (size_t)r * ld + col;
+  E* q = p + (size_t)r * ld + col;
   if (vec) {
-    *reinterpret_cast<float4*>(q) = v;
+    stv4(q, v);
     return;
   }
-  q[0] = v.x;
-  if (col + 1 < ncols) q[1] = v.y;
-  if (col + 2 < ncols) q[2] = v.z;
-  if (col + 3 < ncols) q[3] = v.w;
+  q[0] = narrow<E>(v.x);
+  if (col + 1 < ncols) q[1] = narrow<E>(v.y);
+  if (col + 2 < ncols) q[2] = narrow<E>(v.z);
+  if (col + 3 < ncols) q[3] = narrow<E>(v.w);
 }
 
 // The engine. Yf: R x b reflectors (row stride b); T: b x b; Cin: R x n
@@ -1013,15 +1102,16 @@ __device__ __forceinline__ void st4(float* p, long long ld, int r, int nrows,
 // the intermediate is Ct + Yf^T Cin. Runs TILE_THREADS threads (tid) that
 // synchronise on barrier bar_id only; needs tile_smem_floats(BN) floats at
 // smem (16-byte aligned). VEC: every row stride, n, b and pointer allow
-// 16-byte accesses (a compile-time choice: the scalar path's registers
-// would otherwise spill the 16-byte path's). Ends with a barrier, after
-// which smem may be reused and the tile's global writes are visible to its
+// accesses of four elements (a compile-time choice: the scalar path's
+// registers would otherwise spill the vector path's). E: the element type
+// of the global operands (see the top). Ends with a barrier, after which
+// smem may be reused and the tile's global writes are visible to its
 // threads.
-template <int BN, bool K4, bool VEC>
-__device__ void apply_engine(const float* Yf, int R, const float* T, int b,
-                             const float* Cin, long long c_ld, float* out,
-                             long long o_ld, const float* Ct, float* ot,
-                             float* Wout, int n, int col0, int tid, int bar_id,
+template <int BN, bool K4, bool VEC, class E>
+__device__ void apply_engine(const E* Yf, int R, const E* T, int b,
+                             const E* Cin, long long c_ld, E* out,
+                             long long o_ld, const E* Ct, E* ot, E* Wout,
+                             int n, int col0, int tid, int bar_id,
                              float* smem) {
   using S = TileShape<BN>;
   float* buf = smem;                // TILE_M x BN: W1 (or inner), then W
@@ -1146,14 +1236,13 @@ __device__ void apply_engine(const float* Yf, int R, const float* T, int b,
 // K2's tile: out = C - Y (T^T (Y^T C)) for columns [col0, col0 + BN) of one
 // lane: Y (m x b) and T (b x b) contiguous, C (m x n) with row stride c_ld,
 // out with row stride o_ld.
-template <int BN, bool VEC>
-__device__ inline void wy_apply_tile(const float* Y, const float* T,
-                                     const float* C, long long c_ld, float* out,
-                                     long long o_ld, int m, int b, int n,
-                                     int col0, int tid, int bar_id,
-                                     float* smem) {
-  apply_engine<BN, false, VEC>(Y, m, T, b, C, c_ld, out, o_ld, nullptr,
-                               nullptr, nullptr, n, col0, tid, bar_id, smem);
+template <int BN, bool VEC, class E>
+__device__ inline void wy_apply_tile(const E* Y, const E* T, const E* C,
+                                     long long c_ld, E* out, long long o_ld,
+                                     int m, int b, int n, int col0, int tid,
+                                     int bar_id, float* smem) {
+  apply_engine<BN, false, VEC, E>(Y, m, T, b, C, c_ld, out, o_ld, nullptr,
+                                  nullptr, nullptr, n, col0, tid, bar_id, smem);
 }
 
 // K4's tile: W = T^T (Ct + Y2^T Cb); ot = Ct - W; ob = Cb - Y2 W for columns
@@ -1161,14 +1250,13 @@ __device__ inline void wy_apply_tile(const float* Y, const float* T,
 // contiguous (their lower triangles are not read), Ct, Cb and the three
 // outputs (b x n) with row stride ld. All three outputs are written (a
 // caller that keeps only some passes a scratch sink for the rest).
-template <int BN, bool VEC>
-__device__ inline void stacked_apply_tile(const float* Y2, const float* T,
-                                          const float* Ct, const float* Cb,
-                                          long long ld, float* ot, float* ob,
-                                          float* W, int b, int n, int col0,
+template <int BN, bool VEC, class E>
+__device__ inline void stacked_apply_tile(const E* Y2, const E* T, const E* Ct,
+                                          const E* Cb, long long ld, E* ot,
+                                          E* ob, E* W, int b, int n, int col0,
                                           int tid, int bar_id, float* smem) {
-  apply_engine<BN, true, VEC>(Y2, b, T, b, Cb, ld, ob, ld, Ct, ot, W, n, col0,
-                              tid, bar_id, smem);
+  apply_engine<BN, true, VEC, E>(Y2, b, T, b, Cb, ld, ob, ld, Ct, ot, W, n,
+                                 col0, tid, bar_id, smem);
 }
 
 }  // namespace repro

@@ -35,41 +35,65 @@
 //
 // The per-lane and per-tile bodies (stacked_qr_lane, stacked_apply_tile)
 // live in qr_common.cuh, shared with the fused K6.
+//
+// bf16 (stacked_qr_bf16, stacked_apply_bf16, b <= 128): the same kernels
+// on bf16 tensors. Each widens its inputs as it loads them and rounds each
+// output once; K3 keeps G^T in a float scratch beside T (the `gram`
+// argument), since the float kernel keeps it in T's own lower triangle. So
+// each gives the float kernel's bits on the widened inputs, rounded.
 #include <cstdint>
 
 #include "qr_common.cuh"
 
 using namespace repro;
 
+template <class E>
 __global__ void __launch_bounds__(QR_THREADS)
-stacked_qr_kernel(const float* __restrict__ Rt, const float* __restrict__ Rb,
-                  float* Y2, float* T, float* R, int b) {
+stacked_qr_kernel(const E* __restrict__ Rt, const E* __restrict__ Rb, E* Y2,
+                  E* T, E* R, float* gram, int b) {
   extern __shared__ __align__(16) float smem[];
   const size_t off = (size_t)blockIdx.x * b * b;
-  stacked_qr_lane(Rt + off, Rb + off, Y2 + off, T + off, R + off, b, smem);
+  stacked_qr_lane(Rt + off, Rb + off, Y2 + off, T + off, R + off,
+                  gram_scratch(T + off, gram + off), b, smem);
 }
 
 extern "C" size_t stacked_qr_smem_bytes(int b) {
   return stacked_smem_floats(b) * sizeof(float);
 }
 
-// Rt, Rb: P (b x b) triangles; Y2, T, R: P*b*b floats; all contiguous.
-extern "C" int stacked_qr_f32(const void* Rt, const void* Rb, void* Y2,
-                              void* T, void* R, int P, int b, void* stream) {
+template <class E>
+static int stacked_qr_entry(const void* Rt, const void* Rb, void* Y2, void* T,
+                            void* R, void* gram, int P, int b, void* stream) {
   const size_t smem = stacked_qr_smem_bytes(b);
   cudaError_t err = cudaFuncSetAttribute(
-      stacked_qr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      stacked_qr_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  stacked_qr_kernel<<<P, QR_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)Rt, (const float*)Rb, (float*)Y2, (float*)T, (float*)R, b);
+  stacked_qr_kernel<E><<<P, QR_THREADS, smem, (cudaStream_t)stream>>>(
+      (const E*)Rt, (const E*)Rb, (E*)Y2, (E*)T, (E*)R, (float*)gram, b);
   return (int)cudaGetLastError();
 }
 
-template <int BN, bool VEC>
+// Rt, Rb: P (b x b) triangles; Y2, T, R: P*b*b elements; all contiguous,
+// all float (stacked_qr_f32) or all bf16 (stacked_qr_bf16). gram: P*b*b
+// floats of scratch at bf16 (G^T); unused at float (null allowed).
+extern "C" int stacked_qr_f32(const void* Rt, const void* Rb, void* Y2,
+                              void* T, void* R, void* gram, int P, int b,
+                              void* stream) {
+  return stacked_qr_entry<float>(Rt, Rb, Y2, T, R, gram, P, b, stream);
+}
+
+extern "C" int stacked_qr_bf16(const void* Rt, const void* Rb, void* Y2,
+                               void* T, void* R, void* gram, int P, int b,
+                               void* stream) {
+  return stacked_qr_entry<bf16>(Rt, Rb, Y2, T, R, gram, P, b, stream);
+}
+
+template <int BN, bool VEC, class E>
 __global__ void __launch_bounds__(TILE_THREADS, 2)
-stacked_apply_kernel(const float* __restrict__ Y2, const float* __restrict__ T,
-                     const float* __restrict__ Ct, const float* __restrict__ Cb,
-                     float* ot, float* ob, float* W, int b, int n) {
+stacked_apply_kernel(const E* __restrict__ Y2, const E* __restrict__ T,
+                     const E* __restrict__ Ct, const E* __restrict__ Cb,
+                     E* ot, E* ob, E* W, int b, int n) {
   extern __shared__ __align__(16) float smem[];
   const int p = blockIdx.y;
   const size_t off = (size_t)p * b * n;
@@ -79,41 +103,40 @@ stacked_apply_kernel(const float* __restrict__ Y2, const float* __restrict__ T,
                               smem);
 }
 
-template <int BN, bool VEC>
-static int launch_apply(const float* Y2, const float* T, const float* Ct,
-                        const float* Cb, float* ot, float* ob, float* W, int P,
-                        int b, int n, cudaStream_t stream) {
+template <int BN, bool VEC, class E>
+static int launch_apply(const E* Y2, const E* T, const E* Ct, const E* Cb,
+                        E* ot, E* ob, E* W, int P, int b, int n,
+                        cudaStream_t stream) {
   const int smem = tile_smem_floats(BN) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      stacked_apply_kernel<BN, VEC>,
+      stacked_apply_kernel<BN, VEC, E>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((n + BN - 1) / BN, P);
-  stacked_apply_kernel<BN, VEC><<<grid, TILE_THREADS, smem, stream>>>(
+  stacked_apply_kernel<BN, VEC, E><<<grid, TILE_THREADS, smem, stream>>>(
       Y2, T, Ct, Cb, ot, ob, W, b, n);
   return (int)cudaGetLastError();
 }
 
-template <int BN>
-static int launch_apply_tile(const float* Y2, const float* T, const float* Ct,
-                        const float* Cb, float* ot, float* ob, float* W, int P,
-                        int b, int n, bool vec, cudaStream_t stream) {
+template <int BN, class E>
+static int launch_apply_tile(const E* Y2, const E* T, const E* Ct,
+                             const E* Cb, E* ot, E* ob, E* W, int P, int b,
+                             int n, bool vec, cudaStream_t stream) {
   return vec ? launch_apply<BN, true>(Y2, T, Ct, Cb, ot, ob, W, P, b, n, stream)
              : launch_apply<BN, false>(Y2, T, Ct, Cb, ot, ob, W, P, b, n, stream);
 }
 
-// Y2, T: P (b x b) upper triangular; Ct, Cb, ot, ob, W: P (b x n); all
-// contiguous. bn: the column tile, 32, 64 or 128.
-extern "C" int stacked_apply_f32(const void* Y2, const void* T, const void* Ct,
-                                 const void* Cb, void* ot, void* ob, void* W,
-                                 int P, int b, int n, int bn, void* stream) {
+template <class E>
+static int stacked_apply_entry(const void* Y2, const void* T, const void* Ct,
+                               const void* Cb, void* ot, void* ob, void* W,
+                               int P, int b, int n, int bn, void* stream) {
   const bool vec = ((uintptr_t)Y2 | (uintptr_t)T | (uintptr_t)Ct |
                     (uintptr_t)Cb | (uintptr_t)ot | (uintptr_t)ob |
-                    (uintptr_t)W) % 16 == 0 &&
+                    (uintptr_t)W) % (4 * sizeof(E)) == 0 &&
                    b % 4 == 0 && n % 4 == 0;
-  const auto y = (const float*)Y2, t = (const float*)T;
-  const auto ct = (const float*)Ct, cb = (const float*)Cb;
-  const auto o1 = (float*)ot, o2 = (float*)ob, w = (float*)W;
+  const auto y = (const E*)Y2, t = (const E*)T;
+  const auto ct = (const E*)Ct, cb = (const E*)Cb;
+  const auto o1 = (E*)ot, o2 = (E*)ob, w = (E*)W;
   const auto s = (cudaStream_t)stream;
   switch (bn) {
     case 32: return launch_apply_tile<32>(y, t, ct, cb, o1, o2, w, P, b, n, vec, s);
@@ -121,4 +144,21 @@ extern "C" int stacked_apply_f32(const void* Y2, const void* T, const void* Ct,
     case 128: return launch_apply_tile<128>(y, t, ct, cb, o1, o2, w, P, b, n, vec, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Y2, T: P (b x b) upper triangular; Ct, Cb, ot, ob, W: P (b x n); all
+// contiguous, all float (stacked_apply_f32) or all bf16
+// (stacked_apply_bf16). bn: the column tile, 32, 64 or 128.
+extern "C" int stacked_apply_f32(const void* Y2, const void* T, const void* Ct,
+                                 const void* Cb, void* ot, void* ob, void* W,
+                                 int P, int b, int n, int bn, void* stream) {
+  return stacked_apply_entry<float>(Y2, T, Ct, Cb, ot, ob, W, P, b, n, bn,
+                                    stream);
+}
+
+extern "C" int stacked_apply_bf16(const void* Y2, const void* T, const void* Ct,
+                                  const void* Cb, void* ot, void* ob, void* W,
+                                  int P, int b, int n, int bn, void* stream) {
+  return stacked_apply_entry<bf16>(Y2, T, Ct, Cb, ot, ob, W, P, b, n, bn,
+                                   stream);
 }

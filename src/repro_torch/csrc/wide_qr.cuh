@@ -245,9 +245,9 @@ __device__ __forceinline__ void wide_team_body(const float* A, long long a_ld,
                                                float* slab_g, float* smem,
                                                Ex& ex) {
   if (slab_g)
-    team_qr<false>(A, a_ld, Y, T, R, m, b, rs, C, ex.rank, slab_g, smem, ex);
+    team_qr<false>(A, a_ld, Y, T, R, T, m, b, rs, C, ex.rank, slab_g, smem, ex);
   else
-    team_qr<true>(A, a_ld, Y, T, R, m, b, rs, C, ex.rank, nullptr, smem, ex);
+    team_qr<true>(A, a_ld, Y, T, R, T, m, b, rs, C, ex.rank, nullptr, smem, ex);
 }
 
 __device__ __noinline__ void wide_team_qr(const float* A, long long a_ld,

@@ -31,17 +31,23 @@
 // row strides), which is how the sweep passes its live window without a
 // copy; 16-byte copies are used when every stride and pointer allows them,
 // scalar loads otherwise (two instances of the kernel, chosen per launch).
+//
+// bf16 (wy_apply_bf16, b <= 128): the same kernel on bf16 Y, T, C and out;
+// the tiles widen each operand as they stage it and round each output
+// once, so its bits are those of the float kernel on the widened operands,
+// rounded. Its staging goes through registers (8-byte loads) instead of
+// cp.async, which copies raw bytes.
 #include <cstdint>
 
 #include "qr_common.cuh"
 
 using namespace repro;
 
-template <int BN, bool VEC>
+template <int BN, bool VEC, class E>
 __global__ void __launch_bounds__(TILE_THREADS, 2)
-wy_apply_kernel(const float* __restrict__ Y, const float* __restrict__ T,
-                const float* __restrict__ C, long long c_bs, long long c_ld,
-                float* out, int m, int b, int n) {
+wy_apply_kernel(const E* __restrict__ Y, const E* __restrict__ T,
+                const E* __restrict__ C, long long c_bs, long long c_ld,
+                E* out, int m, int b, int n) {
   extern __shared__ __align__(16) float smem[];
   const int p = blockIdx.y;
   wy_apply_tile<BN, VEC>(Y + (size_t)p * m * b, T + (size_t)p * b * b,
@@ -49,40 +55,38 @@ wy_apply_kernel(const float* __restrict__ Y, const float* __restrict__ T,
                          n, blockIdx.x * BN, threadIdx.x, 0, smem);
 }
 
-template <int BN, bool VEC>
-static int launch(const float* Y, const float* T, const float* C,
-                  long long c_bs, long long c_ld, float* out, int P, int m,
-                  int b, int n, cudaStream_t stream) {
+template <int BN, bool VEC, class E>
+static int launch(const E* Y, const E* T, const E* C, long long c_bs,
+                  long long c_ld, E* out, int P, int m, int b, int n,
+                  cudaStream_t stream) {
   const int smem = tile_smem_floats(BN) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      wy_apply_kernel<BN, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wy_apply_kernel<BN, VEC, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((n + BN - 1) / BN, P);
-  wy_apply_kernel<BN, VEC><<<grid, TILE_THREADS, smem, stream>>>(
+  wy_apply_kernel<BN, VEC, E><<<grid, TILE_THREADS, smem, stream>>>(
       Y, T, C, c_bs, c_ld, out, m, b, n);
   return (int)cudaGetLastError();
 }
 
-template <int BN>
-static int launch_tile(const float* Y, const float* T, const float* C,
-                  long long c_bs, long long c_ld, float* out, int P, int m,
-                  int b, int n, bool vec, cudaStream_t stream) {
+template <int BN, class E>
+static int launch_tile(const E* Y, const E* T, const E* C, long long c_bs,
+                       long long c_ld, E* out, int P, int m, int b, int n,
+                       bool vec, cudaStream_t stream) {
   return vec ? launch<BN, true>(Y, T, C, c_bs, c_ld, out, P, m, b, n, stream)
              : launch<BN, false>(Y, T, C, c_bs, c_ld, out, P, m, b, n, stream);
 }
 
-// Y: P (m x b), T: P (b x b), contiguous. C: P (m x n) with lane stride
-// c_bs and row stride c_ld in floats, unit column stride. out: P (m x n),
-// contiguous. bn: the column tile, 32, 64 or 128.
-extern "C" int wy_apply_f32(const void* Y, const void* T, const void* C,
-                            long long c_bs, long long c_ld, void* out, int P,
-                            int m, int b, int n, int bn, void* stream) {
+template <class E>
+static int wy_apply_entry(const void* Y, const void* T, const void* C,
+                          long long c_bs, long long c_ld, void* out, int P,
+                          int m, int b, int n, int bn, void* stream) {
   const bool vec = ((uintptr_t)Y | (uintptr_t)T | (uintptr_t)C |
-                    (uintptr_t)out) % 16 == 0 &&
+                    (uintptr_t)out) % (4 * sizeof(E)) == 0 &&
                    b % 4 == 0 && n % 4 == 0 && c_bs % 4 == 0 && c_ld % 4 == 0;
-  const auto y = (const float*)Y, t = (const float*)T, c = (const float*)C;
-  const auto o = (float*)out;
+  const auto y = (const E*)Y, t = (const E*)T, c = (const E*)C;
+  const auto o = (E*)out;
   const auto s = (cudaStream_t)stream;
   switch (bn) {
     case 32: return launch_tile<32>(y, t, c, c_bs, c_ld, o, P, m, b, n, vec, s);
@@ -90,4 +94,20 @@ extern "C" int wy_apply_f32(const void* Y, const void* T, const void* C,
     case 128: return launch_tile<128>(y, t, c, c_bs, c_ld, o, P, m, b, n, vec, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Y: P (m x b), T: P (b x b), contiguous. C: P (m x n) with lane stride
+// c_bs and row stride c_ld in elements, unit column stride. out: P (m x n),
+// contiguous. bn: the column tile, 32, 64 or 128. All float (wy_apply_f32)
+// or all bf16 (wy_apply_bf16).
+extern "C" int wy_apply_f32(const void* Y, const void* T, const void* C,
+                            long long c_bs, long long c_ld, void* out, int P,
+                            int m, int b, int n, int bn, void* stream) {
+  return wy_apply_entry<float>(Y, T, C, c_bs, c_ld, out, P, m, b, n, bn, stream);
+}
+
+extern "C" int wy_apply_bf16(const void* Y, const void* T, const void* C,
+                             long long c_bs, long long c_ld, void* out, int P,
+                             int m, int b, int n, int bn, void* stream) {
+  return wy_apply_entry<bf16>(Y, T, C, c_bs, c_ld, out, P, m, b, n, bn, stream);
 }

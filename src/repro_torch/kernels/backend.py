@@ -31,6 +31,8 @@ OPS = ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply",
 # counts as one launch of its op, and the kernels it launches are counted
 # in SUB_LAUNCHES, by kernel.
 LAUNCHES: Dict[str, int] = {op: 0 for op in OPS}
+# The bf16 kernels' share of LAUNCHES, per op.
+BF16_LAUNCHES: Dict[str, int] = {op: 0 for op in OPS}
 SUB_KERNELS = ("panel_qr_kernel", "wide_gemm_kernel", "wide_gemm_reduce")
 SUB_LAUNCHES: Dict[str, int] = {k: 0 for k in SUB_KERNELS}
 # The engine that ran each op's most recent call ("cuda" or "plain").
@@ -38,15 +40,19 @@ _LAST_ENGINE: Dict[str, str] = {}
 
 
 def reset_launches() -> None:
-    """Set every launch counter to 0 (SUB_LAUNCHES too)."""
+    """Set every launch counter to 0 (BF16_LAUNCHES and SUB_LAUNCHES too)."""
     for op in OPS:
         LAUNCHES[op] = 0
+        BF16_LAUNCHES[op] = 0
     for k in SUB_KERNELS:
         SUB_LAUNCHES[k] = 0
 
 
-def count_launch(op: str) -> None:
+def count_launch(op: str, dtype: torch.dtype = torch.float32) -> None:
+    """One launch of ``op``'s kernel on tensors of ``dtype``."""
     LAUNCHES[op] += 1
+    if dtype == torch.bfloat16:
+        BF16_LAUNCHES[op] += 1
     _LAST_ENGINE[op] = ENGINE_CUDA
 
 
@@ -66,15 +72,68 @@ def probe_report() -> Dict[str, Dict[str, object]]:
             for op in OPS}
 
 
+# The element types of the CUDA kernels, by the suffix of their C entry
+# points (``panel_qr_f32``, ``panel_qr_bf16``, ...).
+KERNEL_SUFFIXES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# The widest panel of the bf16 kernels: their b <= 128 bodies. The blocked
+# routes above it (csrc/panel_qr_wide.cu, csrc/wide.cu, fused_wide_kernel)
+# are float32 only.
+BF16_MAX_B = 128
+
+
+def kernel_suffix(dtype: torch.dtype) -> str:
+    """The suffix of the C entry points that take tensors of ``dtype``:
+    "f32" or "bf16". Any other dtype (float16, float64, ...) raises
+    NotImplementedError: the CUDA kernels have no instance for it."""
+    if dtype not in KERNEL_SUFFIXES:
+        raise NotImplementedError(
+            f"the CUDA kernels take float32 and bfloat16, got {dtype}")
+    return KERNEL_SUFFIXES[dtype]
+
+
+def kernel_dtype(op: str, *tensors: torch.Tensor) -> str:
+    """The kernel suffix of a call's tensors, which must share one dtype
+    (ValueError otherwise; NotImplementedError for a dtype no kernel
+    takes)."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1:
+        raise ValueError(f"{op}: the kernel takes tensors of one dtype, got "
+                         f"{sorted(str(d) for d in dtypes)}")
+    try:
+        return kernel_suffix(dtypes.pop())
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{op}: {e}") from None
+
+
+def check_width(op: str, dtype: torch.dtype, b: int) -> None:
+    """Raise NotImplementedError for a bf16 call above BF16_MAX_B columns."""
+    if dtype == torch.bfloat16 and b > BF16_MAX_B:
+        raise NotImplementedError(
+            f"{op}: the bf16 kernels take panel widths up to {BF16_MAX_B}, "
+            f"got {b}; bf16 above 128 columns is still to be ported "
+            "(ROADMAP.md queue 2)")
+
+
+def gram_scratch(P: int, b: int, x: torch.Tensor) -> Optional[torch.Tensor]:
+    """The float scratch of P (b x b) beside a bf16 QR's T, where its kernel
+    keeps G^T; None at f32, whose kernels keep G^T in T itself."""
+    if x.dtype == torch.float32:
+        return None
+    return torch.empty(P * b * b, device=x.device, dtype=torch.float32)
+
+
+def ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's data pointer, or None (a null pointer) for None."""
+    return None if x is None else x.data_ptr()
+
+
 def lanes(x: torch.Tensor, op: str) -> torch.Tensor:
     """``x`` with a lane axis: a 2-D tensor becomes a batch of one. Checks
-    what every kernel wrapper needs: a CUDA f32 tensor of rank 2 or 3 with
-    unit column stride."""
+    what every kernel wrapper needs: a CUDA f32 or bf16 tensor of rank 2
+    or 3 with unit column stride."""
     if x.device.type != "cuda":
         raise ValueError(f"{op}: the kernel takes CUDA tensors, got {x.device}")
-    if x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{op}: the CUDA kernel is float32 only, got {x.dtype}")
+    kernel_dtype(op, x)
     if x.dim() not in (2, 3) or x.stride(-1) != 1:
         raise ValueError(f"{op}: expected a (P, rows, cols) or (rows, cols) "
                          f"tensor with unit column stride, got shape "

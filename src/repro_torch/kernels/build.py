@@ -6,7 +6,7 @@ Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for Hopper
 ``build/kernels/`` at the root of the checkout, named by a hash of the
 sources and flags, and loaded with ``ctypes``. Nothing is compiled when a
 module is imported. ``build_all()`` starts one ``nvcc`` per source at once
-and waits for all of them.
+and waits for all of them; ``SECONDS`` holds each source's compile time.
 
 Every C entry point takes its pointers and the stream as ``void*`` and
 returns ``cudaGetLastError()``; ``check()`` raises if that is not 0.
@@ -21,16 +21,20 @@ import pathlib
 import re
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterable, List
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("panel_qr", "wy_apply", "stacked_qr", "fused_sweep", "wide",
-           "panel_qr_wide")
+SOURCES = ("panel_qr", "wy_apply", "stacked_qr", "fused_sweep",
+           "fused_panel_f32", "fused_panel_bf16", "wide", "panel_qr_wide")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# Wall seconds of each source's nvcc in this process (sources compiled here).
+SECONDS: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -64,8 +68,8 @@ def sources_digest() -> str:
 
 
 def _start(name: str):
-    """Start nvcc for one source; returns (process, tmp path, target) or
-    None when the library is already built."""
+    """Start nvcc for one source; returns (process, tmp path, target, start
+    time) or None when the library is already built."""
     out = _target(name)
     if out.exists():
         return None
@@ -75,12 +79,13 @@ def _start(name: str):
            str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    return proc, tmp, out, time.perf_counter()
 
 
 def _finish(name: str, started) -> None:
-    proc, tmp, out = started
+    proc, tmp, out, t0 = started
     log, _ = proc.communicate()
+    SECONDS[name] = time.perf_counter() - t0
     out.with_suffix(".log").write_text(log)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
@@ -91,14 +96,18 @@ def build_all(names: Iterable[str] = SOURCES) -> List[pathlib.Path]:
     """Compile every listed source in parallel (one nvcc each); returns the
     library paths. Already-built libraries are reused."""
     names = list(names)
-    started = {n: _start(n) for n in names}
-    errors = []
-    for n, s in started.items():
-        if s is not None:
-            try:
-                _finish(n, s)
-            except RuntimeError as e:
-                errors.append(str(e))
+    started = {n: s for n in names if (s := _start(n)) is not None}
+
+    def finish(item):
+        try:
+            _finish(*item)
+        except RuntimeError as e:
+            return str(e)
+        return None
+
+    # one waiter a process, so that each source's seconds end with its nvcc
+    with ThreadPoolExecutor(max(len(started), 1)) as pool:
+        errors = [e for e in pool.map(finish, started.items()) if e]
     if errors:
         raise RuntimeError("\n".join(errors))
     return [_target(n) for n in names]

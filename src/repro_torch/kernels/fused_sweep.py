@@ -1,7 +1,7 @@
 """K5: the fused per-lane leaf, and K6: the whole-panel megakernel (port of
 ``src/repro/kernels/fused_sweep.py``).
 
-``fused_panel`` launches the CUDA kernel of ``csrc/fused_sweep.cu`` that
+``fused_panel`` launches the CUDA kernel (``csrc/fused_panel.cuh``) that
 runs all of panel ``k``'s sweep points (leaf QR, L butterfly levels, the
 leaf apply, L trailing combines) in one cooperative launch over the
 (P, m, w) window; ``fused_panel_math`` is its plain version: the
@@ -18,12 +18,14 @@ the whole window and the C' rows at ``row_start``, one launch), and
 the pure forms.
 
 Both take any panel width. Up to 128 columns they run the b <= 128 bodies
-of ``csrc/qr_common.cuh``; above it one cooperative launch of
-``fused_wide_kernel`` runs the blocked routes of ``kernels/wide.py``
-(``csrc/wide_qr.cuh``: K1's team on 128-column sub-panels, the products
-of ``csrc/wide_common.cuh`` as grid-wide tile phases on 128 x 128 tiles),
-bit-equal to the stepped wide route. A card that cannot hold a team of the launch raises;
-there is no fallback to stepping.
+of ``csrc/qr_common.cuh`` (``csrc/fused_panel_f32.cu`` and, on bf16
+windows, ``csrc/fused_panel_bf16.cu``); above it one cooperative launch of
+``fused_wide_kernel`` (``csrc/fused_sweep.cu``) runs the blocked routes of
+``kernels/wide.py`` (``csrc/wide_qr.cuh``: K1's team on 128-column
+sub-panels, the products of ``csrc/wide_common.cuh`` as grid-wide tile
+phases on 128 x 128 tiles), bit-equal to the stepped wide route. A card that cannot hold a team of the launch raises;
+there is no fallback to stepping. At bf16 the launch is bit-equal to the
+stepped bf16 route; above 128 columns bf16 raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -120,17 +122,21 @@ def _tops(P: int, t_lane: int, levels: int):
                  for lvl in range(levels))
 
 
+# The library of the b <= 128 entry points at each kernel suffix.
+_PANEL_LIBS = {"f32": "fused_panel_f32", "bf16": "fused_panel_bf16"}
+
+
 @functools.cache
-def _k5():
-    return build.bind("fused_sweep", "panel_qr_apply_f32",
-                      [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+def _k5(sfx: str):
+    return build.bind(_PANEL_LIBS[sfx], f"panel_qr_apply_{sfx}",
+                      [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _P])
 
 
 @functools.cache
-def _k6():
-    return build.bind("fused_sweep", "fused_panel_f32",
-                      [_P, _L, _L, _P, _P] + [_I] * 9 + [_P] * 16 + [_P])
+def _k6(sfx: str):
+    return build.bind(_PANEL_LIBS[sfx], f"fused_panel_{sfx}",
+                      [_P, _L, _L, _P, _P] + [_I] * 9 + [_P] * 17 + [_P])
 
 
 @functools.cache
@@ -168,7 +174,8 @@ def blocks_per_sm(m: int, b: int, bn: int, levels: int = 1) -> int:
     n = ctypes.c_int(0)
     wide_b = b > wide.NB
     name = "fused_wide_blocks_per_sm" if wide_b else "fused_panel_blocks_per_sm"
-    f = build.bind("fused_sweep", name, [_I, _I, _I, ctypes.POINTER(ctypes.c_int)])
+    f = build.bind("fused_sweep" if wide_b else _PANEL_LIBS["f32"], name,
+                   [_I, _I, _I, ctypes.POINTER(ctypes.c_int)])
     build.check(f(m, b, levels if wide_b else bn, ctypes.byref(n)), name)
     return n.value
 
@@ -249,11 +256,14 @@ def gemm_in_block(A, B, D=None, *, sub=False, out=None, minuend=None):
 
 
 def panel_qr_apply(W: torch.Tensor, row_start, b: int):
-    """(Y, T, R, C, C') of the fused leaf (K5) on the CUDA f32 window W,
-    shaped (P, m, w) or (m, w) (a strided view with unit column stride is
-    taken); ``row_start`` is a scalar or one value per lane."""
+    """(Y, T, R, C, C') of the fused leaf (K5) on the CUDA window W, f32
+    or (b <= 128) bf16, shaped (P, m, w) or (m, w) (a strided view with unit
+    column stride is taken), the outputs in its dtype; ``row_start`` is a
+    scalar or one value per lane."""
     squeeze = W.dim() == 2
     W3 = backend.lanes(W, "panel_qr_apply")
+    backend.check_width("panel_qr_apply", W3.dtype, b)
+    sfx = backend.kernel_suffix(W3.dtype)
     P, m, w = W3.shape
     bn = backend.launch_bn(P, w, W3, None)
     _check("panel_qr_apply", m, w, b, bn, 0, W3)
@@ -274,13 +284,14 @@ def panel_qr_apply(W: torch.Tensor, row_start, b: int):
                          xch.data_ptr(), arrivals.data_ptr(), blocks,
                          scratch.data_ptr(), P, m, w, b, backend.stream_ptr(W3))
     else:
-        err = _k5()(W3.data_ptr(), W3.stride(0), W3.stride(1), rs.data_ptr(),
-                    Y.data_ptr(), T.data_ptr(), R.data_ptr(), C.data_ptr(),
-                    Cp.data_ptr(), work.data_ptr(), xch.data_ptr(),
-                    arrivals.data_ptr(), blocks, P, m, w, b, bn, team,
-                    backend.stream_ptr(W3))
+        gram = backend.gram_scratch(P, b, W3)
+        err = _k5(sfx)(W3.data_ptr(), W3.stride(0), W3.stride(1),
+                       rs.data_ptr(), Y.data_ptr(), T.data_ptr(), R.data_ptr(),
+                       C.data_ptr(), Cp.data_ptr(), work.data_ptr(),
+                       xch.data_ptr(), arrivals.data_ptr(), backend.ptr(gram),
+                       blocks, P, m, w, b, bn, team, backend.stream_ptr(W3))
     build.check(err, "panel_qr_apply")
-    backend.count_launch("panel_qr_apply")
+    backend.count_launch("panel_qr_apply", W3.dtype)
     out = (Y, T, R, C, Cp)
     return tuple(x[0] for x in out) if squeeze else out
 
@@ -288,13 +299,16 @@ def panel_qr_apply(W: torch.Tensor, row_start, b: int):
 def fused_panel(window: torch.Tensor, k: int, *, b: int, m_loc_pad: int,
                 levels: int) -> Dict[str, object]:
     """All of panel ``k``'s sweep points in one launch of K6 over the CUDA
-    f32 window (P, m_loc_pad, w) (a strided view with unit column stride,
-    such as ``A[..., k*b:]``). Returns the ``FUSED_FIELDS`` outputs and
-    ``tops``, as ``fused_panel_math`` does."""
+    window (P, m_loc_pad, w), f32 or (b <= 128) bf16 (a strided view with
+    unit column stride, such as ``A[..., k*b:]``). Returns the
+    ``FUSED_FIELDS`` outputs, in the window's dtype, and ``tops``, as
+    ``fused_panel_math`` does."""
     from repro_torch.core.caqr import panel_geometry
     from repro_torch.core.comm import SimComm
 
     W3 = backend.lanes(window, "fused_panel")
+    backend.check_width("fused_panel", W3.dtype, b)
+    sfx = backend.kernel_suffix(W3.dtype)
     if window.dim() != 3:
         raise ValueError("fused_panel: expected a (P, m, w) window")
     P, m, w = W3.shape
@@ -334,11 +348,14 @@ def fused_panel(window: torch.Tensor, k: int, *, b: int, m_loc_pad: int,
     else:
         scratch = (work, xch, arrivals, empty(max(L - 1, 1), P, b, b),
                    empty(b, w))
-        err = _k6()(W3.data_ptr(), W3.stride(0), W3.stride(1), rs.data_ptr(),
-                    act.data_ptr(), P, m, w, b, L, t_lane, bn, team, blocks,
-                    *(out[f].data_ptr() for f in FUSED_FIELDS),
-                    *(s.data_ptr() for s in scratch), backend.stream_ptr(W3))
+        gram = backend.gram_scratch(P, b, W3)
+        err = _k6(sfx)(W3.data_ptr(), W3.stride(0), W3.stride(1),
+                       rs.data_ptr(), act.data_ptr(), P, m, w, b, L, t_lane,
+                       bn, team, blocks,
+                       *(out[f].data_ptr() for f in FUSED_FIELDS),
+                       *(s.data_ptr() for s in scratch), backend.ptr(gram),
+                       backend.stream_ptr(W3))
     build.check(err, "fused_panel")
-    backend.count_launch("fused_panel")
+    backend.count_launch("fused_panel", W3.dtype)
     out["tops"] = _tops(P, t_lane, L)
     return out

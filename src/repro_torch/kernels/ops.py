@@ -7,8 +7,10 @@ One rule per call, no fallback:
 * tensors on the meta device run the plain version too, for their shapes
   alone (the dry run, ``launch/dryrun.py``): no launch is counted and no
   engine is reported;
-* CUDA tensors run the hand-written CUDA kernel; a dtype other than
-  float32 raises ``NotImplementedError`` (bf16 kernels are later work);
+* CUDA tensors run the hand-written CUDA kernel: float32 at any panel
+  width, bfloat16 up to 128 columns (``backend.BF16_MAX_B``; above it, and
+  for any other dtype, ``NotImplementedError``); a call whose CUDA tensors
+  mix dtypes raises ``ValueError``;
 * anything else raises.
 
 K2 and K4 take the autotuner's winner for the call's cell, its column

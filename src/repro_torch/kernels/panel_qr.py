@@ -10,7 +10,10 @@ clusters or, where one round of clusters cannot take every lane's team,
 on a plain grid exchanging through global memory; the products between
 sub-panels and in the T join as grid-wide tile phases, the far columns'
 updated by idle blocks during the next team phase), which also takes
-K3's wide route; ``panel_qr_plain`` is its plain PyTorch version.
+K3's wide route; ``panel_qr_plain`` is its plain PyTorch version. Up to
+128 columns it takes float32 and bfloat16 panels (``panel_qr_f32``,
+``panel_qr_bf16``: the bf16 kernel's bits are the f32 kernel's on the
+widened panel, rounded once); the wide launch is float32 only.
 ``panel_qr_composed`` runs the same blocked route as separate launches
 (K1's team kernel a sub-panel, ``wide.gemm`` between them): the bit
 oracle and time yardstick of the one launch, which no path calls. The
@@ -34,9 +37,9 @@ _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
 @functools.cache
-def _kernel():
-    return build.bind("panel_qr", "panel_qr_f32",
-                      [_P, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+def _kernel(sfx: str):
+    return build.bind("panel_qr", f"panel_qr_{sfx}",
+                      [_P, _L, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
 
 
 @functools.cache
@@ -69,18 +72,21 @@ def max_active_clusters(m: int, b: int) -> int:
 
 
 def _launch(A3: torch.Tensor, rs: torch.Tensor):
-    """(Y, T, R) of the team kernel on A3 (P, m, b), b <= MAX_B, with int32
-    row starts ``rs`` (P,) on the card."""
+    """(Y, T, R) of the team kernel on A3 (P, m, b), b <= MAX_B, f32 or
+    bf16, with int32 row starts ``rs`` (P,) on the card."""
     P, m, b = A3.shape
+    sfx = backend.kernel_suffix(A3.dtype)
     C = backend.team_blocks(m, b)
     Y = torch.empty(P, m, b, device=A3.device, dtype=A3.dtype)
     T = torch.empty(P, b, b, device=A3.device, dtype=A3.dtype)
     R = torch.empty_like(T)
     work = torch.empty(P * work_floats(m, b, C), device=A3.device,
-                       dtype=A3.dtype)
-    err = _kernel()(A3.data_ptr(), A3.stride(0), A3.stride(1), rs.data_ptr(),
-                    Y.data_ptr(), T.data_ptr(), R.data_ptr(), work.data_ptr(),
-                    P, m, b, C, backend.stream_ptr(A3))
+                       dtype=torch.float32)
+    gram = backend.gram_scratch(P, b, A3)
+    err = _kernel(sfx)(A3.data_ptr(), A3.stride(0), A3.stride(1),
+                       rs.data_ptr(), Y.data_ptr(), T.data_ptr(), R.data_ptr(),
+                       backend.ptr(gram), work.data_ptr(), P, m, b, C,
+                       backend.stream_ptr(A3))
     build.check(err, "panel_qr")
     return Y, T, R
 
@@ -185,19 +191,22 @@ def panel_qr_composed(A: torch.Tensor, row_start):
 
 
 def panel_qr(A: torch.Tensor, row_start):
-    """(Y, T, R) of the masked panel QR of the CUDA f32 tensor A, shaped
+    """(Y, T, R) of the masked panel QR of the CUDA tensor A, shaped
     (P, m, b) or (m, b), any b >= 1 with m >= b; ``row_start`` is a scalar
     or one value per lane. A may be a strided view (unit column stride).
     Up to MAX_B columns each lane runs on a team of
-    ``backend.team_blocks(m, b)`` blocks; a wider panel runs in sub-panels
-    of 128 columns inside one launch (``launch_wide``)."""
+    ``backend.team_blocks(m, b)`` blocks, at f32 or bf16 (outputs in A's
+    dtype); a wider f32 panel runs in sub-panels of 128 columns inside one
+    launch (``launch_wide``), and a wider bf16 one raises
+    NotImplementedError."""
     squeeze = A.dim() == 2
     A3, rs = _lanes_rs(A, row_start, "panel_qr")
     if A3.shape[-1] <= MAX_B:
         Y, T, R = _launch(A3, rs)
     else:
+        backend.check_width("panel_qr", A3.dtype, A3.shape[-1])
         Y, T, R = launch_wide(A3, rs)
-    backend.count_launch("panel_qr")
+    backend.count_launch("panel_qr", A3.dtype)
     if squeeze:
         return Y[0], T[0], R[0]
     return Y, T, R

@@ -8,7 +8,9 @@ wider b K3 is K1's one wide launch on the stacked triangles
 (``wide.stacked_apply_wide``); ``stacked_qr_plain`` and
 ``stacked_apply_plain`` are their plain PyTorch versions.
 ``stacked_qr_composed`` is K3's wide route as separate launches, the bit
-oracle of the one launch.
+oracle of the one launch. Up to MAX_B both take float32 and bfloat16
+(``*_f32``, ``*_bf16``: the bf16 kernels' bits are the f32 kernels' on the
+widened inputs, rounded once); the wider routes are float32 only.
 """
 from __future__ import annotations
 
@@ -33,14 +35,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.cache
-def _qr_kernel():
-    return build.bind("stacked_qr", "stacked_qr_f32",
-                      [_P, _P, _P, _P, _P, _I, _I, _P])
+def _qr_kernel(sfx: str):
+    return build.bind("stacked_qr", f"stacked_qr_{sfx}",
+                      [_P, _P, _P, _P, _P, _P, _I, _I, _P])
 
 
 @functools.cache
-def _apply_kernel():
-    return build.bind("stacked_qr", "stacked_apply_f32",
+def _apply_kernel(sfx: str):
+    return build.bind("stacked_qr", f"stacked_apply_{sfx}",
                       [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
 
 
@@ -58,21 +60,24 @@ def _b(b: int, op: str) -> None:
 
 
 def stacked_qr(R_top: torch.Tensor, R_bot: torch.Tensor):
-    """(Y2, T, R) of QR([R_top; R_bot]) for contiguous CUDA f32 tensors
-    (P, b, b) or (b, b), any b >= 1 (above MAX_B through K1's one wide
-    launch on the stacks)."""
+    """(Y2, T, R) of QR([R_top; R_bot]) for contiguous CUDA tensors of one
+    dtype, (P, b, b) or (b, b): f32 at any b >= 1 (above MAX_B through K1's
+    one wide launch on the stacks), bf16 up to MAX_B."""
     squeeze = R_top.dim() == 2
     Rt, Rb = _pair(R_top, R_bot, "stacked_qr")
+    sfx = backend.kernel_dtype("stacked_qr", Rt, Rb)
     P, b, _ = Rt.shape
     if b <= MAX_B:
         Y2, T, R = (torch.empty_like(Rt) for _ in range(3))
-        err = _qr_kernel()(Rt.data_ptr(), Rb.data_ptr(), Y2.data_ptr(),
-                           T.data_ptr(), R.data_ptr(), P, b,
-                           backend.stream_ptr(Rt))
+        gram = backend.gram_scratch(P, b, Rt)
+        err = _qr_kernel(sfx)(Rt.data_ptr(), Rb.data_ptr(), Y2.data_ptr(),
+                              T.data_ptr(), R.data_ptr(), backend.ptr(gram),
+                              P, b, backend.stream_ptr(Rt))
         build.check(err, "stacked_qr")
     else:
+        backend.check_width("stacked_qr", Rt.dtype, b)
         Y2, T, R = _panel.launch_wide(Rt, None, bot=Rb)
-    backend.count_launch("stacked_qr")
+    backend.count_launch("stacked_qr", Rt.dtype)
     if squeeze:
         return Y2[0], T[0], R[0]
     return Y2, T, R
@@ -105,7 +110,8 @@ def stacked_apply(Y2: torch.Tensor, T: torch.Tensor, C_top: torch.Tensor,
                   C_bot: torch.Tensor, bn: Optional[int] = None,
                   kbs: Optional[int] = None):
     """(C_top - W, C_bot - Y2 W, W) with W = T^T (C_top + Y2^T C_bot), for
-    contiguous CUDA f32 tensors: Y2, T (P, b, b), upper triangular as
+    contiguous CUDA tensors of one dtype, f32 or (b <= MAX_B) bf16, the
+    outputs in it: Y2, T (P, b, b), upper triangular as
     ``stacked_qr`` makes them (up to MAX_B the kernel skips their zero
     triangles; above it ``wide.stacked_apply_wide`` reads all of them, as
     the plain version does); C_top, C_bot (P, b, n); or the same without
@@ -119,25 +125,27 @@ def stacked_apply(Y2: torch.Tensor, T: torch.Tensor, C_top: torch.Tensor,
     T3 = backend.contiguous_lanes(T, "stacked_apply")
     Ct = backend.contiguous_lanes(C_top, "stacked_apply")
     Cb = backend.contiguous_lanes(C_bot, "stacked_apply")
+    sfx = backend.kernel_dtype("stacked_apply", Y3, T3, Ct, Cb)
     P, b, n = Ct.shape
     if Y3.shape != (P, b, b) or T3.shape != (P, b, b) or Cb.shape != Ct.shape:
         raise ValueError("stacked_apply: shapes do not conform: "
                          f"{[tuple(x.shape) for x in (Y2, T, C_top, C_bot)]}")
     _b(b, "stacked_apply")
     if b > MAX_B:
+        backend.check_width("stacked_apply", Ct.dtype, b)
         ot, ob, W = wide.stacked_apply_wide(Y3, T3, Ct, Cb, gemm=wide.gemm,
                                             bn=bn, kbs=kbs)
     else:
         bn = backend.launch_bn(P, n, Ct, bn)
         ot, ob, W = (torch.empty_like(Ct) for _ in range(3))
         if n:
-            err = _apply_kernel()(Y3.data_ptr(), T3.data_ptr(), Ct.data_ptr(),
+            err = _apply_kernel(sfx)(Y3.data_ptr(), T3.data_ptr(), Ct.data_ptr(),
                                   Cb.data_ptr(), ot.data_ptr(), ob.data_ptr(),
                                   W.data_ptr(), P, b, n, bn,
                                   backend.stream_ptr(Ct))
             build.check(err, "stacked_apply")
     if n:
-        backend.count_launch("stacked_apply")
+        backend.count_launch("stacked_apply", Ct.dtype)
     if squeeze:
         return ot[0], ob[0], W[0]
     return ot, ob, W

@@ -1,0 +1,244 @@
+"""The port at bf16 against the JAX package at bf16.
+
+On this CPU the port's ops run their plain PyTorch versions, bf16
+throughout like the JAX package's pure forms; on the card the bf16 kernels
+K1-K6 (b <= 128) are held to the f32 kernels rounded once and to these
+plain versions by ``tests/test_torch_cuda.py -k bf16``. Inputs are made
+with numpy from a seed, rounded to bf16 once, and fed to both packages.
+Floats are compared at the JAX package's bf16 tolerance,
+``atol = 5e-2 * max(1, max|ref|)`` (``ref.tolerances``); ledgers, the
+geometry and ``tops`` exactly; the port's own bitwise claims (kill ==
+failure-free, fused == stepped) bit for bit.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import repro.core as J
+import repro.ft as jft
+from repro.kernels import fused_sweep as jfused
+from repro.kernels import panel_qr as jpanel
+from repro.kernels import ref as jref
+from repro.kernels import stacked_qr as jstacked
+from repro.kernels import wy_apply as jwy
+import repro_torch.core as T
+from repro_torch.ft import FailureSchedule, ft_caqr_sweep, sweep_point
+from repro_torch.ft.online import state as tstate
+from repro_torch.kernels import backend, ops
+
+RTOL, ATOL = jref.tolerances(jnp.bfloat16)
+BF16 = torch.bfloat16
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread in this module: under xdist six workers' thread
+    teams would spin against each other (``tests/test_torch_moe.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def close(got, want):
+    """Each output of the port within the bf16 tolerance of the JAX
+    package's, scaled by max(1, max|ref|)."""
+    if not isinstance(got, (tuple, list)):
+        got, want = (got,), (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float64)
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(
+            g.double().numpy(), w, rtol=RTOL,
+            atol=ATOL * max(1.0, np.abs(w).max(initial=0)))
+
+
+def both(x):
+    """One numpy array as (torch bf16, jax bf16): the same bf16 values."""
+    x = np.ascontiguousarray(x, np.float32)
+    return torch.from_numpy(x).to(BF16), jnp.asarray(x, jnp.bfloat16)
+
+
+def qr_factor(rng, b):
+    """A well-conditioned upper-triangular b x b R factor."""
+    return np.linalg.qr(rng.standard_normal((2 * b, b)))[1].astype(np.float32)
+
+
+# -- the dtype rule -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,suffix", [(torch.float32, "f32"),
+                                          (torch.bfloat16, "bf16"),
+                                          (torch.float16, None),
+                                          (torch.float64, None)])
+def test_kernel_suffix_rule(dtype, suffix):
+    """f32 and bf16 map to their C entry points' suffix; float16 and
+    float64 have no kernel and raise."""
+    if suffix is None:
+        with pytest.raises(NotImplementedError):
+            backend.kernel_suffix(dtype)
+    else:
+        assert backend.kernel_suffix(dtype) == suffix
+        assert backend.kernel_dtype("op", torch.zeros(2, dtype=dtype)) == suffix
+
+
+def test_mixed_dtypes_and_wide_bf16_raise():
+    with pytest.raises(ValueError, match="one dtype"):
+        backend.kernel_dtype("wy_apply", torch.zeros(2), torch.zeros(2, dtype=BF16))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+        backend.check_width("panel_qr", BF16, 129)
+    backend.check_width("panel_qr", BF16, 128)
+    backend.check_width("panel_qr", torch.float32, 256)
+
+
+# -- K1-K5 on the shapes of the reference's bf16 parity matrix ----------------
+
+SHAPES = [(30, 12, 17), (9, 5, 11), (37, 12, 25)]
+
+
+def _inputs(op, m, b, n, seed):
+    """The op's inputs as numpy, as ``tests/test_kernels.py::
+    test_parity_matrix_ragged`` draws them (stacked inputs from QR
+    factors)."""
+    rng = np.random.default_rng(seed)
+    if op == "panel_qr":
+        return (rng.standard_normal((m, b)),)
+    if op == "stacked_qr":
+        return qr_factor(rng, b), qr_factor(rng, b)
+    if op == "wy_apply":
+        return (rng.standard_normal((m, b)) * 0.1,
+                np.triu(rng.standard_normal((b, b))) * 0.1,
+                rng.standard_normal((m, n)))
+    if op == "stacked_apply":
+        Tm = np.triu(rng.standard_normal((b, b))) * 0.1
+        return Tm, Tm, rng.standard_normal((b, n)), rng.standard_normal((b, n))
+    return (rng.standard_normal((m, b + 7)),)  # panel_qr_apply
+
+
+def _jax_op(op, args, b):
+    """The JAX package's Pallas kernel of ``op`` in interpret mode."""
+    if op == "panel_qr":
+        return jpanel.panel_qr(*args, 0, interpret=True)
+    if op == "stacked_qr":
+        return jstacked.stacked_qr(*args, interpret=True)
+    if op == "wy_apply":
+        return jwy.wy_apply(*args, interpret=True)
+    if op == "stacked_apply":
+        return jstacked.stacked_apply(*args, interpret=True)
+    return jfused.panel_qr_apply(*args, jnp.int32(0), b, interpret=True)
+
+
+def _port_op(op, args, b):
+    if op == "panel_qr":
+        return ops.panel_qr(*args, 0)
+    if op == "panel_qr_apply":
+        return ops.panel_qr_apply(*args, 0, b)
+    return getattr(ops, op)(*args)
+
+
+@pytest.mark.parametrize("m,b,n", SHAPES)
+@pytest.mark.parametrize("op", ["panel_qr", "stacked_qr", "wy_apply",
+                                "stacked_apply", "panel_qr_apply"])
+def test_k1_k5_bf16_match_pallas_interpret(op, m, b, n):
+    """K1-K5 at bf16: the port's ops (plain versions here) against the JAX
+    package's Pallas kernels in interpret mode, every output bf16."""
+    pairs = [both(x) for x in _inputs(op, m, b, n, seed=m * 100 + b)]
+    got = _port_op(op, [p[0] for p in pairs], b)
+    want = _jax_op(op, [p[1] for p in pairs], b)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    assert all(g.dtype == BF16 for g in got)
+    assert all(w.dtype == jnp.bfloat16 for w in want)
+    close(got, want)
+
+
+# -- K6: the whole panel ------------------------------------------------------
+
+GEOMS = [("aligned", 4, 8, 16, 4), ("ragged", 4, 6, 10, 4), ("wide", 4, 4, 40, 4)]
+
+
+def test_fused_panel_bf16_matches_pallas_interpret():
+    """K6 at bf16 (the port's plain fused_panel) against the JAX package's
+    megakernel in interpret mode, on the first and the last panel's
+    window of the padded ragged input (the interpreter compiles each
+    panel's kernel anew, about 1.7 s a panel); ``tops`` exactly."""
+    _, P, m_loc, n, b = GEOMS[1]
+    A = np.random.default_rng(5).standard_normal((P, m_loc, n)).astype(np.float32)
+    g = T.sweep_geometry(P, m_loc, n, b)
+    A_pad = T.pad_to_geometry(T.SimComm(P), torch.from_numpy(A), g).numpy()
+    for k in (0, g.n_panels - 1):
+        win_t, win_j = both(A_pad[..., k * b:])
+        got = ops.fused_panel(win_t, k, b=b, m_loc_pad=g.m_loc_pad,
+                              levels=g.levels)
+        want = jfused.fused_panel_pallas(win_j, k=k, b=b, m_loc_pad=g.m_loc_pad,
+                                         levels=g.levels, interpret=True)
+        for f in ("leaf_Y", "leaf_T", "R_leaf", "R_carry", "level_Y2",
+                  "level_T", "C_local", "C_prime", "Ws", "Cs_self", "Cs_buddy"):
+            assert got[f].dtype == BF16
+            close(got[f], want[f])
+        for a, w in zip(got["tops"], want["tops"]):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("geom", GEOMS, ids=lambda g: g[0])
+def test_run_panel_fused_equals_run_steps_bf16(geom):
+    """run_panel_fused == run_steps at bf16, bit for bit at every panel
+    boundary and after finalize (torch against torch)."""
+    _, P, m_loc, n, b = geom
+    comm = T.SimComm(P)
+    A = np.random.default_rng(6).standard_normal((P, m_loc, n)).astype(np.float32)
+    s_f = s_s = tstate.initial_sweep_state(comm, both(A)[0], b)
+    pts = tstate.panel_points(s_s.geom)
+    while s_f.cursor is not None:
+        s_f = tstate.run_panel_fused(comm, s_f)
+        s_s = tstate.run_steps(comm, s_s, pts)
+        fa, sa = tstate.flat_arrays(s_f), tstate.flat_arrays(s_s)
+        assert s_f.cursor == s_s.cursor and fa.keys() == sa.keys()
+        for key in fa:
+            assert fa[key].dtype == sa[key].dtype
+            assert torch.equal(fa[key], sa[key]), (s_s.cursor, key)
+    for g_, w in zip(tstate.finalize(comm, s_f), tstate.finalize(comm, s_s)):
+        for x, y in zip(g_ if isinstance(g_, tuple) else (g_,),
+                        w if isinstance(w, tuple) else (w,)):
+            assert torch.equal(x, y)
+
+
+# -- the sweep ----------------------------------------------------------------
+
+P, M_LOC, N, B = 4, 32, 24, 8
+
+
+@pytest.mark.parametrize("use_scan", [False, True], ids=["windowed", "full-width"])
+def test_caqr_factorize_bf16_matches_reference(use_scan):
+    """caqr_factorize of a bf16 matrix: R within the bf16 tolerance of the
+    JAX package's, replicated bitwise, the geometry exact."""
+    A_t, A_j = both(np.random.default_rng(7).standard_normal((P, M_LOC, N)))
+    got = T.caqr_factorize(A_t, T.SimComm(P), B, use_scan=use_scan)
+    want = J.caqr_factorize(A_j, J.SimComm(P), B, use_scan=use_scan)
+    assert got.R.dtype == BF16 and want.R.dtype == jnp.bfloat16
+    close(got.R, want.R)
+    assert bool((got.R == got.R[:1]).all())
+    assert T.sweep_geometry(P, M_LOC, N, B) == J.sweep_geometry(P, M_LOC, N, B)
+
+
+def test_ft_sweep_bf16_two_kills_matches_reference():
+    """ft_caqr_sweep at bf16 with two kills: in the port R, factors and
+    bundles bit-equal to the failure-free sweep; against the JAX package
+    the RecoveryEvent ledgers exactly and R within the bf16 tolerance."""
+    A = np.random.default_rng(8).standard_normal((P, M_LOC, N))
+    A_t, A_j = both(A)
+    events = {sweep_point(0, "tsqr", 1): [1], sweep_point(2, "trailing", 0): [2]}
+    clean = T.caqr_factorize(A_t, T.SimComm(P), B, collect_bundles=True,
+                             use_scan=False)
+    got = ft_caqr_sweep(A_t, T.SimComm(P), B, schedule=FailureSchedule(events=events))
+    for x, y in zip((got.R, *got.factors, *got.bundles),
+                    (clean.R, *clean.factors, *clean.bundles)):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    want = jft.ft_caqr_sweep(A_j, J.SimComm(P), B,
+                             schedule=jft.FailureSchedule(events=events))
+    assert [(e.point, e.lane, e.reads) for e in got.events] == \
+        [(e.point, e.lane, e.reads) for e in want.events]
+    assert len(got.events) == 2
+    close(got.R, want.R)

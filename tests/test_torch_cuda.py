@@ -9,7 +9,11 @@ gloo group on the one card) == the single-process run, bit for bit, and
 orchestrator in one process.
 Above 128 columns: every instantiation of the products' tile routine ==
 the oracle of its summation order (``wide.gemm_order``), and K5/K6's wide
-kernel == the stepped wide route.
+kernel == the stepped wide route. At bf16 (b <= 128; ``-k bf16``): K1-K4
+== the f32 kernel on the widened inputs rounded once, bit for bit, K5 ==
+K1 then K2 and ``run_panel_fused`` == ``run_steps`` bit for bit, each
+kernel within the bf16 pair of ``ref.tolerances`` of its plain version,
+and bf16 above 128 columns raising.
 Needs an NVIDIA GPU with nvcc; every test skips without one.
 
 Imports neither JAX nor the JAX package, so it also runs on a machine
@@ -318,6 +322,8 @@ def test_cuda_narrow_launch_equals_wide(rng, cuda, op):
 def test_cuda_rejects_other_dtypes(cuda):
     with pytest.raises(NotImplementedError):
         ops.panel_qr(torch.zeros(8, 4, device=cuda, dtype=torch.float64), 0)
+    with pytest.raises(NotImplementedError):
+        ops.panel_qr(torch.zeros(8, 4, device=cuda, dtype=torch.float16), 0)
 
 
 @pytest.mark.cuda
@@ -1443,3 +1449,243 @@ def test_cuda_autotune_planted_winner_reaches_the_launch(rng, cuda, monkeypatch,
         assert torch.equal(tuned, static)
     finally:
         autotune.clear()
+
+
+# -- bf16, panel widths up to 128 ---------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+def held_bf16(got, want, want64):
+    """Each bf16 kernel output within the bf16 pair of ``ref.tolerances``
+    of the plain version's (``want``, at bf16), as ``atol = 5e-2 * max(1,
+    max|plain|)``. The plain version's column loop runs in bf16: where a
+    pivot's entry is below bf16's round-off of its column it may pick the
+    other reflector (a different valid QR, off by O(1) in Y, T and an R
+    row), so an output off its bf16 plain version passes only where that
+    plain version is itself off the plain version in float64 on the
+    widened inputs (``want64``), and the kernel is within the tolerance of
+    the float64 one (as ``chip_smoke.held_bf16``)."""
+    rtol, atol = tref.tolerances(BF16)
+
+    def ok(g, w):
+        g, w = g.cpu().double(), w.cpu().double()
+        bound = atol * max(1.0, float(w.abs().max()) if w.numel() else 1.0)
+        return bool(torch.allclose(g, w, rtol=rtol, atol=bound))
+
+    for i, (g, w, w64) in enumerate(zip(got, want, want64)):
+        if not ok(g, w):
+            assert not ok(w, w64), f"output {i} off its bf16 plain version"
+            assert ok(g, w64), f"output {i} off the float64 plain version"
+
+
+def f64(*xs):
+    return tuple(x.double() for x in xs)
+
+
+def bf16(rng, *shape, scale=1.0, triu=False):
+    x = rng.standard_normal(shape) * scale
+    return t((np.triu(x) if triu else x).astype(np.float32)).to("cuda", BF16)
+
+
+def f32_rounded(fn, *xs):
+    """The f32 kernel ``fn`` on the widened inputs, each output rounded."""
+    out = fn(*(x.float() for x in xs))
+    return tuple(o.to(BF16) for o in (out if isinstance(out, tuple) else (out,)))
+
+
+def same(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return len(got) == len(want) and all(
+        g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,b,row_start", [(37, 5, 2), (512, 128, 0),
+                                           (1000, 96, 37), (4096, 128, 3968)])
+def test_cuda_bf16_panel_qr_is_f32_rounded(rng, cuda, m, b, row_start):
+    """K1 at bf16: the f32 kernel on the widened panel rounded once, bit for
+    bit; within the bf16 tolerance of the plain version (``held_bf16``); a
+    lane alone == that lane of a 3-lane launch (the REBUILD replay)."""
+    A = bf16(rng, 3, m, b)
+    got = ops.panel_qr(A, row_start)
+    assert all(x.dtype == BF16 for x in got)
+    assert same(got, f32_rounded(lambda x: ops.panel_qr(x, row_start), A))
+    held_bf16(got, tref.panel_qr(A, row_start), tref.panel_qr(*f64(A), row_start))
+    assert same(tuple(x[1] for x in got), ops.panel_qr(A[1], row_start))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,b,n", [(37, 5, 13), (256, 128, 300), (130, 33, 67)])
+def test_cuda_bf16_wy_apply_is_f32_rounded(rng, cuda, m, b, n):
+    """K2 at bf16 on a strided window: the f32 kernel rounded once, the
+    plain version's tolerance, a lane alone == its lane."""
+    Y = bf16(rng, 3, m, b, scale=0.1)
+    T = bf16(rng, 3, b, b, scale=0.1, triu=True)
+    C = bf16(rng, 3, m, n + 4)[..., 4:]
+    got = ops.wy_apply(Y, T, C)
+    assert got.dtype == BF16
+    assert same(got, f32_rounded(ops.wy_apply, Y, T, C))
+    held_bf16((got,), (tref.wy_apply(Y, T, C),), (tref.wy_apply(*f64(Y, T, C)),))
+    assert torch.equal(got[2], ops.wy_apply(Y[2], T[2], C[2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(5, 11), (100, 259), (128, 600)])
+def test_cuda_bf16_stacked_kernels_are_f32_rounded(rng, cuda, b, n):
+    """K3 and K4 at bf16: the f32 kernels rounded once; the plain
+    versions' tolerance; a lane alone == its lane; K3 gives both lanes of
+    a butterfly pair, which stack the same triangles, the same bits."""
+    P = 4
+    Rt = t(np.stack([qr_factor(rng, b) for _ in range(P)])).to(cuda, BF16)
+    Rb = t(np.stack([qr_factor(rng, b) for _ in range(P)])).to(cuda, BF16)
+    got = ops.stacked_qr(Rt, Rb)
+    assert same(got, f32_rounded(ops.stacked_qr, Rt, Rb))
+    held_bf16(got, tref.stacked_qr(Rt, Rb), tref.stacked_qr(*f64(Rt, Rb)))
+    assert same(tuple(x[3] for x in got), ops.stacked_qr(Rt[3], Rb[3]))
+    pair = ops.stacked_qr(Rt[[0, 0]].contiguous(), Rb[[0, 0]].contiguous())
+    assert all(torch.equal(x[0], x[1]) for x in pair)
+    Y2, T = got[0], got[1]
+    Ct, Cb = bf16(rng, P, b, n), bf16(rng, P, b, n)
+    out = ops.stacked_apply(Y2, T, Ct, Cb)
+    assert same(out, f32_rounded(ops.stacked_apply, Y2, T, Ct, Cb))
+    held_bf16(out, tref.stacked_apply(Y2, T, Ct, Cb),
+              tref.stacked_apply(*f64(Y2, T, Ct, Cb)))
+    assert same(tuple(x[1] for x in out), ops.stacked_apply(Y2[1], T[1], Ct[1], Cb[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,w,b,row_start", [(37, 45, 5, 2), (64, 200, 8, 60),
+                                             (512, 300, 128, 0),
+                                             (4096, 640, 128, 7)])
+def test_cuda_bf16_panel_qr_apply_equals_k1_k2(rng, cuda, m, w, b, row_start):
+    """K5 at bf16 == K1 then K2 at bf16 bit for bit (the stepped route
+    rounds Y and T before the apply, and so does K5), within the bf16
+    tolerance of its plain version, a lane alone == its lane."""
+    W = bf16(rng, 3, m, w + 3)[..., 3:]
+    got = ops.panel_qr_apply(W, row_start, b)
+    Y, T, R = ops.panel_qr(W[..., :b], row_start)
+    C = ops.wy_apply(Y, T, W)
+    r0 = min(max(row_start, 0), m - b)
+    assert same(got, (Y, T, R, C, C[:, r0:r0 + b].contiguous()))
+    held_bf16(got, tref.panel_qr_apply(W, row_start, b),
+              tref.panel_qr_apply(W.double(), row_start, b))
+    assert same(tuple(x[2] for x in got), ops.panel_qr_apply(W[2], row_start, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,m_loc,w,b,k", [(2, 16, 21, 5, 0), (4, 24, 50, 8, 4),
+                                           (8, 32, 70, 8, 9)])
+def test_cuda_bf16_fused_panel_matches_plain(rng, cuda, P, m_loc, w, b, k):
+    """K6 at bf16 within the bf16 tolerance of fused_panel_math over the
+    plain forms, every output bf16."""
+    L = P.bit_length() - 1
+    win = bf16(rng, P, m_loc, w)
+    got = ops.fused_panel(win, k, b=b, m_loc_pad=m_loc, levels=L)
+    want = tref.fused_panel(win, k, b=b, m_loc_pad=m_loc, levels=L)
+    want64 = tref.fused_panel(win.double(), k, b=b, m_loc_pad=m_loc, levels=L)
+    fields = [f for f in want if f != "tops"]
+    assert all(got[f].dtype == BF16 for f in fields)
+    held_bf16(tuple(got[f] for f in fields), tuple(want[f] for f in fields),
+              tuple(want64[f] for f in fields))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,m_loc,n,b", [(4, 8, 16, 4), (8, 32, 256, 16),
+                                         (4, 512, 1024, 128)])
+def test_cuda_bf16_fused_equals_stepped_bitwise(rng, cuda, P, m_loc, n, b):
+    """run_panel_fused (K6 at bf16) == run_steps (K1-K4 at bf16), bit for
+    bit at every panel boundary and after finalize."""
+    comm = SimComm(P)
+    A = bf16(rng, P, m_loc, n)
+    s_f = s_s = tstate.initial_sweep_state(comm, A, b)
+    pts = tstate.panel_points(s_s.geom)
+    backend.reset_launches()
+    while s_f.cursor is not None:
+        s_f = tstate.run_panel_fused(comm, s_f)
+        s_s = tstate.run_steps(comm, s_s, pts)
+        _assert_states_equal(s_f, s_s, s_s.cursor)
+    assert backend.BF16_LAUNCHES["fused_panel"] == s_s.geom.n_panels
+    assert all(backend.BF16_LAUNCHES[op] > 0 for op in
+               ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply"))
+    for g, w in zip(tstate.finalize(comm, s_f), tstate.finalize(comm, s_s)):
+        got = [g] if isinstance(g, torch.Tensor) else list(g)
+        want = [w] if isinstance(w, torch.Tensor) else list(w)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_sweep_and_kill_bitwise(rng, cuda):
+    """The bf16 sweep launches K1-K4 at bf16, R replicated bitwise and its
+    float64 Gram residual under 0.1; a killed lane rebuilt gives R,
+    factors and bundles bit-equal to the failure-free bf16 sweep."""
+    P, m_loc, n, b = 8, 32, 128, 8
+    comm = SimComm(P)
+    A = bf16(rng, P, m_loc, n)
+    backend.reset_launches()
+    res = caqr_factorize(A, comm, b, collect_bundles=True, use_scan=False)
+    assert all(backend.BF16_LAUNCHES[op] > 0 for op in
+               ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply"))
+    assert res.R.dtype == BF16 and bool((res.R == res.R[:1]).all())
+    A64 = A.reshape(-1, n).double()
+    G = A64.T @ A64
+    R64 = res.R[0].double()
+    assert float((R64.T @ R64 - G).abs().max() / G.abs().max()) <= 0.1
+    point = sweep_point(6, "trailing", 2)
+    got = ft_caqr_sweep(A, comm, b, schedule=FailureSchedule(events={point: [5]}))
+    assert _bitwise(got, res)
+    (event,) = got.events
+    assert event.point == point and event.lane == 5
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_full_width_equals_windowed(rng, cuda):
+    """caqr_factorize's full-width form (use_scan=True) on a bf16 matrix
+    launches the bf16 kernels and gives the windowed form's R and factors
+    bit for bit, as at f32 (tests/test_torch_core.py)."""
+    P, m_loc, n, b = 8, 32, 128, 8
+    A = bf16(rng, P, m_loc, n)
+    w = caqr_factorize(A, SimComm(P), b, use_scan=False)
+    backend.reset_launches()
+    f = caqr_factorize(A, SimComm(P), b, use_scan=True)
+    assert all(backend.BF16_LAUNCHES[op] > 0 for op in
+               ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply"))
+    assert f.R.dtype == BF16 and torch.equal(w.R, f.R)
+    assert all(torch.equal(x, y) for x, y in zip(w.factors, f.factors))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["panel_qr", "wy_apply", "stacked_qr",
+                                "stacked_apply", "panel_qr_apply", "fused_panel"])
+def test_cuda_bf16_above_128_columns_raises(rng, cuda, op):
+    """bf16 above 128 columns is not ported (ROADMAP.md queue 2): every op
+    raises NotImplementedError before any launch; f32 takes the same call."""
+    b, m, n = 160, 512, 320
+    W = bf16(rng, 2, m, n)
+    sq = bf16(rng, 2, b, b, triu=True)
+    calls = {
+        "panel_qr": lambda x, s: ops.panel_qr(x[..., :b], 0),
+        "wy_apply": lambda x, s: ops.wy_apply(x[..., :b].contiguous(), s, x),
+        "stacked_qr": lambda x, s: ops.stacked_qr(s, s),
+        "stacked_apply": lambda x, s: ops.stacked_apply(s, s, s, s),
+        "panel_qr_apply": lambda x, s: ops.panel_qr_apply(x, 0, b),
+        "fused_panel": lambda x, s: ops.fused_panel(x, 0, b=b, m_loc_pad=m, levels=1),
+    }
+    backend.reset_launches()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+        calls[op](W, sq)
+    assert backend.LAUNCHES[op] == 0
+    calls[op](W.float(), sq.float())
+    assert backend.LAUNCHES[op] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_mixed_dtypes_raise(rng, cuda):
+    Y = bf16(rng, 2, 64, 8, scale=0.1)
+    T = bf16(rng, 2, 8, 8, triu=True)
+    C = bf16(rng, 2, 64, 16)
+    with pytest.raises(ValueError, match="one dtype"):
+        ops.wy_apply(Y, T.float(), C)
+    with pytest.raises(ValueError, match="one dtype"):
+        ops.stacked_apply(T, T, C[:, :8].float(), C[:, :8].float())
