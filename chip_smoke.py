@@ -385,9 +385,30 @@ non-zero and prints no result):
    f32 sweep's ledger); the state machine stepped and fused
    (``bf16_stepped``, ``bf16_fused``: both bit-equal to the sweep, K6
    once a panel); the fused leaf entry (``bf16_fused_leaf``: K5, equal to
-   K1 then K2); and every op at b = 256 raising NotImplementedError. The
-   kernels line lists the bf16 records (``*_bf16``) beside the f32 ones,
-   their launches counted in ``backend.BF16_LAUNCHES`` on the bf16 paths.
+   K1 then K2). The kernels line lists the bf16 records (``*_bf16``)
+   beside the f32 ones, their launches counted in
+   ``backend.BF16_LAUNCHES`` on the bf16 paths.
+28. bf16_wide (run after phase 22, whose f32 ledger it reuses): the tall
+   matrix cast to bf16 at b = 256 (16 panels, L = 3) through the bf16
+   kernels above 128 columns (``csrc/panel_qr_wide_bf16.cu``,
+   ``csrc/wide_bf16.cu``, ``csrc/fused_wide_bf16.cu``). K1 (at row start
+   0 and at the last panel's row starts), K2 (Y (8, 4096, 256), C the
+   (8, 4096, 4096) window), K3 (two (8, 256, 256) triangles), K4 (C'
+   (8, 256, 4096)), K5 and K6 at the first panel's shapes, each held to
+   its bitwise oracle (K1-K4 the f32 kernel on the widened inputs rounded
+   once, K5 K1 then K2, K6 the stepped bf16 panel), a lane alone to its
+   lane (K1-K5), and to the plain version through ``held_bf16``; timed
+   beside the f32 twin, the plain version, the library call (as in phase
+   27) and the bound. Then, counters at 0 before each: ``caqr_factorize``
+   (``bf16_wide_sweep``: K1-K4 at bf16 launched, ``BF16_LAUNCHES ==
+   LAUNCHES``, R replicated bitwise, its float64 Gram residual at most
+   0.1 beside its floor, the f32 b = 256 sweep with R rounded once);
+   ``ft_caqr_sweep`` with ``WIDE_KILLS`` (``bf16_wide_kill``: bit-equal
+   to failure-free, phase 22's f32 ledger); the state machine stepped and
+   fused (``bf16_wide_stepped``, ``bf16_wide_fused``: bit-equal to the
+   sweep, K6 launched 16 times); the fused leaf entry
+   (``bf16_wide_fused_leaf``: K5 == K1 then K2). The kernels line lists
+   these records (``*_bf16_wide``) with their launches on these paths.
 
 The kernels line gives each kernel's launches on every path above, each
 counted from 0 just before the path ran (``lm_serve``, ``lm_long`` and
@@ -870,8 +891,10 @@ def sa_library(Y2, T2, Ct, Cb):
 
 def template_args(mangled: str) -> list:
     """The template arguments at the start of a mangled name's remainder
-    (``I...E``): Li128E (int 128), Lb1E (true), f (float), and a named
-    type (13__nv_bfloat16, shown as bf16)."""
+    (``I...E``): Li128E (int 128), Lb1E (true), f (float), a named type
+    (13__nv_bfloat16, shown as bf16), and a view's element types
+    (N5repro9GemmViewTI...EE, shown as the types of A, B, D, out and out2,
+    ``b`` for bf16 and ``f`` for float)."""
     if not mangled.startswith("I"):
         return []
     args, i = [], 1
@@ -883,6 +906,11 @@ def template_args(mangled: str) -> list:
         elif mangled[i] == "f":
             args.append("float")
             i += 1
+        elif m := re.match(r"N5repro9GemmViewTI(.*?)EE", mangled[i:]):
+            # bf16 is spelled once, then by its substitution (S1_, S2_, ...)
+            types = re.findall(r"13__nv_bfloat16|S\d*_|f", m.group(1))
+            args.append("view " + "".join("f" if t == "f" else "b" for t in types))
+            i += m.end()
         elif m := re.match(r"(\d+)", mangled[i:]):
             n = int(m.group(1))
             name = mangled[i + m.end():i + m.end() + n]
@@ -1387,6 +1415,23 @@ BF16_SOURCES = {**{op: src for op, (src, _) in KERNELS.items()},
                 "fused_panel": "src/repro_torch/csrc/fused_panel_bf16.cu"}
 # each bf16 path's bf16 launches (backend.BF16_LAUNCHES), by path
 PATH_LAUNCHES_BF16 = {}
+# above 128 columns: each op's bf16 source and the kernel its records time
+# (the profiler's name prefix, the ptxas log's name)
+BF16_WIDE = {
+    "panel_qr": ("src/repro_torch/csrc/panel_qr_wide_bf16.cu",
+                 "panel_qr_wide_bf16_global_kernel"),
+    "wy_apply": ("src/repro_torch/csrc/wide_bf16.cu", "wide_gemm_kernel"),
+    "stacked_qr": ("src/repro_torch/csrc/panel_qr_wide_bf16.cu",
+                   "panel_qr_wide_bf16_kernel"),
+    "stacked_apply": ("src/repro_torch/csrc/wide_bf16.cu", "wide_gemm_kernel"),
+    "panel_qr_apply": ("src/repro_torch/csrc/fused_wide_bf16.cu",
+                       "fused_wide_bf16_kernel"),
+    "fused_panel": ("src/repro_torch/csrc/fused_wide_bf16.cu",
+                    "fused_wide_bf16_kernel"),
+}
+# the f32 wide sweep's ledger under WIDE_KILLS (wide_sweeps), which the bf16
+# sweep at b = WIDE_B must reproduce
+WIDE_LEDGER = {}
 
 
 def widened(x, dtype=torch.float32):
@@ -1431,7 +1476,7 @@ def held_bf16(name: str, got: tuple, want: tuple, want64: tuple) -> dict:
 
 def bf16_record(name: str, run, plain, plain64, cost: tuple, reps: int, *,
                 f32=None, stepped=None, lane=None, lib=None, lib_route=None,
-                slow_plain: bool = False) -> dict:
+                slow_plain: bool = False, twin=None, wide_b: bool = False) -> dict:
     """One bf16 kernel at the first panel's shapes: ``f32`` (K1-K4) the f32
     kernel on the widened inputs, whose outputs rounded once must equal the
     bf16 kernel's bit for bit; ``stepped`` (K5) the stepped bf16 kernels,
@@ -1439,19 +1484,25 @@ def bf16_record(name: str, run, plain, plain64, cost: tuple, reps: int, *,
     P-lane launch; each output within ref.tolerances(bf16) of the plain
     version on the card, scaled by max(1, |plain|) (``held_bf16``;
     ``plain64`` the plain version in float64 on the widened inputs); timed
-    (events and device alone) beside the plain version, the f32 twin, the
-    library call and the bound at 989 TFLOP/s and 2 bytes an element."""
+    (events and device alone) beside the plain version, the f32 twin
+    (``f32``, or ``twin`` where the bf16 kernel is not its rounding: K5/K6),
+    the library call and the bound at 989 TFLOP/s and 2 bytes an element.
+    ``wide_b``: a kernel above 128 columns (``BF16_WIDE``)."""
     got = as_tuple(run())
     torch.cuda.synchronize()
-    source = BF16_SOURCES[name]
-    rec = dict(name=f"{name}_bf16", op=name, dtype="bfloat16", route="cuda",
-               source=source, replaces=KERNELS[name][1], launches=0)
+    source, kernel = BF16_WIDE[name] if wide_b else (BF16_SOURCES[name],
+                                                     name + "_kernel")
+    rec = dict(name=f"{name}_bf16" + ("_wide" if wide_b else ""), op=name,
+               dtype="bfloat16", route="cuda", source=source,
+               replaces=KERNELS[name][1], launches=0)
     if f32 is not None:
         rounded = tuple(x.to(BF16) for x in as_tuple(f32()))
         rec["f32_rounded_bitwise"] = same_bits(got, rounded)
         check(rec["f32_rounded_bitwise"],
               f"{name}: bf16 kernel != f32 kernel rounded once")
         rec["f32_ms"] = time_ms(f32, reps)
+    if twin is not None:
+        rec["f32_ms"] = time_ms(twin, reps)
     if stepped is not None:
         rec["stepped_bitwise"] = same_bits(got, stepped())
         check(rec["stepped_bitwise"], f"{name}: bf16 differs from the stepped kernels")
@@ -1465,13 +1516,13 @@ def bf16_record(name: str, run, plain, plain64, cost: tuple, reps: int, *,
     del got
     bms, by = bound_ms(*cost, peak=PEAK_BF16)
     rec.update(tolerance=ref.tolerances(BF16)[0], ms=time_ms(run, reps),
-               device_ms=device_ms(run, reps, name + "_kernel"),
+               device_ms=device_ms(run, reps, kernel),
                plain_ms=time_ms(plain, 1 if slow_plain else reps),
                bound_ms=bms, bound_by=by,
                library_ms=time_ms(lib, reps) if lib is not None else None,
                library_route=lib_route,
-               ptxas={k: v for k, v in ptxas(source, name + "_kernel").items()
-                      if "bf16" in k})
+               ptxas={k: v for k, v in ptxas(source, kernel).items()
+                      if wide_b or "bf16" in k})
     return rec
 
 
@@ -1645,27 +1696,6 @@ def bf16_phase(A: torch.Tensor, ledgers: dict) -> list:
     check(leaf_same and PATH_LAUNCHES_BF16["bf16_fused_leaf"]["panel_qr_apply"] == 1,
           "bf16 fused leaf differs from the stepped leaf or did not launch K5")
     del wy, C, Cp, wy1, C1
-    # above 128 columns bf16 is not ported: every op raises
-    wide_b = Ab[..., :WIDE_B].contiguous()
-    sq = wide_b[:, :WIDE_B].contiguous()
-    calls = {
-        "panel_qr": lambda: ops.panel_qr(wide_b, 0),
-        "wy_apply": lambda: ops.wy_apply(wide_b, sq, Ab),
-        "stacked_qr": lambda: ops.stacked_qr(sq, sq),
-        "stacked_apply": lambda: ops.stacked_apply(sq, sq, sq, sq),
-        "panel_qr_apply": lambda: ops.panel_qr_apply(Ab, 0, WIDE_B),
-        "fused_panel": lambda: ops.fused_panel(Ab, 0, b=WIDE_B,
-                                               m_loc_pad=M_LOC, levels=L),
-    }
-    raised = {}
-    for op, call in calls.items():
-        try:
-            call()
-            raised[op] = False
-        except NotImplementedError:
-            raised[op] = True
-    del wide_b, sq
-    check(all(raised.values()), f"bf16 at b = {WIDE_B} did not raise: {raised}")
     probe = backend.probe_report()
     check(all(v["engine"] == backend.ENGINE_CUDA for v in probe.values()),
           f"an op's last engine is not the CUDA kernel: {probe}")
@@ -1679,8 +1709,215 @@ def bf16_phase(A: torch.Tensor, ledgers: dict) -> list:
         state_machine=dict(stepped_seconds=sec_s, fused_seconds=sec_f,
                            stepped_equals_sweep=ok_s, fused_equals_sweep=ok_f,
                            fused_launches=launch_f),
-        fused_leaf_bitwise_equal_stepped=leaf_same,
-        b256_raises=raised, probe=probe)})
+        fused_leaf_bitwise_equal_stepped=leaf_same, probe=probe)})
+    return records
+
+
+def bf16_wide_kernel_records(Ab: torch.Tensor) -> list:
+    """K1-K6 at bf16 above 128 columns on the bf16 sweep's first panel at
+    b = WIDE_B (K1 also at the last panel's row starts): each held to its
+    bitwise oracle (K1-K4 the f32 kernel on the widened inputs rounded
+    once, K5 K1 then K2, K6 the stepped bf16 panel), a lane alone to its
+    lane, and to the plain version through ``held_bf16``; timed beside its
+    f32 twin, the plain version, the library call (or for K5/K6 the stepped
+    bf16 kernels) and the bound."""
+    b, eb, k = WIDE_B, 2.0, P - 3
+    comm = SimComm(P)
+    panel = Ab[..., :b].contiguous()
+    rs_last = panel_geometry(comm, N // b - 1, b, M_LOC)[2]
+    Y, T, R = ops.panel_qr(panel, 0)
+    rows = [i ^ 1 for i in range(P)]
+    R_top, R_bot = R.contiguous(), R[rows].contiguous()
+    Y2, T2, _ = ops.stacked_qr(R_top, R_bot)
+    Ct = ops.wy_apply(Y, T, Ab)[:, :b].contiguous()
+    Cb = Ct[rows].contiguous()
+    stack32 = torch.cat([R_top, R_bot], 1).float()
+    # the f32 twins' inputs, widened once outside the timed calls
+    panel32, A32, Y32, T32, Rt32, Rb32, Y2_32, T2_32, Ct32, Cb32 = widened(
+        (panel, Ab, Y, T, R_top, R_bot, Y2, T2, Ct, Cb))
+
+    def f64(fn, *xs, **kw):  # the plain version in float64 on widened inputs
+        return lambda: fn(*widened(xs, torch.float64), **kw)
+
+    late = [leaf_cost(1, M_LOC, b, int(r), eb) for r in rs_last]
+    recs = [
+        bf16_record("panel_qr", lambda: ops.panel_qr(panel, 0),
+                    lambda: ref.panel_qr(panel, 0),
+                    f64(ref.panel_qr, panel, row_start=0),
+                    leaf_cost(P, M_LOC, b, 0, eb), 5,
+                    f32=lambda: ops.panel_qr(panel32, 0),
+                    lane=(k, lambda: ops.panel_qr(panel[k], 0)),
+                    lib=lambda: torch.geqrf(panel32),
+                    lib_route="torch.geqrf on the panel widened to f32 "
+                              "(geqrf takes no bf16)", slow_plain=True,
+                    wide_b=True),
+        bf16_record("wy_apply", lambda: ops.wy_apply(Y, T, Ab),
+                    lambda: ref.wy_apply(Y, T, Ab), f64(ref.wy_apply, Y, T, Ab),
+                    wy_cost(P, M_LOC, b, N, eb), 5,
+                    f32=lambda: ops.wy_apply(Y32, T32, A32),
+                    lane=(k, lambda: ops.wy_apply(Y[k], T[k], Ab[k])),
+                    lib=lambda: wy_library(Y, T, Ab),
+                    lib_route="the torch.matmul chain in bf16", wide_b=True),
+        bf16_record("stacked_qr", lambda: ops.stacked_qr(R_top, R_bot),
+                    lambda: ref.stacked_qr(R_top, R_bot),
+                    f64(ref.stacked_qr, R_top, R_bot),
+                    (P * float(b ** 3), eb * P * 5 * b * b), 10,
+                    f32=lambda: ops.stacked_qr(Rt32, Rb32),
+                    lane=(k, lambda: ops.stacked_qr(R_top[k], R_bot[k])),
+                    lib=lambda: torch.geqrf(stack32),
+                    lib_route="torch.geqrf on the stack widened to f32 "
+                              "(geqrf takes no bf16)", wide_b=True),
+        bf16_record("stacked_apply", lambda: ops.stacked_apply(Y2, T2, Ct, Cb),
+                    lambda: ref.stacked_apply(Y2, T2, Ct, Cb),
+                    f64(ref.stacked_apply, Y2, T2, Ct, Cb),
+                    sa_cost(P, b, N, eb), 10,
+                    f32=lambda: ops.stacked_apply(Y2_32, T2_32, Ct32, Cb32),
+                    lane=(k, lambda: ops.stacked_apply(Y2[k], T2[k], Ct[k], Cb[k])),
+                    lib=lambda: sa_library(Y2, T2, Ct, Cb),
+                    lib_route="the torch.matmul chain in bf16", wide_b=True),
+    ]
+    rs0 = int(rs_last[0])
+    recs[0]["last_panel"] = bf16_record(
+        "panel_qr", lambda: ops.panel_qr(panel, rs_last),
+        lambda: ref.panel_qr(panel, rs_last),
+        f64(ref.panel_qr, panel, row_start=rs_last),
+        tuple(map(sum, zip(*late))), 5,
+        f32=lambda: ops.panel_qr(panel32, rs_last),
+        lane=(0, lambda: ops.panel_qr(panel[0], rs0)),
+        lib=lambda: (torch.geqrf(panel32[1:]), torch.geqrf(panel32[0, rs0:])),
+        lib_route="torch.geqrf on the widened panel below each row start",
+        slow_plain=True, wide_b=True)
+    recs[0]["last_panel"]["row_start"] = rs_last.tolist()
+    for key in ("name", "op", "dtype", "route", "source", "replaces", "launches",
+                "ptxas"):
+        recs[0]["last_panel"].pop(key)
+    del Ct, Cb, Y32, T32, Rt32, Rb32, Y2_32, T2_32, Ct32, Cb32, stack32
+
+    def k1_k2():
+        Yl, Tl, Rl = ops.panel_qr(Ab[..., :b], 0)
+        C = ops.wy_apply(Yl, Tl, Ab)
+        return Yl, Tl, Rl, C, C[:, :b]
+
+    leaf_flops = leaf_cost(1, M_LOC, b, 0)[0]
+    apply_flops = 4.0 * M_LOC * b * N + b * b * N
+    recs.append(bf16_record(
+        "panel_qr_apply", lambda: ops.panel_qr_apply(Ab, 0, b),
+        lambda: ref.panel_qr_apply(Ab, 0, b),
+        f64(ref.panel_qr_apply, Ab, row_start=0, b=b),
+        (P * (leaf_flops + apply_flops),
+         eb * P * (2 * M_LOC * N + M_LOC * b + 2 * b * b + b * N)), 3,
+        stepped=k1_k2, lane=(k, lambda: ops.panel_qr_apply(Ab[k], 0, b)),
+        twin=lambda: ops.panel_qr_apply(A32, 0, b), slow_plain=True,
+        wide_b=True))
+    recs[-1]["stepped_route"] = "K1+K2 at bf16 above 128 (panel_qr, wy_apply)"
+    s0 = sm.initial_sweep_state(comm, Ab, b)
+    pts = sm.panel_points(s0.geom)
+    rec6 = bf16_record(
+        "fused_panel",
+        lambda: ops.fused_panel(Ab, 0, b=b, m_loc_pad=M_LOC, levels=L),
+        lambda: ref.fused_panel(Ab, 0, b=b, m_loc_pad=M_LOC, levels=L),
+        f64(ref.fused_panel, Ab, k=0, b=b, m_loc_pad=M_LOC, levels=L),
+        (P * (leaf_flops + apply_flops + L * (b ** 3 + 3.0 * b * b * N)),
+         eb * P * (2 * M_LOC * N + M_LOC * b + (3 + 2 * L) * b * b
+                   + (1 + 3 * L) * b * N)), 3,
+        twin=lambda: ops.fused_panel(A32, 0, b=b, m_loc_pad=M_LOC, levels=L),
+        slow_plain=True, wide_b=True)
+    # K6's oracle: the panel's state through run_panel_fused (one K6 launch)
+    # equals it through the stepped bf16 kernels, bit for bit
+    rec6["stepped_bitwise"] = states_equal(sm.run_panel_fused(comm, s0),
+                                           sm.run_steps(comm, s0, pts))
+    check(rec6["stepped_bitwise"], "fused_panel: bf16 above 128 differs from "
+                                   "the stepped bf16 panel")
+    rec6["stepped_ms"] = time_ms(lambda: sm.run_steps(comm, s0, pts), 3)
+    rec6["stepped_route"] = "the stepped bf16 panel (K1, 3 x K3, K2, 3 x K4)"
+    recs.append(rec6)
+    del A32, panel32, s0
+    for rec in recs:
+        rec["b"] = b
+    return recs
+
+
+def bf16_wide_phase(A: torch.Tensor) -> list:
+    """The tall matrix cast to bf16 at b = WIDE_B (16 panels, L = 3) through
+    the bf16 kernels above 128 columns: their records, then the sweep (R
+    replicated bitwise, its float64 Gram residual beside its floor), the FT
+    sweep with WIDE_KILLS (bit-equal to failure-free, with the f32 wide
+    ledger), the state machine stepped and fused (bit-equal to the sweep,
+    K6 launched a panel) and the fused-leaf entry (K5 == K1 then K2).
+    Returns the kernel records."""
+    b, comm = WIDE_B, SimComm(P)
+    Ab = A.to(BF16)
+    records = bf16_wide_kernel_records(Ab)
+    backend.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = caqr_factorize(Ab, comm, b, use_scan=False, collect_bundles=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(backend.BF16_LAUNCHES)
+    sub = dict(backend.SUB_LAUNCHES)
+    PATH_LAUNCHES_BF16["bf16_wide_sweep"] = launches
+    check(all(launches[op] > 0 for op in STEPPED)
+          and launches == backend.LAUNCHES and sub["wide_round_bf16"] > 0,
+          f"a bf16 kernel was not launched by the bf16 sweep at b = {b}: "
+          f"{launches}, all launches {backend.LAUNCHES}, {sub}")
+    check(res.R.dtype == BF16 and bool((res.R == res.R[:1]).all()),
+          "bf16 R at b = 256 is not replicated bitwise")
+    want = flat_result(res)
+    A64 = Ab.reshape(-1, N).double()
+    gram = gram_error(A64, res.R[0])
+    # the floor: the f32 sweep of the same (widened) matrix, R rounded once
+    floor = gram_error(A64, caqr_factorize(Ab.float(), comm, b,
+                                           use_scan=False).R[0].to(BF16))
+    del A64, res
+    check(gram <= BF16_GRAM_TOL, f"bf16 Gram residual at b = {b}: {gram} > "
+                                 f"{BF16_GRAM_TOL}")
+    kill = kill_check(Ab, SimComm(P), WIDE_KILLS, want, b=b)
+    PATH_LAUNCHES_BF16["bf16_wide_kill"] = dict(backend.BF16_LAUNCHES)
+    check(kill.pop("ledger") == WIDE_LEDGER["kills"],
+          "the bf16 kill ledger at b = 256 differs from the f32 wide sweep's")
+    res_s, sec_s, _, _ = timed_sweep(Ab, fused=False, b=b)
+    PATH_LAUNCHES_BF16["bf16_wide_stepped"] = dict(backend.BF16_LAUNCHES)
+    ok_s = same_bits(flat_result(res_s), want)
+    del res_s
+    res_f, sec_f, _, _ = timed_sweep(Ab, fused=True, b=b)
+    launch_f = PATH_LAUNCHES_BF16["bf16_wide_fused"] = dict(backend.BF16_LAUNCHES)
+    ok_f = same_bits(flat_result(res_f), want)
+    del res_f, want
+    check(ok_s and ok_f, f"bf16 state machine at b = {b} differs from "
+                         f"caqr_factorize: stepped {ok_s}, fused {ok_f}")
+    check(launch_f["fused_panel"] == N // b and
+          all(launch_f[op] == 0 for op in STEPPED),
+          f"bf16 fused sweep launches at b = {b}: {launch_f}")
+    # K5's path: the fused leaf entry on the first window, bit-equal to K1
+    # then K2
+    _c0, _t, row_start, _act = panel_geometry(comm, 0, b, M_LOC)
+    backend.reset_launches()
+    wy, C, Cp = householder.panel_qr_apply(Ab, row_start, b)
+    torch.cuda.synchronize()
+    PATH_LAUNCHES_BF16["bf16_wide_fused_leaf"] = dict(backend.BF16_LAUNCHES)
+    wy1 = householder.householder_qr_masked(Ab[..., :b], row_start)
+    C1 = householder.apply_qt(wy1.Y, wy1.T, Ab)
+    leaf_same = same_bits((*wy, C, Cp), (*wy1, C1, C1[:, :b]))
+    check(leaf_same and
+          PATH_LAUNCHES_BF16["bf16_wide_fused_leaf"]["panel_qr_apply"] == 1,
+          "bf16 fused leaf at b = 256 differs from the stepped leaf or did not "
+          "launch K5")
+    del wy, C, Cp, wy1, C1
+    probe = backend.probe_report()
+    check(all(v["engine"] == backend.ENGINE_CUDA for v in probe.values()),
+          f"an op's last engine is not the CUDA kernel: {probe}")
+    emit({"bf16_wide": dict(
+        shape=[P * M_LOC, N], P=P, b=b, panels=N // b, levels=L,
+        dtype="bfloat16", sweep_seconds=seconds, launches=launches,
+        sub_launches=sub, gram_rel_err=gram, gram_floor_f32_rounded=floor,
+        gram_tol=BF16_GRAM_TOL, ft_kills=dict(
+            seconds=kill["seconds"], events=kill["events"],
+            bitwise_equal=kill["bitwise_equal"], ledger_equals_f32=True),
+        state_machine=dict(stepped_seconds=sec_s, fused_seconds=sec_f,
+                           stepped_equals_sweep=ok_s, fused_equals_sweep=ok_f,
+                           fused_launches=launch_f),
+        fused_leaf_bitwise_equal_stepped=leaf_same, probe=probe)})
     return records
 
 
@@ -4164,9 +4401,9 @@ class OrderOracle:
         self.gemm = wide.gemm
 
         def checked(A, B, D=None, *, sub=False, out=None, bn=None,
-                    minuend=None, kbs=None):
+                    minuend=None, kbs=None, out_dtype=None):
             res = self.gemm(A, B, D, sub=sub, out=out, bn=bn, minuend=minuend,
-                            kbs=kbs)
+                            kbs=kbs, out_dtype=out_dtype)
             kw = dict(sub=sub, minuend=minuend)
             want = as_tuple(wide.gemm_order(A, B, D, **kw))
             fused = as_tuple(tfs.gemm_in_block(A, B, D, **kw))
@@ -4297,7 +4534,7 @@ def wide_sweeps(A: torch.Tensor, rng) -> dict:
     kill = kill_check(A, comm, WIDE_KILLS, want, b=b)
     PATH_LAUNCHES["wide_kill"] = kill["launches"]
     PATH_SUB["wide_kill"] = kill["sub_launches"] = dict(backend.SUB_LAUNCHES)
-    del kill["ledger"]
+    WIDE_LEDGER["kills"] = kill.pop("ledger")
     fused = wide_fused_sweeps(A, want)
     del want
     sched = FailureSchedule(events={pt: [lane] for pt, lane in WIDE_KILLS.items()})
@@ -4657,6 +4894,8 @@ def main() -> int:
         multi_process_phases(args.seed, card)
     with timed("wide"):
         wide_records, gemm_rec = wide_phase(A, rng, args.seed, card)
+    with timed("bf16_wide"):
+        bf16_records += bf16_wide_phase(A)
     with timed("adafactor"):
         adafactor_phase(ada_inputs, card)
     del ada_inputs
@@ -4672,11 +4911,14 @@ def main() -> int:
           f"wide_gemm not launched on a wide path: {gemm_rec['launches_by_path']}")
     records.append(gemm_rec)
     # the bf16 kernels' launches: K1-K4 on the bf16 sweep, K5 on the bf16
-    # fused leaf, K6 on the bf16 fused sweep
+    # fused leaf, K6 on the bf16 fused sweep (above 128 columns the bf16_wide
+    # phase's paths)
     main_path = {"panel_qr_apply": "bf16_fused_leaf", "fused_panel": "bf16_fused"}
     for rec in bf16_records:
         op = rec.pop("op")
-        rec["launches"] = PATH_LAUNCHES_BF16[main_path.get(op, "bf16_sweep")][op]
+        pre = "bf16_wide_" if rec["name"].endswith("_wide") else "bf16_"
+        path = main_path.get(op, "bf16_sweep").replace("bf16_", pre, 1)
+        rec["launches"] = PATH_LAUNCHES_BF16[path][op]
         rec["launches_by_path"] = {path: counts[op]
                                    for path, counts in PATH_LAUNCHES_BF16.items()}
         check(rec["launches"] > 0, f"{rec['name']} not launched on its bf16 path")

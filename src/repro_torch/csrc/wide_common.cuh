@@ -36,12 +36,23 @@
 // splits k at block boundaries: each part stores its block sums to
 // scratch, and a second pass adds them in block order from +0.0f (the
 // same additions in the same order; no atomics).
+//
+// Element types: each operand (A, B, D and E, out, out2) has its own, float
+// or bf16 (GemmViewT). A bf16 operand widens exactly as it is loaded and a
+// bf16 output is rounded once as it is stored; shared memory, registers and
+// every sum stay float in the order above. So a product at any types equals
+// wide_gemm_order_f32 on the widened operands, rounded where it stores bf16.
+// A bf16 A or B slice is staged through registers (GEMM_ANY): cp.async
+// copies raw bytes, and the slices in shared memory are float.
 #pragma once
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "async_copy.cuh"
+#include "elem.cuh"
 
 namespace repro {
 
@@ -51,67 +62,112 @@ constexpr int WG_BLOCK = 16;                 // slices of a block sum
 constexpr int WG_BLOCK_K = WG_BK * WG_BLOCK; // terms of a block sum
 
 // One lane's product: every operand by its pointer and (row, column)
-// strides in floats. D, E and O2 may be null.
-struct GemmView {
+// strides in elements, each of its own element type (float or bf16; D and
+// E share TD). D, E and O2 may be null.
+template <class TA_ = float, class TB_ = float, class TD_ = float,
+          class TO_ = float, class TO2_ = float>
+struct GemmViewT {
+  using TA = TA_;
+  using TB = TB_;
+  using TD = TD_;
+  using TO = TO_;
+  using TO2 = TO2_;
   int M, N, K;
-  const float* A;
+  const TA* A;
   long long a_rs, a_cs;
-  const float* B;
+  const TB* B;
   long long b_rs, b_cs;
-  const float* D;
+  const TD* D;
   long long d_rs, d_cs;
-  float* O;
+  TO* O;
   long long o_rs, o_cs;
   int sub;  // 1: D - tot (or -tot), 0: D + tot (or tot)
-  const float* E;
+  const TD* E;
   long long e_rs, e_cs;
-  float* O2;  // with E: O2 = E - tot
+  TO2* O2;  // with E: O2 = E - tot
   long long o2_rs, o2_cs;
 };
+using GemmView = GemmViewT<>;
+
+// The bf16 products of the routes above 128 columns, their intermediates
+// float: a bf16 Y^T C (or Ct + Y2^T Cb) into float; T^T Z, bf16 T times a
+// float Z, into float (and the second store Ct - W in bf16); C - Y W, bf16
+// Y times a float W from a bf16 C, into bf16.
+using GemmBBF = GemmViewT<bf16, bf16, bf16, float, bf16>;
+using GemmBFF = GemmViewT<bf16, float, bf16, float, bf16>;
+using GemmBFB = GemmViewT<bf16, float, bf16, bf16, bf16>;
+
+// The element types of a product as the bf16 entries take them, a bit an
+// operand (1: bf16): A, B, D and E, out, out2.
+enum : int { WB_A = 1, WB_B = 2, WB_D = 4, WB_O = 8, WB_O2 = 16 };
+
+// Which of GemmBBF (1), GemmBFF (2) and GemmBFB (3) the product of `types`
+// is (a null operand's bit ignored), or 0 for a combination no route runs.
+inline int gemm_bf16_kind(int types, const void* D, const void* E,
+                          const void* O2) {
+  const int t = types | (D || E ? 0 : WB_D) | (O2 ? 0 : WB_O2);
+  if (t == (WB_A | WB_B | WB_D | WB_O2) && !O2) return 1;
+  if (t == (WB_A | WB_D | WB_O2) && !D) return 2;
+  if (t == (WB_A | WB_D | WB_O | WB_O2) && !O2) return 3;
+  return 0;
+}
+
+// Whether a view's A and B slices are float (cp.async can fill them).
+template <class V>
+inline constexpr bool gemm_float_slices =
+    std::is_same_v<typename V::TA, float> && std::is_same_v<typename V::TB, float>;
 
 // The epilogue of one element from its total.
-__device__ __forceinline__ void gemm_store(const GemmView& g, int i, int j,
-                                           float tot) {
+template <class V>
+__device__ __forceinline__ void gemm_store(const V& g, int i, int j, float tot) {
   float v;
   if (g.D) {
-    const float d = __ldcg(g.D + i * g.d_rs + j * g.d_cs);
+    const float d = ldcg1(g.D + i * g.d_rs + j * g.d_cs);
     v = g.sub ? d - tot : d + tot;
   } else {
     v = g.sub ? -tot : tot;
   }
-  g.O[i * g.o_rs + j * g.o_cs] = v;
-  if (g.O2) g.O2[i * g.o2_rs + j * g.o2_cs] = __ldcg(g.E + i * g.e_rs + j * g.e_cs) - tot;
+  g.O[i * g.o_rs + j * g.o_cs] = narrow<typename V::TO>(v);
+  if (g.O2)
+    g.O2[i * g.o2_rs + j * g.o2_cs] =
+        narrow<typename V::TO2>(ldcg1(g.E + i * g.e_rs + j * g.e_cs) - tot);
 }
 
-// 16-byte stores (and loads of D and E) in the epilogue: every
-// output-shaped operand has unit column stride and 16-byte aligned rows.
-__host__ __device__ inline bool gemm_vec_ok(const void* p, long long rs,
+// Accesses of four elements (16 bytes of float, 8 of bf16; and loads of D
+// and E) in the epilogue: every output-shaped operand has unit column
+// stride and rows aligned to four elements.
+template <class T>
+__host__ __device__ inline bool gemm_vec_ok(const T* p, long long rs,
                                             long long cs) {
-  return p == nullptr || (cs == 1 && rs % 4 == 0 && (uintptr_t)p % 16 == 0);
+  return p == nullptr ||
+         (cs == 1 && rs % 4 == 0 && (uintptr_t)p % (4 * sizeof(T)) == 0);
 }
 
-__host__ __device__ inline bool gemm_vec_out(const GemmView& g) {
+template <class V>
+__host__ __device__ inline bool gemm_vec_out(const V& g) {
   return gemm_vec_ok(g.O, g.o_rs, g.o_cs) && gemm_vec_ok(g.D, g.d_rs, g.d_cs) &&
          gemm_vec_ok(g.O2, g.o2_rs, g.o2_cs) &&
          (g.O2 == nullptr || gemm_vec_ok(g.E, g.e_rs, g.e_cs));
 }
 
 // The epilogue of four consecutive elements (i, j..j+3), all inside the
-// output, by 16-byte accesses: the arithmetic of gemm_store.
-__device__ __forceinline__ void gemm_store4(const GemmView& g, int i, int j,
+// output, by aligned accesses of four elements: the arithmetic of
+// gemm_store.
+template <class V>
+__device__ __forceinline__ void gemm_store4(const V& g, int i, int j,
                                             const float* tot) {
   float4 v = make_float4(tot[0], tot[1], tot[2], tot[3]);
   if (g.sub) v = make_float4(-v.x, -v.y, -v.z, -v.w);
   if (g.D) {
-    const float4 d = __ldcg(reinterpret_cast<const float4*>(g.D + i * g.d_rs + j));
+    const float4 d = ldcg4(g.D + i * g.d_rs + j);
     v = g.sub ? make_float4(d.x - tot[0], d.y - tot[1], d.z - tot[2], d.w - tot[3])
               : make_float4(d.x + tot[0], d.y + tot[1], d.z + tot[2], d.w + tot[3]);
   }
-  *reinterpret_cast<float4*>(g.O + i * g.o_rs + j) = v;
+  stv4(g.O + i * g.o_rs + j, v);
   if (g.O2) {
-    const float4 e = __ldcg(reinterpret_cast<const float4*>(g.E + i * g.e_rs + j));
-    *reinterpret_cast<float4*>(g.O2 + i * g.o2_rs + j) =
-        make_float4(e.x - tot[0], e.y - tot[1], e.z - tot[2], e.w - tot[3]);
+    const float4 e = ldcg4(g.E + i * g.e_rs + j);
+    stv4(g.O2 + i * g.o2_rs + j,
+         make_float4(e.x - tot[0], e.y - tot[1], e.z - tot[2], e.w - tot[3]));
   }
 }
 
@@ -128,13 +184,18 @@ __host__ __device__ inline bool gemm_al16(const void* p) {
 
 // The copy mode of a product: 16-byte copies where B's columns and one of
 // A's axes are the unit stride with 16-byte aligned rows. `lane_ok` says
-// the lane strides keep every lane aligned.
-__host__ __device__ inline int gemm_mode(const GemmView& g, bool lane_ok) {
-  const bool b16 = lane_ok && g.b_cs == 1 && g.b_rs % 4 == 0 && gemm_al16(g.B);
-  if (!b16 || !gemm_al16(g.A)) return GEMM_ANY;
-  if (g.a_rs == 1 && g.a_cs % 4 == 0) return GEMM_AK;
-  if (g.a_cs == 1 && g.a_rs % 4 == 0) return GEMM_AR;
-  return GEMM_ANY;
+// the lane strides keep every lane aligned. A bf16 A or B: GEMM_ANY.
+template <class V>
+__host__ __device__ inline int gemm_mode(const V& g, bool lane_ok) {
+  if constexpr (!gemm_float_slices<V>) {
+    return GEMM_ANY;
+  } else {
+    const bool b16 = lane_ok && g.b_cs == 1 && g.b_rs % 4 == 0 && gemm_al16(g.B);
+    if (!b16 || !gemm_al16(g.A)) return GEMM_ANY;
+    if (g.a_rs == 1 && g.a_cs % 4 == 0) return GEMM_AK;
+    if (g.a_cs == 1 && g.a_rs % 4 == 0) return GEMM_AR;
+    return GEMM_ANY;
+  }
 }
 
 template <int BM_, int BN_, int TM_, int TN_, int STAGES_, bool TOT_SMEM_>
@@ -165,8 +226,8 @@ struct GemmTile {
 // bar_id only; needs Cfg::SMEM floats at smem. Ends with a barrier, after
 // which smem may be reused. Inlined, so that it runs in the register budget
 // of its caller's region (the wide phases' setmaxnreg, wide_qr.cuh).
-template <class Cfg, int MODE>
-__device__ __forceinline__ void gemm_tile(const GemmView& g, int i0, int j0,
+template <class Cfg, int MODE, class V>
+__device__ __forceinline__ void gemm_tile(const V& g, int i0, int j0,
                                           int kb0, int kb1,
                           float* part, long long part_bs, float* smem, int tid,
                           int bar_id) {
@@ -211,7 +272,7 @@ __device__ __forceinline__ void gemm_tile(const GemmView& g, int i0, int j0,
         const int k = i_fast ? u / BM : u % WG_BK;
         const int i = i_fast ? u % BM : u / WG_BK;
         const int gk = k0 + k, gi = i0 + i;
-        sa[k * BM + i] = gk < g.K && gi < g.M ? __ldcg(g.A + gi * g.a_rs + gk * g.a_cs) : 0.f;
+        sa[k * BM + i] = gk < g.K && gi < g.M ? ldcg1(g.A + gi * g.a_rs + gk * g.a_cs) : 0.f;
       }
     }
     if constexpr (MODE != GEMM_ANY) {
@@ -227,7 +288,7 @@ __device__ __forceinline__ void gemm_tile(const GemmView& g, int i0, int j0,
         const int k = j_fast ? u / BN : u % WG_BK;
         const int j = j_fast ? u % BN : u / WG_BK;
         const int gk = k0 + k, gj = j0 + j;
-        sb[k * BN + j] = gk < g.K && gj < g.N ? __ldcg(g.B + gk * g.b_rs + gj * g.b_cs) : 0.f;
+        sb[k * BN + j] = gk < g.K && gj < g.N ? ldcg1(g.B + gk * g.b_rs + gj * g.b_cs) : 0.f;
       }
     }
   };
@@ -368,32 +429,37 @@ __device__ __forceinline__ void gemm_tile(const GemmView& g, int i0, int j0,
   bar_sync(bar_id, WG_THREADS);
 }
 
-// The tile routine at a runtime copy mode.
-template <class Cfg>
-__device__ __forceinline__ void gemm_tile_any(int mode, const GemmView& g,
+// The tile routine at a runtime copy mode (a bf16 A or B: GEMM_ANY).
+template <class Cfg, class V>
+__device__ __forceinline__ void gemm_tile_any(int mode, const V& g,
                                               int i0, int j0, int kb0, int kb1,
                                               float* part, long long part_bs,
                                               float* smem, int tid, int bar_id) {
-  switch (mode) {
-    case GEMM_AK:
-      gemm_tile<Cfg, GEMM_AK>(g, i0, j0, kb0, kb1, part, part_bs, smem, tid, bar_id);
-      break;
-    case GEMM_AR:
-      gemm_tile<Cfg, GEMM_AR>(g, i0, j0, kb0, kb1, part, part_bs, smem, tid, bar_id);
-      break;
-    default:
-      gemm_tile<Cfg, GEMM_ANY>(g, i0, j0, kb0, kb1, part, part_bs, smem, tid, bar_id);
-      break;
+  if constexpr (!gemm_float_slices<V>) {
+    gemm_tile<Cfg, GEMM_ANY>(g, i0, j0, kb0, kb1, part, part_bs, smem, tid, bar_id);
+  } else {
+    switch (mode) {
+      case GEMM_AK:
+        gemm_tile<Cfg, GEMM_AK>(g, i0, j0, kb0, kb1, part, part_bs, smem, tid, bar_id);
+        break;
+      case GEMM_AR:
+        gemm_tile<Cfg, GEMM_AR>(g, i0, j0, kb0, kb1, part, part_bs, smem, tid, bar_id);
+        break;
+      default:
+        gemm_tile<Cfg, GEMM_ANY>(g, i0, j0, kb0, kb1, part, part_bs, smem, tid, bar_id);
+        break;
+    }
   }
 }
 
 // A batched product: one lane's view and the operands' lane strides.
-struct GemmArgs {
-  GemmView v;
+template <class V>
+struct GemmArgsT {
+  V v;
   int P;
   long long a_bs, b_bs, d_bs, o_bs, e_bs, o2_bs;
-  __device__ GemmView lane(int p) const {
-    GemmView w = v;
+  __device__ V lane(int p) const {
+    V w = v;
     w.A += p * a_bs;
     w.B += p * b_bs;
     if (w.D) w.D += p * d_bs;
@@ -406,7 +472,11 @@ struct GemmArgs {
   }
 };
 
-inline GemmArgs make_args(const void* A, long long a_bs, long long a_rs,
+using GemmArgs = GemmArgsT<GemmView>;
+
+// The batched product of GEMM_PARAMS at the view's element types.
+template <class V = GemmView>
+inline GemmArgsT<V> make_args(const void* A, long long a_bs, long long a_rs,
                           long long a_cs, const void* B, long long b_bs,
                           long long b_rs, long long b_cs, const void* D,
                           long long d_bs, long long d_rs, long long d_cs,
@@ -415,11 +485,14 @@ inline GemmArgs make_args(const void* A, long long a_bs, long long a_rs,
                           long long e_rs, long long e_cs, void* O2,
                           long long o2_bs, long long o2_rs, long long o2_cs,
                           int P, int M, int N, int K, int sub) {
-  GemmArgs g{};
-  g.v = GemmView{M, N, K, (const float*)A, a_rs, a_cs, (const float*)B, b_rs,
-                 b_cs, (const float*)D, d_rs, d_cs, (float*)O, o_rs, o_cs,
-                 sub, O2 ? (const float*)E : nullptr, e_rs, e_cs, (float*)O2,
-                 o2_rs, o2_cs};
+  using TA = typename V::TA;
+  using TB = typename V::TB;
+  using TD = typename V::TD;
+  GemmArgsT<V> g{};
+  g.v = V{M, N, K, (const TA*)A, a_rs, a_cs, (const TB*)B, b_rs,
+          b_cs, (const TD*)D, d_rs, d_cs, (typename V::TO*)O, o_rs, o_cs,
+          sub, O2 ? (const TD*)E : nullptr, e_rs, e_cs, (typename V::TO2*)O2,
+          o2_rs, o2_cs};
   g.P = P;
   g.a_bs = a_bs, g.b_bs = b_bs, g.d_bs = d_bs, g.o_bs = o_bs, g.e_bs = e_bs;
   g.o2_bs = o2_bs;

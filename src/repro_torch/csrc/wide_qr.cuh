@@ -59,6 +59,22 @@
 namespace repro {
 
 using WideTile = GemmTile<128, 128, 8, 8, 4, true>;
+
+// How the tile phases run their products: wide_gemm's 128 x 128 tile on
+// warpgroups 0-1 with the registers of warpgroups 2-3 (setmaxnreg; the
+// float kernels), or its 64 x 64 tile (4 x 4 outputs a thread, the total
+// in registers) at the block's own 128 registers, with no trade (the bf16
+// K5/K6 kernel, in which ptxas could not fit the traded phases in their 232
+// registers). The tile changes no bit: the order is the contract.
+struct TradeTiles {
+  using Cfg = WideTile;
+  static constexpr bool kTrade = true;
+};
+struct PlainTiles {
+  using Cfg = GemmTile<64, 64, 4, 4, 4, false>;
+  static constexpr bool kTrade = false;
+};
+
 constexpr int FW_NB = QR_MAX_B;  // columns of a sub-panel
 constexpr int FW_BLOCKS = 132;   // the split's target: the H100's SMs, a
                                  // block each (a constant of the design)
@@ -289,9 +305,9 @@ __device__ Prod<F> prod(F f, int P, int M, int N, int K) {
 
 // The k ranges (block sums) a product's items take: one when it splits
 // (split asked for, a deep sum, few tiles a lane), else the whole sum.
-template <class F>
+template <class Cfg, class F>
 __device__ int fw_parts(const Prod<F>& q, const float* part) {
-  const int t = cdiv(q.M, WideTile::BM) * cdiv(q.N, WideTile::BN);
+  const int t = cdiv(q.M, Cfg::BM) * cdiv(q.N, Cfg::BN);
   const int nblk = gemm_kblocks(q.K);
   return part && nblk >= FW_SPLIT_MIN && 2 * t <= FW_BLOCKS ? nblk : 1;
 }
@@ -317,21 +333,22 @@ __device__ void fw_reduce(const Prod<F>& q, const float* part, int b0) {
 // One grid-wide phase of two independent batched products (q2.P may be 0),
 // on blocks [b0, gridDim.x) (the others do not call it).
 // The (product, lane, tile, k range) items go round the blocks, each on
-// warpgroups 0-1 at FW_TILE_REGS registers while warpgroups 2-3 wait at
-// FW_IDLE_REGS (named barrier 3). With `part` (room for both products'
-// block sums) a deep, narrow product takes one item a block sum, and after
-// a grid barrier its block sums are added in order.
-template <class F1, class F2>
+// warpgroups 0-1, with TradeTiles at FW_TILE_REGS registers while
+// warpgroups 2-3 wait at FW_IDLE_REGS (named barrier 3). With `part` (room
+// for both products' block sums) a deep, narrow product takes one item a
+// block sum, and after a grid barrier its block sums are added in order.
+template <class Tiles = TradeTiles, class F1, class F2>
 __device__ void tile_phase(const Prod<F1>& q1, const Prod<F2>& q2, float* smem,
                            unsigned* bar, float* part = nullptr, int b0 = 0) {
-  constexpr int BM = WideTile::BM, BN = WideTile::BN;
-  const int k1 = fw_parts(q1, part), k2 = fw_parts(q2, part);
+  using Cfg = typename Tiles::Cfg;
+  constexpr int BM = Cfg::BM, BN = Cfg::BN;
+  const int k1 = fw_parts<Cfg>(q1, part), k2 = fw_parts<Cfg>(q2, part);
   const int tn1 = cdiv(q1.N, BN), tl1 = cdiv(q1.M, BM) * tn1, n1 = q1.P * tl1 * k1;
   const int tn2 = cdiv(q2.N, BN), tl2 = cdiv(q2.M, BM) * tn2, n2 = q2.P * tl2 * k2;
   const long long all1 = (long long)q1.P * q1.M * q1.N;
   float* part2 = part + (k1 > 1 ? (long long)gemm_kblocks(q1.K) * all1 : 0);
   if (threadIdx.x < WG_THREADS) {
-    regs_inc<FW_TILE_REGS>();
+    if constexpr (Tiles::kTrade) regs_inc<FW_TILE_REGS>();
     for (int it = blockIdx.x - b0; it < n1 + n2; it += gridDim.x - b0) {
       const bool first = it < n1;
       const int rel = first ? it : it - n1, ks = first ? k1 : k2;
@@ -341,16 +358,16 @@ __device__ void tile_phase(const Prod<F1>& q1, const Prod<F2>& q2, float* smem,
       if (!(first ? q1.f(p, v) : q2.f(p, v))) continue;
       const long long pl = first ? all1 : (long long)q2.P * q2.M * q2.N;
       float* pt = ks > 1 ? (first ? part : part2) + (long long)p * v.M * v.N : nullptr;
-      gemm_tile_any<WideTile>(gemm_mode(v, true), v, (t / tn) * BM, (t % tn) * BN,
-                              ks > 1 ? kr : 0, ks > 1 ? kr + 1 : gemm_kblocks(v.K),
-                              pt, pl, smem, threadIdx.x, 1);
+      gemm_tile_any<Cfg>(gemm_mode(v, true), v, (t / tn) * BM, (t % tn) * BN,
+                         ks > 1 ? kr : 0, ks > 1 ? kr + 1 : gemm_kblocks(v.K),
+                         pt, pl, smem, threadIdx.x, 1);
     }
-    regs_dec<FW_REGS>();
+    if constexpr (Tiles::kTrade) regs_dec<FW_REGS>();
     bar_sync(3, QR_THREADS);
   } else {
-    regs_dec<FW_IDLE_REGS>();
+    if constexpr (Tiles::kTrade) regs_dec<FW_IDLE_REGS>();
     bar_sync(3, QR_THREADS);
-    regs_inc<FW_REGS>();
+    if constexpr (Tiles::kTrade) regs_inc<FW_REGS>();
   }
   if (k1 > 1 || k2 > 1) {
     part_barrier(bar, b0);
@@ -359,11 +376,11 @@ __device__ void tile_phase(const Prod<F1>& q1, const Prod<F2>& q2, float* smem,
   }
 }
 
-template <class F>
+template <class Tiles = TradeTiles, class F>
 __device__ void tile_phase(const Prod<F>& q, float* smem, unsigned* bar,
                            float* part = nullptr, int b0 = 0) {
-  tile_phase(q, prod([](int, GemmView&) { return false; }, 0, 0, 0, 0), smem,
-             bar, part, b0);
+  tile_phase<Tiles>(q, prod([](int, GemmView&) { return false; }, 0, 0, 0, 0),
+                    smem, bar, part, b0);
 }
 
 __device__ inline GemmView gemm_view(int M, int N, int K, const float* A,
@@ -453,6 +470,8 @@ struct GlobalTeams {
 // columns. Lanes that are not on get zero Y, T and R with zero_off, else
 // are not touched. Every block calls it; it ends with a grid barrier.
 //
+// Tiles: how its tile phases run their products (TradeTiles or PlainTiles).
+//
 // Look-ahead: where the next sub-panel's team phase leaves at least
 // FW_LOOKAHEAD blocks without a team (teams.busy), the apply of Q_j^T
 // covers only the next sub-panel's columns before it, and those idle
@@ -461,7 +480,7 @@ struct GlobalTeams {
 // Y_j and T_j read from the outputs, whose sub-panel j is final). Every
 // element gets the same sums in the same order: a product's column range
 // enters no element's sum.
-template <class Teams, class On, class In, class Rs>
+template <class Tiles = TradeTiles, class Teams, class On, class In, class Rs>
 __device__ void blocked_qr(const WideQR& q, Teams& teams, int m, int b, On on,
                            In in, long long in_ld, Rs rs, float* Y, size_t y_bs,
                            float* T, float* R, float* cur, bool zero_off,
@@ -494,21 +513,21 @@ __device__ void blocked_qr(const WideQR& q, Teams& teams, int m, int b, On on,
     if (far) {
       const int cp = c0 - FW_NB;  // the last sub-panel (FW_NB columns)
       const long long pld = cp == 0 ? in_ld : cur_ld;
-      tile_phase(prod([&](int p, GemmView& v) {
+      tile_phase<Tiles>(prod([&](int p, GemmView& v) {
         v = gemm_view(FW_NB, rest, m, Y + p * y_bs + cp, 1, b,
                       src_at(cp, p) + FW_NB + bj, pld, nullptr, 0,
                       s.Za + p * wa_bs + bj, cur_ld, 0);
         return on(p);
       }, P, FW_NB, rest, m), smem, q.bar, s.part, busy);
       part_barrier(q.bar, busy);
-      tile_phase(prod([&](int p, GemmView& v) {
+      tile_phase<Tiles>(prod([&](int p, GemmView& v) {
         v = gemm_view(FW_NB, rest, FW_NB, T + p * bb + (size_t)cp * b + cp, 1, b,
                       s.Za + p * wa_bs + bj, cur_ld, nullptr, 0,
                       s.Wa + p * wa_bs + bj, cur_ld, 0);
         return on(p);
       }, P, FW_NB, rest, FW_NB), smem, q.bar, nullptr, busy);
       part_barrier(q.bar, busy);
-      tile_phase(prod([&](int p, GemmView& v) {
+      tile_phase<Tiles>(prod([&](int p, GemmView& v) {
         v = gemm_view(m, rest, FW_NB, Y + p * y_bs + cp, b, 1,
                       s.Wa + p * wa_bs + bj, cur_ld, src_at(cp, p) + FW_NB + bj,
                       pld, cur + p * cur_bs + c0 + bj - FW_NB, cur_ld, 1);
@@ -571,7 +590,7 @@ __device__ void blocked_qr(const WideQR& q, Teams& teams, int m, int b, On on,
       });
     // G = Y[:, :c0]^T Y_j; Za = Y_j^T C, C the columns right of the
     // sub-panel: k over the m rows, split into block sums
-    tile_phase(
+    tile_phase<Tiles>(
         prod([&](int p, GemmView& v) {
           v = gemm_view(c0, bj, m, Y + p * y_bs, 1, b, s.Yj + p * yj_bs, bj,
                         nullptr, 0, s.G + p * g_bs, bj, 0);
@@ -585,7 +604,7 @@ __device__ void blocked_qr(const WideQR& q, Teams& teams, int m, int b, On on,
         smem, q.bar, s.part);
     grid_barrier(q.bar);
     // H = G T_j; Wa = T_j^T Za
-    tile_phase(
+    tile_phase<Tiles>(
         prod([&](int p, GemmView& v) {
           v = gemm_view(c0, bj, bj, s.G + p * g_bs, bj, 1, s.Tj + p * tj_bs, bj,
                         nullptr, 0, s.H + p * g_bs, bj, 0);
@@ -601,7 +620,7 @@ __device__ void blocked_qr(const WideQR& q, Teams& teams, int m, int b, On on,
     // T[:c0, c0:c0+bj] = -(T[:c0, :c0] H), k over c0 rows, split into block
     // sums; the columns right = C - Y_j Wa, into cur (in place after the
     // first sub-panel)
-    tile_phase(
+    tile_phase<Tiles>(
         prod([&](int p, GemmView& v) {
           v = gemm_view(c0, bj, c0, T + p * bb, b, 1, s.H + p * g_bs, bj,
                         nullptr, 0, T + p * bb + c0, b, 1);

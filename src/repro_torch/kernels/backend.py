@@ -33,7 +33,8 @@ OPS = ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply",
 LAUNCHES: Dict[str, int] = {op: 0 for op in OPS}
 # The bf16 kernels' share of LAUNCHES, per op.
 BF16_LAUNCHES: Dict[str, int] = {op: 0 for op in OPS}
-SUB_KERNELS = ("panel_qr_kernel", "wide_gemm_kernel", "wide_gemm_reduce")
+SUB_KERNELS = ("panel_qr_kernel", "wide_gemm_kernel", "wide_gemm_reduce",
+               "wide_round_bf16")
 SUB_LAUNCHES: Dict[str, int] = {k: 0 for k in SUB_KERNELS}
 # The engine that ran each op's most recent call ("cuda" or "plain").
 _LAST_ENGINE: Dict[str, str] = {}
@@ -73,12 +74,12 @@ def probe_report() -> Dict[str, Dict[str, object]]:
 
 
 # The element types of the CUDA kernels, by the suffix of their C entry
-# points (``panel_qr_f32``, ``panel_qr_bf16``, ...).
+# points (``panel_qr_f32``, ``panel_qr_bf16``, ...). Both take any panel
+# width: the b <= 128 bodies and, above them, the blocked routes
+# (csrc/panel_qr_wide.cu, csrc/wide.cu and csrc/fused_sweep.cu at f32;
+# csrc/panel_qr_wide_bf16.cu, csrc/wide_bf16.cu and csrc/fused_wide_bf16.cu
+# at bf16).
 KERNEL_SUFFIXES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# The widest panel of the bf16 kernels: their b <= 128 bodies. The blocked
-# routes above it (csrc/panel_qr_wide.cu, csrc/wide.cu, fused_wide_kernel)
-# are float32 only.
-BF16_MAX_B = 128
 
 
 def kernel_suffix(dtype: torch.dtype) -> str:
@@ -103,15 +104,6 @@ def kernel_dtype(op: str, *tensors: torch.Tensor) -> str:
         return kernel_suffix(dtypes.pop())
     except NotImplementedError as e:
         raise NotImplementedError(f"{op}: {e}") from None
-
-
-def check_width(op: str, dtype: torch.dtype, b: int) -> None:
-    """Raise NotImplementedError for a bf16 call above BF16_MAX_B columns."""
-    if dtype == torch.bfloat16 and b > BF16_MAX_B:
-        raise NotImplementedError(
-            f"{op}: the bf16 kernels take panel widths up to {BF16_MAX_B}, "
-            f"got {b}; bf16 above 128 columns is still to be ported "
-            "(ROADMAP.md queue 2)")
 
 
 def gram_scratch(P: int, b: int, x: torch.Tensor) -> Optional[torch.Tensor]:

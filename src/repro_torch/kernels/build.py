@@ -28,7 +28,8 @@ from typing import Dict, Iterable, List
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("panel_qr", "wy_apply", "stacked_qr", "fused_sweep",
-           "fused_panel_f32", "fused_panel_bf16", "wide", "panel_qr_wide")
+           "fused_panel_f32", "fused_panel_bf16", "wide", "panel_qr_wide",
+           "fused_wide_bf16", "panel_qr_wide_bf16", "wide_bf16")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

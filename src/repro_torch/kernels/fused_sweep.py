@@ -17,15 +17,18 @@ the whole window and the C' rows at ``row_start``, one launch), and
 ``panel_qr_apply_ref`` is its plain version, the unfused composition of
 the pure forms.
 
-Both take any panel width. Up to 128 columns they run the b <= 128 bodies
-of ``csrc/qr_common.cuh`` (``csrc/fused_panel_f32.cu`` and, on bf16
-windows, ``csrc/fused_panel_bf16.cu``); above it one cooperative launch of
-``fused_wide_kernel`` (``csrc/fused_sweep.cu``) runs the blocked routes of
-``kernels/wide.py`` (``csrc/wide_qr.cuh``: K1's team on 128-column
-sub-panels, the products of ``csrc/wide_common.cuh`` as grid-wide tile
-phases on 128 x 128 tiles), bit-equal to the stepped wide route. A card that cannot hold a team of the launch raises;
-there is no fallback to stepping. At bf16 the launch is bit-equal to the
-stepped bf16 route; above 128 columns bf16 raises NotImplementedError.
+Both take any panel width, at f32 and bf16. Up to 128 columns they run
+the b <= 128 bodies of ``csrc/qr_common.cuh`` (``csrc/fused_panel_f32.cu``
+and, on bf16 windows, ``csrc/fused_panel_bf16.cu``); above it one
+cooperative launch of the wide body (``csrc/fused_wide.cuh``:
+``fused_wide_kernel`` of ``csrc/fused_sweep.cu``, and on bf16 windows
+``fused_wide_bf16_kernel`` of ``csrc/fused_wide_bf16.cu``) runs the
+blocked routes of ``kernels/wide.py`` (``csrc/wide_qr.cuh``: K1's team on
+128-column sub-panels, the products of ``csrc/wide_common.cuh`` as
+grid-wide tile phases on 128 x 128 tiles), bit-equal to the stepped wide
+route. A card that cannot hold a team of the launch raises; there is no
+fallback to stepping. At bf16 each launch rounds where the stepped bf16
+route rounds, and is bit-equal to it.
 """
 from __future__ import annotations
 
@@ -139,21 +142,26 @@ def _k6(sfx: str):
                       [_P, _L, _L, _P, _P] + [_I] * 9 + [_P] * 17 + [_P])
 
 
+# The library of the wide kernel's entry points at each kernel suffix.
+_WIDE_LIBS = {"f32": "fused_sweep", "bf16": "fused_wide_bf16"}
+
+
 @functools.cache
-def _k5_wide():
-    return build.bind("fused_sweep", "panel_qr_apply_wide_f32",
+def _k5_wide(sfx: str):
+    return build.bind(_WIDE_LIBS[sfx], f"panel_qr_apply_wide_{sfx}",
                       [_P, _L, _L] + [_P] * 9 + [_I, _P] + [_I] * 4 + [_P])
 
 
 @functools.cache
-def _k6_wide():
-    return build.bind("fused_sweep", "fused_panel_wide_f32",
+def _k6_wide(sfx: str):
+    return build.bind(_WIDE_LIBS[sfx], f"fused_panel_wide_{sfx}",
                       [_P, _L, _L, _P, _P] + [_I] * 7 + [_P] * 16 + [_P])
 
 
 @functools.cache
-def _entry(name: str, nargs: int, restype=ctypes.c_size_t):
-    f = getattr(build.load("fused_sweep"), name)
+def _entry(name: str, nargs: int, restype=ctypes.c_size_t,
+           lib: str = "fused_sweep"):
+    f = getattr(build.load(lib), name)
     f.argtypes, f.restype = [_I] * nargs, restype
     return f
 
@@ -231,8 +239,13 @@ def _leaf_scratch(P: int, m: int, b: int, x: torch.Tensor, levels: int = 0):
 def _wide_scratch(P: int, m: int, w: int, b: int, levels: int,
                   x: torch.Tensor) -> torch.Tensor:
     """The wide kernel's global scratch (the sub-panels' factors, the
-    columns in flight, the products' Z and W, K6's stacks)."""
-    n = _entry("fused_wide_scratch_floats", 5)(P, m, w, b, levels)
+    columns in flight, the products' Z and W, K6's stacks; at bf16 also the
+    float copies its products run on: the window, the leaf's Y and T, a
+    blocked QR's T and R, a combine's C' halves)."""
+    sfx = backend.kernel_suffix(x.dtype)
+    name = ("fused_wide_scratch_floats" if sfx == "f32"
+            else "fused_wide_scratch_floats_bf16")
+    n = _entry(name, 5, lib=_WIDE_LIBS[sfx])(P, m, w, b, levels)
     return torch.empty(n, device=x.device, dtype=torch.float32)
 
 
@@ -246,9 +259,12 @@ def gemm_in_block(A, B, D=None, *, sub=False, out=None, minuend=None):
     """``wide.gemm`` through K5/K6's in-block instantiation of the tile
     routine (one 128 x 128 tile a 512-thread block on its first two
     warpgroups under ``setmaxnreg``, as the wide phases run their
-    products). For the tests, which hold it to ``wide.gemm_order``
+    products; float32 operands, which the bf16 launch's products take too,
+    on float copies). For the tests, which hold it to ``wide.gemm_order``
     bit for bit; no path calls it."""
-    args, (P, M, N, K), out, diff = wide._operands(A, B, D, out, minuend)
+    args, (P, M, N, K), out, diff, types = wide._operands(A, B, D, out, minuend)
+    if types:
+        raise ValueError("fused_gemm: float32 operands only")
     if M and N:
         build.check(_gemm_in_block()(*args, P, M, N, K, int(sub),
                                      backend.stream_ptr(A)), "fused_gemm")
@@ -257,12 +273,11 @@ def gemm_in_block(A, B, D=None, *, sub=False, out=None, minuend=None):
 
 def panel_qr_apply(W: torch.Tensor, row_start, b: int):
     """(Y, T, R, C, C') of the fused leaf (K5) on the CUDA window W, f32
-    or (b <= 128) bf16, shaped (P, m, w) or (m, w) (a strided view with unit
-    column stride is taken), the outputs in its dtype; ``row_start`` is a
-    scalar or one value per lane."""
+    or bf16, shaped (P, m, w) or (m, w) (a strided view with unit column
+    stride is taken), the outputs in its dtype; ``row_start`` is a scalar
+    or one value per lane."""
     squeeze = W.dim() == 2
     W3 = backend.lanes(W, "panel_qr_apply")
-    backend.check_width("panel_qr_apply", W3.dtype, b)
     sfx = backend.kernel_suffix(W3.dtype)
     P, m, w = W3.shape
     bn = backend.launch_bn(P, w, W3, None)
@@ -278,7 +293,7 @@ def panel_qr_apply(W: torch.Tensor, row_start, b: int):
     team, work, xch, arrivals, blocks = _leaf_scratch(P, m, b, W3)
     if b > wide.NB:
         scratch = _wide_scratch(P, m, w, b, 0, W3)
-        err = _k5_wide()(W3.data_ptr(), W3.stride(0), W3.stride(1),
+        err = _k5_wide(sfx)(W3.data_ptr(), W3.stride(0), W3.stride(1),
                          rs.data_ptr(), Y.data_ptr(), T.data_ptr(), R.data_ptr(),
                          C.data_ptr(), Cp.data_ptr(), work.data_ptr(),
                          xch.data_ptr(), arrivals.data_ptr(), blocks,
@@ -299,15 +314,14 @@ def panel_qr_apply(W: torch.Tensor, row_start, b: int):
 def fused_panel(window: torch.Tensor, k: int, *, b: int, m_loc_pad: int,
                 levels: int) -> Dict[str, object]:
     """All of panel ``k``'s sweep points in one launch of K6 over the CUDA
-    window (P, m_loc_pad, w), f32 or (b <= 128) bf16 (a strided view with
-    unit column stride, such as ``A[..., k*b:]``). Returns the
+    window (P, m_loc_pad, w), f32 or bf16 (a strided view with unit column
+    stride, such as ``A[..., k*b:]``). Returns the
     ``FUSED_FIELDS`` outputs, in the window's dtype, and ``tops``, as
     ``fused_panel_math`` does."""
     from repro_torch.core.caqr import panel_geometry
     from repro_torch.core.comm import SimComm
 
     W3 = backend.lanes(window, "fused_panel")
-    backend.check_width("fused_panel", W3.dtype, b)
     sfx = backend.kernel_suffix(W3.dtype)
     if window.dim() != 3:
         raise ValueError("fused_panel: expected a (P, m, w) window")
@@ -340,7 +354,7 @@ def fused_panel(window: torch.Tensor, k: int, *, b: int, m_loc_pad: int,
     if b > wide.NB:
         scratch = (work, xch, arrivals, empty(max(L - 1, 1), P, b, b),
                    _wide_scratch(P, m, w, b, L, W3))
-        err = _k6_wide()(W3.data_ptr(), W3.stride(0), W3.stride(1),
+        err = _k6_wide(sfx)(W3.data_ptr(), W3.stride(0), W3.stride(1),
                          rs.data_ptr(), act.data_ptr(), P, m, w, b, L, t_lane,
                          blocks, *(out[f].data_ptr() for f in FUSED_FIELDS),
                          *(s.data_ptr() for s in scratch),

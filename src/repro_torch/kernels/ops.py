@@ -7,10 +7,9 @@ One rule per call, no fallback:
 * tensors on the meta device run the plain version too, for their shapes
   alone (the dry run, ``launch/dryrun.py``): no launch is counted and no
   engine is reported;
-* CUDA tensors run the hand-written CUDA kernel: float32 at any panel
-  width, bfloat16 up to 128 columns (``backend.BF16_MAX_B``; above it, and
-  for any other dtype, ``NotImplementedError``); a call whose CUDA tensors
-  mix dtypes raises ``ValueError``;
+* CUDA tensors run the hand-written CUDA kernel: float32 and bfloat16 at
+  any panel width (any other dtype raises ``NotImplementedError``); a call
+  whose CUDA tensors mix dtypes raises ``ValueError``;
 * anything else raises.
 
 K2 and K4 take the autotuner's winner for the call's cell, its column

@@ -10,10 +10,12 @@ clusters or, where one round of clusters cannot take every lane's team,
 on a plain grid exchanging through global memory; the products between
 sub-panels and in the T join as grid-wide tile phases, the far columns'
 updated by idle blocks during the next team phase), which also takes
-K3's wide route; ``panel_qr_plain`` is its plain PyTorch version. Up to
-128 columns it takes float32 and bfloat16 panels (``panel_qr_f32``,
-``panel_qr_bf16``: the bf16 kernel's bits are the f32 kernel's on the
-widened panel, rounded once); the wide launch is float32 only.
+K3's wide route; ``panel_qr_plain`` is its plain PyTorch version. It
+takes float32 and bfloat16 panels at any width (``panel_qr_f32``,
+``panel_qr_bf16``; above 128 columns ``panel_qr_wide_f32`` and, in
+``csrc/panel_qr_wide_bf16.cu``, ``panel_qr_wide_bf16``, which runs the
+f32 launch's body on a widened copy): the bf16 kernels' bits are the f32
+kernels' on the widened panel, rounded once.
 ``panel_qr_composed`` runs the same blocked route as separate launches
 (K1's team kernel a sub-panel, ``wide.gemm`` between them): the bit
 oracle and time yardstick of the one launch, which no path calls. The
@@ -100,30 +102,38 @@ def sub_qr(A3: torch.Tensor, rs: torch.Tensor):
     return out
 
 
+# The library of the wide launch's entry points at each kernel suffix.
+_WIDE_LIBS = {"f32": "panel_qr_wide", "bf16": "panel_qr_wide_bf16"}
+
+
 @functools.cache
-def _wide_kernel():
-    return build.bind("panel_qr_wide", "panel_qr_wide_f32",
+def _wide_kernel(sfx: str):
+    return build.bind(_WIDE_LIBS[sfx], f"panel_qr_wide_{sfx}",
                       [_P, _L, _L] + [_P] * 9 + [_I] * 4 + [_P])
 
 
 @functools.cache
-def _wide_entry(name: str, nargs: int, restype=ctypes.c_size_t):
-    f = getattr(build.load("panel_qr_wide"), name)
+def _wide_entry(name: str, nargs: int, restype=ctypes.c_size_t,
+                lib: str = "panel_qr_wide"):
+    f = getattr(build.load(lib), name)
     f.argtypes, f.restype = [_I] * nargs, restype
     return f
 
 
 @functools.cache
-def wide_launch_shape(P: int, m: int, b: int, device: int = 0):
+def wide_launch_shape(P: int, m: int, b: int, device: int = 0,
+                      sfx: str = "f32"):
     """(cluster size, grid in blocks) of the one launch of P lanes at an
-    (m x b) panel (K3: m = 2b, the stack's rows) on card ``device``:
-    clusters of the largest team of its sub-panels, as many as the card
-    holds at once; or (0, grid), a plain cooperative grid whose team phases
-    exchange through global memory, where one round of clusters cannot
-    take every lane's team and that grid can. Raises RuntimeError when the
-    card cannot hold a team of the launch."""
+    (m x b) panel (K3: m = 2b, the stack's rows) on card ``device``, of the
+    f32 or the bf16 kernels (``sfx``): clusters of the largest team of its
+    sub-panels, as many as the card holds at once; or (0, grid), a plain
+    cooperative grid whose team phases exchange through global memory,
+    where one round of clusters cannot take every lane's team and that grid
+    can. Raises RuntimeError when the card cannot hold a team of the
+    launch."""
     cluster, grid = ctypes.c_int(0), ctypes.c_int(0)
-    f = build.bind("panel_qr_wide", "panel_qr_wide_shape",
+    name = "panel_qr_wide_shape" + ("" if sfx == "f32" else f"_{sfx}")
+    f = build.bind(_WIDE_LIBS[sfx], name,
                    [_I, _I, _I, ctypes.POINTER(ctypes.c_int),
                     ctypes.POINTER(ctypes.c_int)])
     with torch.cuda.device(device):
@@ -139,26 +149,34 @@ def launch_wide(A3: torch.Tensor, rs, bot=None):
     A3 (P, m, b) from int32 row starts ``rs`` (P,) on the card; or, with
     ``bot``, of the stacks [triu(A3); triu(bot)] of two contiguous
     (P, b, b) triangles at row start 0, returning (Y2, T, R) with
-    Y2 = triu(Y[b:]) (K3's wide route). Every output equals
-    ``panel_qr_composed``'s (or ``stacked_qr_composed``'s) bit for bit."""
+    Y2 = triu(Y[b:]) (K3's wide route), in A3's dtype (f32 or bf16). At f32
+    every output equals ``panel_qr_composed``'s (or
+    ``stacked_qr_composed``'s) bit for bit; at bf16 the f32 launch's on the
+    widened inputs, rounded once."""
     P, m, b = A3.shape
     if bot is not None:
         m = 2 * b
-    wide_launch_shape(P, m, b, A3.device.index or 0)
-    dev, dt = A3.device, A3.dtype
+    sfx = backend.kernel_suffix(A3.dtype)
+    wide_launch_shape(P, m, b, A3.device.index or 0, sfx)
+    dev, dt, f32 = A3.device, A3.dtype, torch.float32
     Y = torch.empty(P, b if bot is not None else m, b, device=dev, dtype=dt)
     T = torch.empty(P, b, b, device=dev, dtype=dt)
     R = torch.empty_like(T)
+    # the launch's scratch is float at either dtype
     work = torch.empty(P * _wide_entry("panel_qr_wide_work_floats", 2)(m, b),
-                       device=dev, dtype=dt)
-    scratch = torch.empty(_wide_entry("panel_qr_wide_scratch_floats", 4)(
-        P, m, b, int(bot is not None)), device=dev, dtype=dt)
+                       device=dev, dtype=f32)
+    scratch_floats = (_wide_entry("panel_qr_wide_scratch_floats", 4)
+                      if sfx == "f32" else
+                      _wide_entry("panel_qr_wide_scratch_floats_bf16", 4,
+                                  lib=_WIDE_LIBS[sfx]))
+    scratch = torch.empty(scratch_floats(P, m, b, int(bot is not None)),
+                          device=dev, dtype=f32)
     blocks = backend.sm_count(dev.index or 0)
     xch = torch.empty(_wide_entry("panel_qr_wide_xch_floats", 1)(blocks),
-                      device=dev, dtype=dt)
+                      device=dev, dtype=f32)
     phases = _wide_entry("panel_qr_wide_team_phases", 1, ctypes.c_int)(b)
     arrivals = torch.empty(phases * blocks, device=dev, dtype=torch.int32)
-    err = _wide_kernel()(A3.data_ptr(), A3.stride(0), A3.stride(1),
+    err = _wide_kernel(sfx)(A3.data_ptr(), A3.stride(0), A3.stride(1),
                          None if bot is None else bot.data_ptr(),
                          None if rs is None else rs.data_ptr(), Y.data_ptr(),
                          T.data_ptr(), R.data_ptr(), work.data_ptr(),
@@ -195,16 +213,14 @@ def panel_qr(A: torch.Tensor, row_start):
     (P, m, b) or (m, b), any b >= 1 with m >= b; ``row_start`` is a scalar
     or one value per lane. A may be a strided view (unit column stride).
     Up to MAX_B columns each lane runs on a team of
-    ``backend.team_blocks(m, b)`` blocks, at f32 or bf16 (outputs in A's
-    dtype); a wider f32 panel runs in sub-panels of 128 columns inside one
-    launch (``launch_wide``), and a wider bf16 one raises
-    NotImplementedError."""
+    ``backend.team_blocks(m, b)`` blocks; a wider panel runs in sub-panels
+    of 128 columns inside one launch (``launch_wide``); either at f32 or
+    bf16, the outputs in A's dtype."""
     squeeze = A.dim() == 2
     A3, rs = _lanes_rs(A, row_start, "panel_qr")
     if A3.shape[-1] <= MAX_B:
         Y, T, R = _launch(A3, rs)
     else:
-        backend.check_width("panel_qr", A3.dtype, A3.shape[-1])
         Y, T, R = launch_wide(A3, rs)
     backend.count_launch("panel_qr", A3.dtype)
     if squeeze:

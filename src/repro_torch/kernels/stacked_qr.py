@@ -8,9 +8,10 @@ wider b K3 is K1's one wide launch on the stacked triangles
 (``wide.stacked_apply_wide``); ``stacked_qr_plain`` and
 ``stacked_apply_plain`` are their plain PyTorch versions.
 ``stacked_qr_composed`` is K3's wide route as separate launches, the bit
-oracle of the one launch. Up to MAX_B both take float32 and bfloat16
-(``*_f32``, ``*_bf16``: the bf16 kernels' bits are the f32 kernels' on the
-widened inputs, rounded once); the wider routes are float32 only.
+oracle of the one launch (f32). Both take float32 and bfloat16 at any b
+(``*_f32``, ``*_bf16``; above MAX_B K1's bf16 wide launch and the bf16
+products of ``csrc/wide_bf16.cu``): the bf16 kernels' bits are the f32
+kernels' on the widened inputs, rounded once.
 """
 from __future__ import annotations
 
@@ -61,8 +62,8 @@ def _b(b: int, op: str) -> None:
 
 def stacked_qr(R_top: torch.Tensor, R_bot: torch.Tensor):
     """(Y2, T, R) of QR([R_top; R_bot]) for contiguous CUDA tensors of one
-    dtype, (P, b, b) or (b, b): f32 at any b >= 1 (above MAX_B through K1's
-    one wide launch on the stacks), bf16 up to MAX_B."""
+    dtype, (P, b, b) or (b, b), f32 or bf16, at any b >= 1 (above MAX_B
+    through K1's one wide launch on the stacks)."""
     squeeze = R_top.dim() == 2
     Rt, Rb = _pair(R_top, R_bot, "stacked_qr")
     sfx = backend.kernel_dtype("stacked_qr", Rt, Rb)
@@ -75,7 +76,6 @@ def stacked_qr(R_top: torch.Tensor, R_bot: torch.Tensor):
                               P, b, backend.stream_ptr(Rt))
         build.check(err, "stacked_qr")
     else:
-        backend.check_width("stacked_qr", Rt.dtype, b)
         Y2, T, R = _panel.launch_wide(Rt, None, bot=Rb)
     backend.count_launch("stacked_qr", Rt.dtype)
     if squeeze:
@@ -110,8 +110,9 @@ def stacked_apply(Y2: torch.Tensor, T: torch.Tensor, C_top: torch.Tensor,
                   C_bot: torch.Tensor, bn: Optional[int] = None,
                   kbs: Optional[int] = None):
     """(C_top - W, C_bot - Y2 W, W) with W = T^T (C_top + Y2^T C_bot), for
-    contiguous CUDA tensors of one dtype, f32 or (b <= MAX_B) bf16, the
-    outputs in it: Y2, T (P, b, b), upper triangular as
+    contiguous CUDA tensors of one dtype, f32 or bf16, the outputs in it
+    (above MAX_B the inner sum and W in float, W rounded last): Y2, T
+    (P, b, b), upper triangular as
     ``stacked_qr`` makes them (up to MAX_B the kernel skips their zero
     triangles; above it ``wide.stacked_apply_wide`` reads all of them, as
     the plain version does); C_top, C_bot (P, b, n); or the same without
@@ -132,7 +133,6 @@ def stacked_apply(Y2: torch.Tensor, T: torch.Tensor, C_top: torch.Tensor,
                          f"{[tuple(x.shape) for x in (Y2, T, C_top, C_bot)]}")
     _b(b, "stacked_apply")
     if b > MAX_B:
-        backend.check_width("stacked_apply", Ct.dtype, b)
         ot, ob, W = wide.stacked_apply_wide(Y3, T3, Ct, Cb, gemm=wide.gemm,
                                             bn=bn, kbs=kbs)
     else:

@@ -28,6 +28,15 @@ hand-written kernels, never of ``torch.matmul`` or ``torch.geqrf``:
   ``W = T^T inner`` and ``C_top - W`` from one product (its epilogue
   stores both), ``C_bot - Y2 W``.
 
+At bf16 the routes run the same sub-kernels at bf16, each equal to the
+f32 kernel on the widened inputs rounded once: K1 and K3 in one launch of
+``csrc/panel_qr_wide_bf16.cu`` (the f32 blocked QR on a widened copy, its
+outputs rounded at the end, since it reads its own Y and T back), and the
+products of K2 and K4 take each operand at its own type
+(``csrc/wide_bf16.cu``): the intermediates Z, W and inner stay float, as
+the reference's tile programs accumulate in f32, and only the outputs are
+rounded (K4's W after ``C_bot - Y2 W`` has read it in float).
+
 Each route is a function of its sub-kernels (``qr``, ``apply``, ``gemm``),
 so the CPU tests run the composition with the plain bodies (``PLAIN``)
 against the unblocked plain versions. On the card the wrappers in
@@ -71,8 +80,10 @@ SPLIT_MIN = 8
 
 
 @functools.cache
-def _kernel():
-    return build.bind("wide", "wide_gemm_f32", _GEMM + [_I, _I, _P, _P])
+def _kernel(sfx: str):
+    if sfx == "f32":
+        return build.bind("wide", "wide_gemm_f32", _GEMM + [_I, _I, _P, _P])
+    return build.bind("wide_bf16", "wide_gemm_bf16", _GEMM + [_I] * 3 + [_P, _P])
 
 
 @functools.cache
@@ -80,11 +91,29 @@ def _order_kernel():
     return build.bind("wide", "wide_gemm_order_f32", _GEMM + [_P])
 
 
+@functools.cache
+def _round_kernel():
+    return build.bind("wide_bf16", "wide_round_bf16", [_P, _P, _L, _P])
+
+
 def _as3(x: torch.Tensor, what: str) -> torch.Tensor:
-    if x.device.type != "cuda" or x.dtype != torch.float32 or x.dim() not in (2, 3):
-        raise ValueError(f"wide_gemm: {what} must be a CUDA float32 tensor of "
-                         f"rank 2 or 3, got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if (x.device.type != "cuda" or x.dtype not in (torch.float32, torch.bfloat16)
+            or x.dim() not in (2, 3)):
+        raise ValueError(f"wide_gemm: {what} must be a CUDA float32 or bfloat16 "
+                         f"tensor of rank 2 or 3, got {x.dtype} {tuple(x.shape)} "
+                         f"on {x.device}")
     return x.unsqueeze(0) if x.dim() == 2 else x
+
+
+# The bf16 entry's type bits (WB_* in csrc/wide_common.cuh), an operand a
+# bit: A, B, D (or E), out, out2.
+_WB = (1, 2, 4, 8, 16)
+
+
+def _types(*xs) -> int:
+    """The type bits of (A, B, D or E, out, out2); 0 when all are f32."""
+    return sum(bit for bit, x in zip(_WB, xs)
+               if x is not None and x.dtype == torch.bfloat16)
 
 
 def _ptr(x: Optional[torch.Tensor]):
@@ -116,9 +145,10 @@ def gemm_plan(P: int, M: int, N: int, K: int):
     return bn, -(-nblk // max(parts, 1)) if nblk else 1
 
 
-def _operands(A, B, D, out, minuend):
-    """The lane-axis views of gemm's operands, checked, and the second
-    output (for ``minuend``)."""
+def _operands(A, B, D, out, minuend, out_dtype=None):
+    """The lane-axis views of gemm's operands, checked, the second output
+    (for ``minuend``, in its dtype) and the operands' type bits. A new
+    ``out`` takes ``out_dtype``, by default A's."""
     A3, B3 = _as3(A, "A"), _as3(B, "B")
     P, M, K = A3.shape
     N = B3.shape[-1]
@@ -126,24 +156,43 @@ def _operands(A, B, D, out, minuend):
         raise ValueError(f"wide_gemm: shapes {tuple(A.shape)} and "
                          f"{tuple(B.shape)} do not conform")
     if out is None:
-        out = torch.empty(*A.shape[:-1], N, device=A.device, dtype=A.dtype)
+        out = torch.empty(*A.shape[:-1], N, device=A.device,
+                          dtype=A.dtype if out_dtype is None else out_dtype)
     O3 = _as3(out, "out")
     D3 = None if D is None else _as3(D, "D")
     E3 = None if minuend is None else _as3(minuend, "minuend")
-    diff = None if minuend is None else torch.empty_like(out)
+    diff = None if minuend is None else torch.empty(
+        out.shape, device=out.device, dtype=minuend.dtype)
     O23 = None if diff is None else _as3(diff, "out2")
     for x in (O3, D3, E3, O23):
         if x is not None and x.shape != (P, M, N):
             raise ValueError(f"wide_gemm: an output-shaped operand is "
                              f"{tuple(x.shape)}, not {(P, M, N)}")
+    if D3 is not None and E3 is not None and D3.dtype != E3.dtype:
+        raise ValueError("wide_gemm: D and the minuend differ in dtype")
+    types = _types(A3, B3, D3 if D3 is not None else E3, O3, O23)
     args = (*_ptr(A3), *_ptr(B3), *_ptr(D3), *_ptr(O3), *_ptr(E3), *_ptr(O23))
-    return args, (P, M, N, K), out, diff
+    return args, (P, M, N, K), out, diff, types
+
+
+def _bf16_kind(types: int, D, minuend) -> None:
+    """Raise for a mix of element types no bf16 route runs: the
+    combinations of ``gemm_bf16_kind`` (csrc/wide_common.cuh), a missing
+    operand's bit set."""
+    full = (types | (0 if D is not None or minuend is not None else 4)
+            | (0 if minuend is not None else 16))
+    kinds = {1 | 2 | 4 | 16: minuend is None, 1 | 4 | 16: D is None,
+             1 | 4 | 8 | 16: minuend is None}
+    if not kinds.get(full, False):
+        raise NotImplementedError(
+            f"wide_gemm: no kernel takes the element types {types:05b} "
+            "(bits: A, B, D/E, out, out2 from the right; 1 = bf16)")
 
 
 def gemm(A: torch.Tensor, B: torch.Tensor, D: Optional[torch.Tensor] = None,
          *, sub: bool = False, out: Optional[torch.Tensor] = None,
          bn: Optional[int] = None, minuend: Optional[torch.Tensor] = None,
-         kbs: Optional[int] = None):
+         kbs: Optional[int] = None, out_dtype: Optional[torch.dtype] = None):
     """``D -/+ A B`` per lane on the card (``csrc/wide.cu``): A (P, M, K),
     B (P, K, N), D (P, M, N) or None (then ``-/+ A B``), or the same
     without the lane axis; any strides, so ``Y.mT`` or a column block is
@@ -153,8 +202,17 @@ def gemm(A: torch.Tensor, B: torch.Tensor, D: Optional[torch.Tensor] = None,
     split, with its block sums in scratch) default to ``gemm_plan``; they
     do not change a bit. With ``minuend`` E (shaped as D) it returns
     ``(out, E - A B)``, the second from the same sum by a second store of
-    the kernel's epilogue."""
-    args, (P, M, N, K), out, diff = _operands(A, B, D, out, minuend)
+    the kernel's epilogue, in E's dtype. Each operand is float32 or
+    bfloat16 (``out_dtype``, by default A's, for a new ``out``): at f32
+    throughout ``wide_gemm_f32``; else ``wide_gemm_bf16``, which takes the
+    bf16 routes' three mixes (a bf16 A and B into a float out; a bf16 A
+    times a float B into a float out, with a bf16 second store; a bf16 A
+    times a float B from a bf16 D into a bf16 out) and equals the f32
+    product on the widened operands, rounded where it stores bf16."""
+    args, (P, M, N, K), out, diff, types = _operands(A, B, D, out, minuend,
+                                                     out_dtype)
+    if types:
+        _bf16_kind(types, D, minuend)
     plan_bn, plan_kbs = gemm_plan(P, M, N, K)
     bn = plan_bn if bn is None else bn
     kbs = plan_kbs if kbs is None else kbs
@@ -165,9 +223,13 @@ def gemm(A: torch.Tensor, B: torch.Tensor, D: Optional[torch.Tensor] = None,
         split = kbs < kblocks(K)
         part = (torch.empty(kblocks(K) * P * M * N, device=A.device,
                             dtype=torch.float32) if split else None)
-        err = _kernel()(*args, P, M, N, K, int(sub), bn, kbs,
-                        None if part is None else part.data_ptr(),
-                        backend.stream_ptr(A))
+        pt = None if part is None else part.data_ptr()
+        if types:
+            err = _kernel("bf16")(*args, P, M, N, K, int(sub), types, bn, kbs,
+                                  pt, backend.stream_ptr(A))
+        else:
+            err = _kernel("f32")(*args, P, M, N, K, int(sub), bn, kbs, pt,
+                                 backend.stream_ptr(A))
         build.check(err, "wide_gemm")
         backend.count_sub("wide_gemm_kernel")
         if split:
@@ -175,12 +237,35 @@ def gemm(A: torch.Tensor, B: torch.Tensor, D: Optional[torch.Tensor] = None,
     return out if diff is None else (out, diff)
 
 
+def narrow(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in ``dtype``: itself when it is, else (a float tensor on the
+    card, to bf16) rounded to nearest even by ``wide_round_bf16``, counted
+    in ``backend.SUB_LAUNCHES``; on the CPU (the plain bodies) ``x.to``."""
+    if x.dtype == dtype:
+        return x
+    if x.device.type != "cuda":
+        return x.to(dtype)
+    if x.dtype != torch.float32 or dtype != torch.bfloat16:
+        raise ValueError(f"narrow: float32 to bfloat16 only, got {x.dtype} "
+                         f"to {dtype}")
+    x = x.contiguous()
+    y = torch.empty(x.shape, device=x.device, dtype=dtype)
+    build.check(_round_kernel()(x.data_ptr(), y.data_ptr(), x.numel(),
+                                backend.stream_ptr(x)), "wide_round_bf16")
+    backend.count_sub("wide_round_bf16")
+    return y
+
+
 def gemm_order(A, B, D=None, *, sub=False, out=None, minuend=None):
     """``gemm`` through the oracle of its summation order
-    (``wide_gemm_order_f32``: one thread an element, the order as loops).
-    For the tests, which hold every instantiation of the tile routine to it
-    bit for bit; no path calls it."""
-    args, (P, M, N, K), out, diff = _operands(A, B, D, out, minuend)
+    (``wide_gemm_order_f32``: one thread an element, the order as loops),
+    float32 operands only: a bf16 product is held to it on the widened
+    operands, rounded where the product stores bf16. For the tests, which
+    hold every instantiation of the tile routine to it bit for bit; no path
+    calls it."""
+    args, (P, M, N, K), out, diff, types = _operands(A, B, D, out, minuend)
+    if types:
+        raise ValueError("wide_gemm_order: float32 operands only")
     if M and N:
         build.check(_order_kernel()(*args, P, M, N, K, int(sub),
                                     backend.stream_ptr(A)), "wide_gemm_order")
@@ -188,12 +273,14 @@ def gemm_order(A, B, D=None, *, sub=False, out=None, minuend=None):
 
 
 def gemm_plain(A, B, D=None, *, sub=False, out=None, bn=None, minuend=None,
-               kbs=None):
+               kbs=None, out_dtype=None):
     """The plain version of ``gemm``."""
     AB = A @ B
     res = (D - AB if sub else D + AB) if D is not None else (-AB if sub else AB)
     if out is not None:
         res = out.copy_(res)
+    elif out_dtype is not None:
+        res = res.to(out_dtype)
     return res if minuend is None else (res, minuend - AB)
 
 
@@ -235,9 +322,12 @@ def panel_qr_blocked(A: torch.Tensor, rs: torch.Tensor, *, qr, apply, gemm):
 
 def wy_apply_wide(Y, T, C, *, gemm, bn=None, kbs=None):
     """Q^T C = C - Y (T^T (Y^T C)) for any b; Y (P, m, b), T (P, b, b),
-    C (P, m, n). ``bn`` and ``kbs`` (the products' tile and k range) apply
-    to each of the three products; None leaves each its ``gemm_plan``."""
-    W = gemm(T.mT, gemm(Y.mT, C, bn=bn, kbs=kbs), bn=bn, kbs=kbs)
+    C (P, m, n); Y^T C and W float32, the result in C's dtype. ``bn`` and
+    ``kbs`` (the products' tile and k range) apply to each of the three
+    products; None leaves each its ``gemm_plan``."""
+    f32 = torch.float32
+    W = gemm(T.mT, gemm(Y.mT, C, bn=bn, kbs=kbs, out_dtype=f32), bn=bn, kbs=kbs,
+             out_dtype=f32)
     return gemm(Y, W, C, sub=True, bn=bn, kbs=kbs)
 
 
@@ -261,10 +351,14 @@ def stacked_qr_wide(R_top, R_bot, *, qr, apply, gemm):
 def stacked_apply_wide(Y2, T, C_top, C_bot, *, gemm, bn=None, kbs=None):
     """(C_top - W, C_bot - Y2 W, W), W = T^T (C_top + Y2^T C_bot), for any
     b; every entry of Y2 and T is read, as the plain version reads it.
+    The inner sum and W are float32 (``C_bot - Y2 W`` reads W in float, as
+    the reference computes it); the outputs, W too, in C_top's dtype.
     ``bn`` and ``kbs`` as in ``wy_apply_wide``."""
-    W, top = gemm(T.mT, gemm(Y2.mT, C_bot, C_top, bn=bn, kbs=kbs), bn=bn,
-                  kbs=kbs, minuend=C_top)
-    return top, gemm(Y2, W, C_bot, sub=True, bn=bn, kbs=kbs), W
+    f32 = torch.float32
+    W, top = gemm(T.mT, gemm(Y2.mT, C_bot, C_top, bn=bn, kbs=kbs, out_dtype=f32),
+                  bn=bn, kbs=kbs, minuend=C_top, out_dtype=f32)
+    bot = gemm(Y2, W, C_bot, sub=True, bn=bn, kbs=kbs)
+    return top, bot, narrow(W, C_top.dtype)
 
 
 # The plain bodies: the blocked routes composed of the plain versions.

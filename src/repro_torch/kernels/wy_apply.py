@@ -4,9 +4,10 @@
 ``wy_apply`` launches the CUDA kernel of ``csrc/wy_apply.cu`` over the lane
 axis for b up to ``MAX_B``, and the three products of ``csrc/wide.cu``
 (``wide.wy_apply_wide``) for a wider b; ``wy_apply_plain`` is its plain
-PyTorch version. Up to MAX_B it takes float32 and bfloat16 (``wy_apply_f32``,
-``wy_apply_bf16``: the bf16 kernel's bits are the f32 kernel's on the
-widened operands, rounded once); the wider route is float32 only.
+PyTorch version. It takes float32 and bfloat16 at any b (``wy_apply_f32``,
+``wy_apply_bf16``; above MAX_B the products of ``csrc/wide.cu`` and, at
+bf16, ``csrc/wide_bf16.cu``, Y^T C and W in float): the bf16 bits are the
+f32 kernel's on the widened operands, rounded once.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ def _kernel(sfx: str):
 
 def wy_apply(Y: torch.Tensor, T: torch.Tensor, C: torch.Tensor,
              bn: Optional[int] = None, kbs: Optional[int] = None) -> torch.Tensor:
-    """Q^T C for CUDA tensors of one dtype, f32 or (b <= MAX_B) bf16: Y
+    """Q^T C for CUDA tensors of one dtype, f32 or bf16: Y
     (P, m, b), T (P, b, b), C (P, m, n), or the same without the lane axis,
     the result in their dtype; any b >= 1, and T need not be Y's own
     (all of it is read). C may be a strided view (unit column stride),
@@ -56,7 +57,6 @@ def wy_apply(Y: torch.Tensor, T: torch.Tensor, C: torch.Tensor,
     if b < 1:
         raise ValueError(f"wy_apply: needs b >= 1, got {b}")
     if b > MAX_B:
-        backend.check_width("wy_apply", C3.dtype, b)
         out = wide.wy_apply_wide(Y3, T3, C3, gemm=wide.gemm, bn=bn, kbs=kbs)
     else:
         bn = backend.launch_bn(P, n, C3, bn)

@@ -2,8 +2,10 @@
 
 On this CPU the port's ops run their plain PyTorch versions, bf16
 throughout like the JAX package's pure forms; on the card the bf16 kernels
-K1-K6 (b <= 128) are held to the f32 kernels rounded once and to these
-plain versions by ``tests/test_torch_cuda.py -k bf16``. Inputs are made
+K1-K6 (at any panel width) are held to the f32 kernels rounded once and to
+these plain versions by ``tests/test_torch_cuda.py -k bf16``. Panel widths
+above 128 (the port's blocked routes on the card) have a geometry of their
+own here (``WIDE``). Inputs are made
 with numpy from a seed, rounded to bf16 once, and fed to both packages.
 Floats are compared at the JAX package's bf16 tolerance,
 ``atol = 5e-2 * max(1, max|ref|)`` (``ref.tolerances``); ledgers, the
@@ -11,6 +13,7 @@ geometry and ``tops`` exactly; the port's own bitwise claims (kill ==
 failure-free, fused == stepped) bit for bit.
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -85,12 +88,17 @@ def test_kernel_suffix_rule(dtype, suffix):
 
 
 def test_mixed_dtypes_and_wide_bf16_raise():
+    """Mixed dtypes raise ValueError; float16 raises NotImplementedError at
+    b = 256 as at any width; f32 and bf16 both have kernels at b = 256 (the
+    width gate of the b <= 128 bf16 kernels is gone)."""
     with pytest.raises(ValueError, match="one dtype"):
         backend.kernel_dtype("wy_apply", torch.zeros(2), torch.zeros(2, dtype=BF16))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-        backend.check_width("panel_qr", BF16, 129)
-    backend.check_width("panel_qr", BF16, 128)
-    backend.check_width("panel_qr", torch.float32, 256)
+    wide16 = torch.zeros(2, 512, 256, dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="float16"):
+        backend.kernel_dtype("panel_qr", wide16)
+    for dtype in (torch.float32, BF16):
+        assert backend.kernel_dtype("panel_qr", torch.zeros(2, 512, 256, dtype=dtype))
+    assert not hasattr(backend, "check_width") and not hasattr(backend, "BF16_MAX_B")
 
 
 # -- K1-K5 on the shapes of the reference's bf16 parity matrix ----------------
@@ -156,7 +164,8 @@ def test_k1_k5_bf16_match_pallas_interpret(op, m, b, n):
 
 # -- K6: the whole panel ------------------------------------------------------
 
-GEOMS = [("aligned", 4, 8, 16, 4), ("ragged", 4, 6, 10, 4), ("wide", 4, 4, 40, 4)]
+GEOMS = [("aligned", 4, 8, 16, 4), ("ragged", 4, 6, 10, 4), ("wide", 4, 4, 40, 4),
+         ("b136", 2, 160, 272, 136)]
 
 
 def test_fused_panel_bf16_matches_pallas_interpret():
@@ -242,3 +251,88 @@ def test_ft_sweep_bf16_two_kills_matches_reference():
         [(e.point, e.lane, e.reads) for e in want.events]
     assert len(got.events) == 2
     close(got.R, want.R)
+
+
+# -- above 128 columns ----------------------------------------------------------
+
+# P = 2 lanes of 160 rows, 272 columns: two panels of b = 136, the width at
+# which the port's kernels take their blocked routes (sub-panels of 128).
+WIDE = (2, 160, 272, 136)
+WIDE_KILL = {sweep_point(0, "trailing", 0): [1]}
+
+
+@pytest.fixture(scope="module")
+def wide_ref():
+    """The wide geometry's input and the JAX package's bf16 R on it,
+    computed once: caqr_factorize's scan form, jitted (the windowed form's
+    bits, in a fifth of the time)."""
+    P, m_loc, n, b = WIDE
+    A = np.random.default_rng(11).standard_normal((P, m_loc, n))
+    A_t, A_j = both(A)
+    R = jax.jit(lambda a: J.caqr_factorize(a, J.SimComm(P), b, use_scan=True).R)(A_j)
+    return A_t, R
+
+
+def close_rows(got, want):
+    """R against the JAX package's R with each row's sign set by its
+    diagonal (sign(0) = +1) on both sides, then as ``close``: an R factor
+    is unique up to its rows' signs, and at this size some pivots' entries
+    fall below bf16's round-off of their columns (the trailing rows of a
+    leaf with few rows left), where either reflector is a valid choice and
+    the port's plain versions (bf16 throughout) and the JAX package's
+    (dots accumulating in f32) choose differently."""
+    g = got.double().numpy()
+    w = np.asarray(want, np.float64)
+    def signed(x):
+        d = np.diagonal(x, axis1=-2, axis2=-1)
+        return x * np.where(d < 0, -1.0, 1.0)[..., None]
+    close(torch.from_numpy(signed(g)), signed(w))
+
+
+def test_caqr_factorize_bf16_above_128_matches_reference(wide_ref):
+    """caqr_factorize of a bf16 matrix at b = 136: R within the bf16
+    tolerance of the JAX package's (``close_rows``), replicated bitwise."""
+    A_t, R_ref = wide_ref
+    P, _, _, b = WIDE
+    got = T.caqr_factorize(A_t, T.SimComm(P), b, use_scan=False)
+    assert got.R.dtype == BF16 and R_ref.dtype == jnp.bfloat16
+    close_rows(got.R, R_ref)
+    assert bool((got.R == got.R[:1]).all())
+
+
+def test_ft_sweep_bf16_above_128_kill_matches_reference(wide_ref):
+    """ft_caqr_sweep at bf16 and b = 136 with one kill: R, factors and
+    bundles bit-equal to the failure-free sweep in the port, the kill in
+    the ledger, and R within the bf16 tolerance of the JAX package's
+    (``close_rows``; the ledger against the JAX package's is
+    ``test_ft_sweep_bf16_two_kills_matches_reference``'s)."""
+    A_t, R_ref = wide_ref
+    P, _, _, b = WIDE
+    clean = T.caqr_factorize(A_t, T.SimComm(P), b, collect_bundles=True,
+                             use_scan=False)
+    got = ft_caqr_sweep(A_t, T.SimComm(P), b,
+                        schedule=FailureSchedule(events=WIDE_KILL))
+    for x, y in zip((got.R, *got.factors, *got.bundles),
+                    (clean.R, *clean.factors, *clean.bundles)):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    ((point, lanes),) = WIDE_KILL.items()
+    assert [(e.point, e.lane) for e in got.events] == [(point, lanes[0])]
+    close_rows(got.R, R_ref)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["stepped", "fused"])
+def test_state_machine_bf16_above_128_matches_reference(wide_ref, fused):
+    """The state machine at bf16 and b = 136, stepped (run_steps) or fused
+    (run_panel_fused): R bit-equal to the port's caqr_factorize and within
+    the bf16 tolerance of the JAX package's (``close_rows``)."""
+    A_t, R_ref = wide_ref
+    P, _, _, b = WIDE
+    comm = T.SimComm(P)
+    s = tstate.initial_sweep_state(comm, A_t, b)
+    pts = tstate.panel_points(s.geom)
+    while s.cursor is not None:
+        s = tstate.run_panel_fused(comm, s) if fused else tstate.run_steps(comm, s, pts)
+    R = tstate.finalize(comm, s)[0]
+    want = T.caqr_factorize(A_t, comm, b, use_scan=False).R
+    assert R.dtype == BF16 and torch.equal(R, want)
+    close_rows(R, R_ref)

@@ -13,7 +13,8 @@ kernel == the stepped wide route. At bf16 (b <= 128; ``-k bf16``): K1-K4
 == the f32 kernel on the widened inputs rounded once, bit for bit, K5 ==
 K1 then K2 and ``run_panel_fused`` == ``run_steps`` bit for bit, each
 kernel within the bf16 pair of ``ref.tolerances`` of its plain version,
-and bf16 above 128 columns raising.
+at b <= 128 and above 128 columns (every tile and split of k of the bf16
+products held to the order oracle on the widened operands too).
 Needs an NVIDIA GPU with nvcc; every test skips without one.
 
 Imports neither JAX nor the JAX package, so it also runs on a machine
@@ -1451,7 +1452,7 @@ def test_cuda_autotune_planted_winner_reaches_the_launch(rng, cuda, monkeypatch,
         autotune.clear()
 
 
-# -- bf16, panel widths up to 128 ---------------------------------------------
+# -- bf16 -------------------------------------------------------------------
 
 BF16 = torch.bfloat16
 
@@ -1659,25 +1660,255 @@ def test_cuda_bf16_full_width_equals_windowed(rng, cuda):
 @pytest.mark.parametrize("op", ["panel_qr", "wy_apply", "stacked_qr",
                                 "stacked_apply", "panel_qr_apply", "fused_panel"])
 def test_cuda_bf16_above_128_columns_raises(rng, cuda, op):
-    """bf16 above 128 columns is not ported (ROADMAP.md queue 2): every op
-    raises NotImplementedError before any launch; f32 takes the same call."""
+    """bf16 above 128 columns runs each op's hand-written bf16 kernel: one
+    bf16 launch of the op, its engine the CUDA kernel, the outputs bf16,
+    and K1-K4 the f32 kernel's on the widened inputs rounded once, K5 K1
+    then K2, K6's leaf factors and applied window K1's and K2's, bit for
+    bit (it raised while only b <= 128 had bf16 kernels)."""
     b, m, n = 160, 512, 320
     W = bf16(rng, 2, m, n)
-    sq = bf16(rng, 2, b, b, triu=True)
+    sq = bf16(rng, 2, b, b, scale=0.1, triu=True)
+    Ct, Cb = W[:, :b, :b].contiguous(), W[:, b:2 * b, :b].contiguous()
     calls = {
         "panel_qr": lambda x, s: ops.panel_qr(x[..., :b], 0),
         "wy_apply": lambda x, s: ops.wy_apply(x[..., :b].contiguous(), s, x),
         "stacked_qr": lambda x, s: ops.stacked_qr(s, s),
-        "stacked_apply": lambda x, s: ops.stacked_apply(s, s, s, s),
+        "stacked_apply": lambda x, s: ops.stacked_apply(s, s, Ct.to(x.dtype),
+                                                        Cb.to(x.dtype)),
         "panel_qr_apply": lambda x, s: ops.panel_qr_apply(x, 0, b),
-        "fused_panel": lambda x, s: ops.fused_panel(x, 0, b=b, m_loc_pad=m, levels=1),
+        "fused_panel": lambda x, s: ops.fused_panel(x, 0, b=b, m_loc_pad=m,
+                                                    levels=1),
     }
     backend.reset_launches()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-        calls[op](W, sq)
-    assert backend.LAUNCHES[op] == 0
-    calls[op](W.float(), sq.float())
-    assert backend.LAUNCHES[op] == 1
+    got = calls[op](W, sq)
+    assert backend.LAUNCHES[op] == backend.BF16_LAUNCHES[op] == 1
+    assert backend.probe_report()[op]["engine"] == backend.ENGINE_CUDA
+    outs = tuple(got[f] for f in tfused.FUSED_FIELDS) if op == "fused_panel" \
+        else (got if isinstance(got, tuple) else (got,))
+    assert all(x.dtype == BF16 for x in outs)
+    if op in ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply"):
+        assert same(got, f32_rounded(lambda x, s: calls[op](x, s), W, sq))
+    else:
+        Y, T, R = ops.panel_qr(W[..., :b], 0)
+        C = ops.wy_apply(Y, T, W)
+        if op == "panel_qr_apply":
+            assert same(got, (Y, T, R, C, C[:, :b].contiguous()))
+        else:
+            assert torch.equal(got["leaf_Y"], Y) and torch.equal(got["C_local"], C)
+
+
+# -- bf16 above 128 columns -----------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,b,row_start", [(1024, 256, 0), (1000, 200, 37),
+                                           (1000, 200, 800), (512, 300, 0)])
+def test_cuda_bf16_wide_panel_qr_is_f32_rounded(rng, cuda, m, b, row_start):
+    """K1 above 128 columns at bf16 (one launch of csrc/
+    panel_qr_wide_bf16.cu): the f32 wide launch on the widened panel rounded
+    once, bit for bit, at a ragged width too; within the bf16 tolerance of
+    the plain version (``held_bf16``); a lane alone == that lane of a
+    3-lane launch (the REBUILD replay)."""
+    A = bf16(rng, 3, m, b + 5)[..., 5:]
+    got = ops.panel_qr(A, row_start)
+    assert all(x.dtype == BF16 for x in got)
+    assert same(got, f32_rounded(lambda x: ops.panel_qr(x, row_start), A))
+    held_bf16(got, tref.panel_qr(A, row_start), tref.panel_qr(*f64(A), row_start))
+    assert same(tuple(x[1] for x in got), ops.panel_qr(A[1], row_start))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,b,n", [(512, 256, 300), (600, 200, 130)])
+def test_cuda_bf16_wide_wy_apply_is_f32_rounded(rng, cuda, m, b, n):
+    """K2 above 128 columns at bf16 on a strided window: the f32 route on
+    the widened operands rounded once (Y^T C and W stay float), the plain
+    version's tolerance, a lane alone == its lane, every column tile the
+    same bits."""
+    Y = bf16(rng, 3, m, b, scale=0.1)
+    T = bf16(rng, 3, b, b, scale=0.1, triu=True)
+    C = bf16(rng, 3, m, n + 4)[..., 4:]
+    got = ops.wy_apply(Y, T, C)
+    assert got.dtype == BF16
+    assert same(got, f32_rounded(ops.wy_apply, Y, T, C))
+    held_bf16((got,), (tref.wy_apply(Y, T, C),), (tref.wy_apply(*f64(Y, T, C)),))
+    assert torch.equal(got[2], ops.wy_apply(Y[2], T[2], C[2]))
+    for bn in backend.TILE_BNS:
+        assert torch.equal(got, twy.wy_apply(Y, T, C, bn=bn, kbs=1)), bn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(200, 259), (256, 600)])
+def test_cuda_bf16_wide_stacked_kernels_are_f32_rounded(rng, cuda, b, n):
+    """K3 and K4 above 128 columns at bf16: the f32 routes on the widened
+    inputs rounded once (K4's W rounded after C_bot - Y2 W read it in
+    float); the plain versions' tolerance; a lane alone == its lane; both
+    lanes of a butterfly pair the same bits."""
+    P = 4
+    Rt = t(np.stack([qr_factor(rng, b) for _ in range(P)])).to(cuda, BF16)
+    Rb = t(np.stack([qr_factor(rng, b) for _ in range(P)])).to(cuda, BF16)
+    got = ops.stacked_qr(Rt, Rb)
+    assert all(x.dtype == BF16 for x in got)
+    assert same(got, f32_rounded(ops.stacked_qr, Rt, Rb))
+    held_bf16(got, tref.stacked_qr(Rt, Rb), tref.stacked_qr(*f64(Rt, Rb)))
+    assert same(tuple(x[3] for x in got), ops.stacked_qr(Rt[3], Rb[3]))
+    pair = ops.stacked_qr(Rt[[0, 0]].contiguous(), Rb[[0, 0]].contiguous())
+    assert all(torch.equal(x[0], x[1]) for x in pair)
+    Y2, T = got[0], got[1]
+    Ct, Cb = bf16(rng, P, b, n), bf16(rng, P, b, n)
+    out = ops.stacked_apply(Y2, T, Ct, Cb)
+    assert same(out, f32_rounded(ops.stacked_apply, Y2, T, Ct, Cb))
+    held_bf16(out, tref.stacked_apply(Y2, T, Ct, Cb),
+              tref.stacked_apply(*f64(Y2, T, Ct, Cb)))
+    assert same(tuple(x[1] for x in out), ops.stacked_apply(Y2[1], T[1], Ct[1], Cb[1]))
+
+
+# The bf16 products of the wide routes (P, M, N, K, kind): "BBF" a bf16 A
+# and B into float (D bf16 or none), "BFF" a bf16 A times a float B into
+# float (with the second store E - AB in bf16, or none), "BFB" a bf16 A
+# times a float B from a bf16 D into bf16.
+BF16_GEMM_CASES = [(8, 256, 300, 5632, "BBF At"), (2, 97, 65, 600, "BBF D"),
+                   (1, 200, 129, 300, "BFF At"), (3, 70, 260, 513, "BFF E"),
+                   (2, 1000, 257, 256, "BFB"), (1, 130, 70, 17, "BFB sub")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_GEMM_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cuda_bf16_wide_gemm_equals_its_order_oracle(cuda, case):
+    """wide_gemm at the bf16 mixes, at every tile (bn 32/64/128) and split
+    of k, equals wide_gemm_order_f32 on the widened operands, rounded where
+    the product stores bf16, bit for bit."""
+    P, M, N, K, how = case
+    g = torch.Generator().manual_seed(sum(case[:4]))
+    kind = how.split()[0]
+    A, B, D, E = _gemm_case(g, P, M, N, K, ("" if "D" in how or kind == "BFB"
+                                            else "noD ") + how, cuda)
+    A = A.to(BF16)
+    B = B.to(BF16) if kind == "BBF" else B
+    D = None if D is None else D.to(BF16)
+    E = E.to(BF16) if "E" in how else None
+    sub = "sub" in how or kind == "BFB"
+    out_dtype = BF16 if kind == "BFB" else torch.float32
+    want = as_tuple(twide.gemm_order(A.float(), B.float(),
+                                     None if D is None else D.float(), sub=sub,
+                                     minuend=None if E is None else E.float()))
+    want = (want[0].to(out_dtype),) + tuple(w.to(BF16) for w in want[1:])
+    nblk = twide.kblocks(K)
+    for bn in twide.TILES:
+        for kbs in sorted({None, nblk, 1, 2}, key=str):
+            got = as_tuple(twide.gemm(A, B, D, sub=sub, minuend=E, bn=bn,
+                                      kbs=kbs, out_dtype=out_dtype))
+            assert same(got, want), (bn, kbs)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_wide_gemm_rejects_other_mixes(cuda):
+    """A mix of element types no bf16 route runs raises before a launch."""
+    A = torch.zeros(1, 8, 8, device=cuda, dtype=BF16)
+    F = torch.zeros(1, 8, 8, device=cuda)
+    with pytest.raises(NotImplementedError, match="element types"):
+        twide.gemm(F, A)
+    with pytest.raises(NotImplementedError, match="element types"):
+        twide.gemm(A, A)  # a bf16 out from bf16 A and B: no route
+    with pytest.raises(ValueError, match="float32 operands only"):
+        twide.gemm_order(A, F)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,w,b,row_start", [(1024, 600, 256, 0),
+                                             (1000, 450, 200, 37)])
+def test_cuda_bf16_wide_k5_equals_k1_k2(rng, cuda, m, w, b, row_start):
+    """K5 above 128 columns at bf16 == K1 then K2 at bf16 bit for bit (both
+    round Y and T before the apply), within the bf16 tolerance of its plain
+    version, a lane alone == its lane of an eight-lane launch."""
+    W = bf16(rng, 8, m, w + 3)[..., 3:]
+    rs = torch.tensor([row_start, 0, m - b] + [row_start] * 5, dtype=torch.int32)
+    got = ops.panel_qr_apply(W, rs, b)
+    Y, T, R = ops.panel_qr(W[..., :b], rs)
+    C = ops.wy_apply(Y, T, W)
+    r0 = rs.long().clamp(0, m - b)
+    Cp = torch.stack([C[p, r0[p]:r0[p] + b] for p in range(8)])
+    assert same(got, (Y, T, R, C, Cp))
+    held_bf16(got, tref.panel_qr_apply(W, rs, b),
+              tref.panel_qr_apply(W.double(), rs, b))
+    assert same(tuple(x[3] for x in got), ops.panel_qr_apply(W[3], row_start, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,m_loc,n", [(2, 512, 1024), (8, 512, 1024)])
+def test_cuda_bf16_wide_fused_equals_stepped_bitwise(rng, cuda, P, m_loc, n):
+    """run_panel_fused (K6 above 128 columns at bf16) == run_steps (K1-K4
+    above 128 at bf16), bit for bit at every panel boundary and after
+    finalize, at b = 256 through consumed lanes and dead groups."""
+    b = 256
+    comm = SimComm(P)
+    A = bf16(rng, P, m_loc, n)
+    s_f = s_s = tstate.initial_sweep_state(comm, A, b)
+    pts = tstate.panel_points(s_s.geom)
+    backend.reset_launches()
+    while s_f.cursor is not None:
+        s_f = tstate.run_panel_fused(comm, s_f)
+        s_s = tstate.run_steps(comm, s_s, pts)
+        _assert_states_equal(s_f, s_s, s_s.cursor)
+    assert backend.BF16_LAUNCHES["fused_panel"] == s_s.geom.n_panels
+    assert all(backend.BF16_LAUNCHES[op] > 0 for op in
+               ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply"))
+    for g, w in zip(tstate.finalize(comm, s_f), tstate.finalize(comm, s_s)):
+        got = [g] if isinstance(g, torch.Tensor) else list(g)
+        want = [w] if isinstance(w, torch.Tensor) else list(w)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_wide_sweep_and_kill_bitwise(rng, cuda):
+    """The bf16 sweep at b = 256 launches K1-K4's bf16 kernels, R replicated
+    bitwise and its float64 Gram residual under 0.1; a killed lane rebuilt
+    gives R, factors and bundles bit-equal to the failure-free sweep; one
+    lane == eight lanes for K1, K2 and K4."""
+    P, m_loc, n, b = 8, 512, 1024, 256
+    comm = SimComm(P)
+    A = bf16(rng, P, m_loc, n)
+    backend.reset_launches()
+    res = caqr_factorize(A, comm, b, collect_bundles=True, use_scan=False)
+    assert all(backend.BF16_LAUNCHES[op] > 0 for op in
+               ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply"))
+    assert backend.SUB_LAUNCHES["wide_round_bf16"] > 0
+    assert res.R.dtype == BF16 and bool((res.R == res.R[:1]).all())
+    A64 = A.reshape(-1, n).double()
+    G = A64.T @ A64
+    R64 = res.R[0].double()
+    assert float((R64.T @ R64 - G).abs().max() / G.abs().max()) <= 0.1
+    point = sweep_point(2, "trailing", 1)
+    got = ft_caqr_sweep(A, comm, b, schedule=FailureSchedule(events={point: [5]}))
+    assert _bitwise(got, res)
+    (event,) = got.events
+    assert event.point == point and event.lane == 5
+    Y, T, R = ops.panel_qr(A[..., :b], 0)
+    C = ops.wy_apply(Y, T, A)
+    Ct, Cb = C[:, :b].contiguous(), C[[p ^ 1 for p in range(P)], :b].contiguous()
+    Y2, T2, _ = ops.stacked_qr(R, R[[p ^ 1 for p in range(P)]].contiguous())
+    k4 = ops.stacked_apply(Y2, T2, Ct, Cb)
+    for k in (0, 5):
+        assert same(tuple(x[k] for x in (Y, T, R)), ops.panel_qr(A[k, :, :b], 0))
+        assert torch.equal(C[k], ops.wy_apply(Y[k], T[k], A[k]))
+        assert same(tuple(x[k] for x in k4),
+                    ops.stacked_apply(Y2[k], T2[k], Ct[k], Cb[k]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,geometry", [("wy_apply", (2, 600, 160, 300)),
+                                         ("stacked_apply", (2, 160, 300))])
+def test_cuda_autotune_bf16_candidates_keep_bits(cuda, op, geometry):
+    """The autotuner's bf16 cells above 128 columns: every candidate (the
+    products' tile and k range) gives the static default's bits."""
+    from repro_torch.kernels import autotune
+
+    autotune.clear()
+    try:
+        rec = autotune.tune(op, geometry, dtype=BF16, reps=1)
+        assert rec["params"] in autotune.candidates(op, "cuda", geometry)
+        assert autotune.lookup(op, geometry, BF16) == rec["params"]
+    finally:
+        autotune.clear()
 
 
 @pytest.mark.cuda

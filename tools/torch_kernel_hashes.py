@@ -5,7 +5,9 @@ seeded inputs, to check that a change keeps a kernel's bits.
 
 Run it under two source trees on the same card (for example a change and
 its parent unpacked with ``git archive``) and compare the printed JSON:
-equal hashes mean bit-equal outputs. The inputs of K2, K3 and K4 come
+equal hashes mean bit-equal outputs. The f32 keys come first; the keys
+that start with "bf16" hash the bf16 kernels at b = 128 and above, on
+inputs from a generator of their own. The inputs of K2, K3 and K4 come
 from numpy alone, never from another kernel, so their hashes do not move
 when K1's bits do. Needs CUDA; imports no JAX.
 """
@@ -29,7 +31,10 @@ def digest(out) -> str:
         out = [out]
     h = hashlib.sha256()
     for x in out:
-        h.update(x.detach().contiguous().cpu().numpy().tobytes())
+        x = x.detach().contiguous()
+        if x.dtype == torch.bfloat16:  # numpy has no bf16: hash the bits
+            x = x.view(torch.int16)
+        h.update(x.cpu().numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -82,6 +87,36 @@ def main() -> int:
         win = t(rng.standard_normal((P, m, w)))
         hashes[f"fused_panel {P}x{m}x{w} k={k}"] = digest(
             ops.fused_panel(win, k, b=b, m_loc_pad=m, levels=P.bit_length() - 1))
+    # bf16, at b = 128 and above (its own generator, so the f32 keys above
+    # keep their inputs)
+    rng16 = np.random.default_rng(args.seed + 1)
+
+    def b16(*shape, scale=1.0, triu=False):
+        x = rng16.standard_normal(shape) * scale
+        return t(np.triu(x) if triu else x).to(torch.bfloat16)
+
+    for P, m, b, n in [(8, 4096, 128, 4096), (8, 4096, 256, 4096),
+                       (3, 600, 200, 259)]:
+        hashes[f"bf16 wy_apply {P}x{m}x{b} n={n}"] = digest(ops.wy_apply(
+            b16(P, m, b, scale=0.1), b16(P, b, b, scale=0.1, triu=True),
+            b16(P, m, n)))
+    for P, b, n in [(8, 128, 4096), (8, 256, 4096)]:
+        R1 = t(np.stack([np.linalg.qr(rng16.standard_normal((2 * b, b)))[1]
+                         for _ in range(2 * P)])).to(torch.bfloat16)
+        hashes[f"bf16 stacked_qr {P}x{b}"] = digest(
+            ops.stacked_qr(R1[:P].contiguous(), R1[P:].contiguous()))
+        hashes[f"bf16 stacked_apply {P}x{b} n={n}"] = digest(ops.stacked_apply(
+            b16(P, b, b, scale=0.1, triu=True), b16(P, b, b, scale=0.1, triu=True),
+            b16(P, b, n), b16(P, b, n)))
+    for P, m, b, rs in [(8, 4096, 128, 0), (8, 4096, 256, 0), (8, 4096, 256, 3840)]:
+        hashes[f"bf16 panel_qr {P}x{m}x{b} rs={rs}"] = digest(
+            ops.panel_qr(b16(P, m, b), rs))
+    for P, m, w, b in [(8, 4096, 4096, 128), (8, 4096, 4096, 256)]:
+        hashes[f"bf16 panel_qr_apply {P}x{m}x{w} b={b}"] = digest(
+            ops.panel_qr_apply(b16(P, m, w), 0, b))
+        hashes[f"bf16 fused_panel {P}x{m}x{w} b={b}"] = digest(
+            ops.fused_panel(b16(P, m, w), 0, b=b, m_loc_pad=m,
+                            levels=P.bit_length() - 1))
     torch.cuda.synchronize()
     print(json.dumps(hashes, indent=1))
     return 0
