@@ -1476,10 +1476,17 @@ def held_bf16(name: str, got: tuple, want: tuple, want64: tuple) -> dict:
 
 def bf16_record(name: str, run, plain, plain64, cost: tuple, reps: int, *,
                 f32=None, stepped=None, lane=None, lib=None, lib_route=None,
-                slow_plain: bool = False, twin=None, wide_b: bool = False) -> dict:
-    """One bf16 kernel at the first panel's shapes: ``f32`` (K1-K4) the f32
+                slow_plain: bool = False, twin=None, wide_b: bool = False,
+                witness=None, split=None) -> dict:
+    """One bf16 kernel at the first panel's shapes: ``f32`` (K1, K3) the f32
     kernel on the widened inputs, whose outputs rounded once must equal the
-    bf16 kernel's bit for bit; ``stepped`` (K5) the stepped bf16 kernels,
+    bf16 kernel's bit for bit; ``witness`` and ``split`` (K2, K4, whose
+    products run on wgmma, csrc/wgmma_bf16.cuh) that f32 kernel and the
+    split emulation (``ref.wy_apply_split``, ``ref.stacked_apply_split``):
+    each output within one bf16 ulp of the emulation at the larger of its
+    magnitude and its terms' (``ref.bf16_ulp_ok``),
+    and its float64 scaled error at most 1.25 x the witness's rounded
+    outputs' + 1e-3; ``stepped`` (K5) the stepped bf16 kernels,
     equal bit for bit; ``lane`` (k, one-lane call), equal to lane k of the
     P-lane launch; each output within ref.tolerances(bf16) of the plain
     version on the card, scaled by max(1, |plain|) (``held_bf16``;
@@ -1494,7 +1501,25 @@ def bf16_record(name: str, run, plain, plain64, cost: tuple, reps: int, *,
                                                      name + "_kernel")
     rec = dict(name=f"{name}_bf16" + ("_wide" if wide_b else ""), op=name,
                dtype="bfloat16", route="cuda", source=source,
-               replaces=KERNELS[name][1], launches=0)
+               replaces=KERNELS[name][1], launches=0,
+               engine=backend.products_report()[name])
+    check(rec["engine"] == backend.product_engine(name, BF16),
+          f"{name}: bf16 products ran on {rec['engine']}")
+    witness64 = None
+    if witness is not None:
+        check(rec["engine"] == backend.ENGINE_WGMMA,
+              f"{name}: bf16 products not on wgmma")
+        outs, scales = split()
+        rec["emulation_ulp_ok"] = all(
+            ref.bf16_ulp_ok(g, e, sc)
+            for g, e, sc in zip(got, as_tuple(outs), as_tuple(scales)))
+        del outs, scales
+        check(rec["emulation_ulp_ok"],
+              f"{name}: bf16 kernel off its split emulation by over one ulp")
+        witness64 = max_err(widened(tuple(x.to(BF16) for x in as_tuple(witness())),
+                                    torch.float64), as_tuple(plain64()))[1]
+        rec["witness_float64_scaled_err"] = witness64
+        rec["f32_ms"] = time_ms(witness, reps)
     if f32 is not None:
         rounded = tuple(x.to(BF16) for x in as_tuple(f32()))
         rec["f32_rounded_bitwise"] = same_bits(got, rounded)
@@ -1513,6 +1538,10 @@ def bf16_record(name: str, run, plain, plain64, cost: tuple, reps: int, *,
                                   for g, o in zip(got, as_tuple(one())))
         check(rec["lane_bitwise"], f"{name}: bf16 lane bits depend on the launch")
     rec.update(held_bf16(name, got, as_tuple(plain()), as_tuple(plain64())))
+    if witness64 is not None:
+        check(rec["float64_scaled_err"] <= 1.25 * witness64 + 1e-3,
+              f"{name}: bf16 float64 error {rec['float64_scaled_err']} over "
+              f"1.25 x the witness's {witness64} + 1e-3")
     del got
     bms, by = bound_ms(*cost, peak=PEAK_BF16)
     rec.update(tolerance=ref.tolerances(BF16)[0], ms=time_ms(run, reps),
@@ -1561,7 +1590,8 @@ def bf16_kernel_records(Ab: torch.Tensor) -> list:
         bf16_record("wy_apply", lambda: ops.wy_apply(Y, T, Ab),
                     lambda: ref.wy_apply(Y, T, Ab), f64(ref.wy_apply, Y, T, Ab),
                     wy_cost(P, M_LOC, B, N, eb),
-                    10, f32=lambda: ops.wy_apply(Y32, T32, A32),
+                    10, witness=lambda: ops.wy_apply(Y32, T32, A32),
+                    split=lambda: ref.wy_apply_split(Y, T, Ab, scale=True),
                     lane=(k, lambda: ops.wy_apply(Y[k], T[k], Ab[k])),
                     lib=lambda: wy_library(Y, T, Ab),
                     lib_route="the torch.matmul chain in bf16"),
@@ -1578,7 +1608,8 @@ def bf16_kernel_records(Ab: torch.Tensor) -> list:
                     lambda: ref.stacked_apply(Y2, T2, Ct, Cb),
                     f64(ref.stacked_apply, Y2, T2, Ct, Cb),
                     sa_cost(P, B, N, eb), 10,
-                    f32=lambda: ops.stacked_apply(Y2_32, T2_32, Ct32, Cb32),
+                    witness=lambda: ops.stacked_apply(Y2_32, T2_32, Ct32, Cb32),
+                    split=lambda: ref.stacked_apply_split(Y2, T2, Ct, Cb, scale=True),
                     lane=(k, lambda: ops.stacked_apply(Y2[k], T2[k], Ct[k], Cb[k])),
                     lib=lambda: sa_library(Y2, T2, Ct, Cb),
                     lib_route="the torch.matmul chain in bf16"),
@@ -1588,14 +1619,16 @@ def bf16_kernel_records(Ab: torch.Tensor) -> list:
         lambda: ref.wy_apply(Y, T, Ab[..., late:]),
         f64(ref.wy_apply, Y, T, Ab[..., late:]),
         wy_cost(P, M_LOC, B, LATE_W, eb), 20,
-        f32=lambda: ops.wy_apply(Y32, T32, A32[..., late:]),
+        witness=lambda: ops.wy_apply(Y32, T32, A32[..., late:]),
+        split=lambda: ref.wy_apply_split(Y, T, Ab[..., late:], scale=True),
         lib=lambda: wy_library(Y, T, Ab[..., late:]),
         lib_route="the torch.matmul chain in bf16")
     recs[3]["late_panel"] = bf16_record(
         "stacked_apply", lambda: ops.stacked_apply(Y2, T2, Ctl, Cbl),
         lambda: ref.stacked_apply(Y2, T2, Ctl, Cbl),
         f64(ref.stacked_apply, Y2, T2, Ctl, Cbl), sa_cost(P, B, LATE_W, eb),
-        50, f32=lambda: ops.stacked_apply(Y2_32, T2_32, Ctl32, Cbl32),
+        50, witness=lambda: ops.stacked_apply(Y2_32, T2_32, Ctl32, Cbl32),
+        split=lambda: ref.stacked_apply_split(Y2, T2, Ctl, Cbl, scale=True),
         lib=lambda: sa_library(Y2, T2, Ctl, Cbl),
         lib_route="the torch.matmul chain in bf16")
     for sub in (recs[1]["late_panel"], recs[3]["late_panel"]):
@@ -1754,7 +1787,8 @@ def bf16_wide_kernel_records(Ab: torch.Tensor) -> list:
         bf16_record("wy_apply", lambda: ops.wy_apply(Y, T, Ab),
                     lambda: ref.wy_apply(Y, T, Ab), f64(ref.wy_apply, Y, T, Ab),
                     wy_cost(P, M_LOC, b, N, eb), 5,
-                    f32=lambda: ops.wy_apply(Y32, T32, A32),
+                    witness=lambda: ops.wy_apply(Y32, T32, A32),
+                    split=lambda: ref.wy_apply_split(Y, T, Ab, scale=True),
                     lane=(k, lambda: ops.wy_apply(Y[k], T[k], Ab[k])),
                     lib=lambda: wy_library(Y, T, Ab),
                     lib_route="the torch.matmul chain in bf16", wide_b=True),
@@ -1771,7 +1805,8 @@ def bf16_wide_kernel_records(Ab: torch.Tensor) -> list:
                     lambda: ref.stacked_apply(Y2, T2, Ct, Cb),
                     f64(ref.stacked_apply, Y2, T2, Ct, Cb),
                     sa_cost(P, b, N, eb), 10,
-                    f32=lambda: ops.stacked_apply(Y2_32, T2_32, Ct32, Cb32),
+                    witness=lambda: ops.stacked_apply(Y2_32, T2_32, Ct32, Cb32),
+                    split=lambda: ref.stacked_apply_split(Y2, T2, Ct, Cb, scale=True),
                     lane=(k, lambda: ops.stacked_apply(Y2[k], T2[k], Ct[k], Cb[k])),
                     lib=lambda: sa_library(Y2, T2, Ct, Cb),
                     lib_route="the torch.matmul chain in bf16", wide_b=True),

@@ -28,26 +28,18 @@ __device__ __forceinline__ float ldcg1(const bf16* p) {
       (unsigned)__ldcg(reinterpret_cast<const unsigned short*>(p)) << 16);
 }
 
-// Four consecutive elements as one aligned access (16 bytes of float, 8 of
-// bf16) through L2 only, and their store.
+// Four consecutive floats as one aligned 16-byte access through L2 only,
+// and their store (the f32 FFMA bodies).
 __device__ __forceinline__ float4 ldcg4(const float* p) {
   return __ldcg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 ldcg4(const bf16* p) {
-  const uint2 u = __ldcg(reinterpret_cast<const uint2*>(p));
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 __device__ __forceinline__ void stv4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
+// Two floats rounded to bf16, packed low then high.
 __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
   return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
          ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
-}
-__device__ __forceinline__ void stv4(bf16* p, float4 v) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16x2(v.x, v.y),
-                                            pack_bf16x2(v.z, v.w));
 }
 
 }  // namespace repro

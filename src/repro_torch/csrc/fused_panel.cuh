@@ -127,7 +127,7 @@ __device__ void butterfly_phase(const FusedArgs<E>& a, int lvl, float* smem) {
 template <int BN, bool VEC, class E>
 __device__ void apply_phase(const FusedArgs<E>& a, float* smem) {
   const int half = threadIdx.x / TILE_THREADS, tid = threadIdx.x % TILE_THREADS;
-  float* tsm = smem + half * tile_smem_floats(BN);
+  float* tsm = smem + half * (tile_smem_bytes<E>(BN) / (int)sizeof(float));
   const int nb = (a.w + BN - 1) / BN, ntiles = a.P * nb;
   const size_t mb = (size_t)a.m * a.b, bb = (size_t)a.b * a.b;
   const size_t mw = (size_t)a.m * a.w, bw = (size_t)a.b * a.w;
@@ -156,7 +156,7 @@ __device__ void apply_phase(const FusedArgs<E>& a, float* smem) {
 template <int BN, bool VEC, class E>
 __device__ void combine_phase(const FusedArgs<E>& a, int lvl, float* smem) {
   const int half = threadIdx.x / TILE_THREADS, tid = threadIdx.x % TILE_THREADS;
-  float* tsm = smem + half * tile_smem_floats(BN);
+  float* tsm = smem + half * (tile_smem_bytes<E>(BN) / (int)sizeof(float));
   const int nb = (a.w + BN - 1) / BN, ntiles = a.P * nb;
   const size_t bb = (size_t)a.b * a.b, bw = (size_t)a.b * a.w;
   const size_t lvl_bw = (size_t)lvl * a.P * bw, lvl_bb = (size_t)lvl * a.P * bb;
@@ -241,11 +241,12 @@ fused_panel_kernel(repro::FusedArgs<E> a) {
 
 namespace repro {
 
+template <class E = float>
 inline size_t fused_smem_bytes(int m, int b, int bn) {
   const int C = team_blocks(m, b);
   size_t f = team_smem_floats(m, b, C, team_slab_in_smem(m, b, C));
   f = f > stacked_smem_floats(b) ? f : stacked_smem_floats(b);
-  const size_t tiles = 2 * (size_t)tile_smem_floats(bn);
+  const size_t tiles = 2 * (size_t)(tile_smem_bytes<E>(bn) / (int)sizeof(float));
   f = f > tiles ? f : tiles;
   return f * sizeof(float);
 }
@@ -266,11 +267,11 @@ int fused_launch(const void* kernel, FusedArgs<E>& a, int xch_blocks,
   if (a.bn != 32 && a.bn != 64 && a.bn != 128) return (int)cudaErrorInvalidValue;
   if (a.C != team_blocks(a.m, a.b)) return (int)cudaErrorInvalidValue;
   a.slab_in_smem = team_slab_in_smem(a.m, a.b, a.C);
-  a.vec = aligned_to(4 * sizeof(E),
-                     {a.win, a.leaf_Y, a.leaf_T, a.C_local, a.C_prime,
-                      a.level_Y2, a.level_T, a.Ws, a.Cs_self, a.sink}) &&
-          a.b % 4 == 0 && a.w % 4 == 0 && a.w_bs % 4 == 0 && a.w_ld % 4 == 0;
-  const size_t smem = fused_smem_bytes(a.m, a.b, a.bn);
+  constexpr int V = vec_elems<E>;
+  a.vec = aligned_to(16, {a.win, a.leaf_Y, a.leaf_T, a.C_local, a.C_prime,
+                          a.level_Y2, a.level_T, a.Ws, a.Cs_self, a.sink}) &&
+          a.b % V == 0 && a.w % V == 0 && a.w_bs % V == 0 && a.w_ld % V == 0;
+  const size_t smem = fused_smem_bytes<E>(a.m, a.b, a.bn);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -9,8 +9,9 @@
 // its kernels is bf16 here too, stored rounded and read back widened
 // (fused_panel.cuh), so the launch equals the stepped bf16 route (K1-K4 at
 // bf16) bit for bit. What bounds it on the H100 and how the phases run: as
-// at float (fused_sweep.cu's header); the apply phases stage their bf16
-// operands through registers instead of cp.async.
+// at float (fused_sweep.cu's header), except that the apply and combine
+// phases run K2's and K4's bf16 engine, on wgmma (qr_common.cuh,
+// wg_apply_engine; wgmma_bf16.cuh).
 #include "fused_panel.cuh"
 
 using namespace repro;

@@ -10,8 +10,9 @@
 using namespace repro;
 
 // Blocks of K6 an SM holds at once at the shared memory of an (m x b)
-// panel and column tile bn (the bf16 instance has the same shared memory
-// and launch bounds).
+// panel and column tile bn (the f32 instance; the bf16 instance's wgmma
+// tiles take more shared memory, fused_smem_bytes<bf16>, under the same
+// launch bounds).
 extern "C" int fused_panel_blocks_per_sm(int m, int b, int bn, int* out) {
   const size_t smem = fused_smem_bytes(m, b, bn);
   cudaError_t err = cudaFuncSetAttribute(

@@ -5,29 +5,25 @@
 // translation unit, compiled side by side.
 //
 // At bf16 the launch rounds where the stepped bf16 route (K1-K4 at bf16
-// above 128 columns, each the float kernel on widened inputs rounded once)
-// rounds, and reads back rounded what that route's next kernel reads:
+// above 128 columns) rounds, and reads back rounded what that route's next
+// kernel reads:
 //   * leaf: K1 rounds once at its end, and its blocked QR reads its own Y
 //     and T back, so the leaf runs the float blocked QR on the widened
-//     window's panel with Y, T and R in float scratch, then rounds them;
+//     panel with Y, T and R in float scratch, then rounds them;
 //   * butterfly: each level's stacks are built from the rounded R, the
 //     blocked QR runs in float with T and R in float scratch, and Y2, T and
 //     R are rounded as K3 stores them; the next level reads them rounded;
-//   * leaf apply: the rounded Y and T widened back, and the widened
-//     window; Z and W float, C_local rounded (K2);
-//   * each combine: the rounded Y2, T and C' halves widened; inner and W
-//     float, Ct - W and Cb - Y2 W rounded, W rounded into Ws, and Cb - Y2 W
-//     reads W in float (K4).
-// So every product runs on float operands: widening is exact, and a float
-// product followed by one rounding is what the stepped route's bf16
-// products compute (csrc/wide_bf16.cu). The widened window is 4 bytes an
-// element of scratch beside the 2 of the window; the passes that widen it
-// and round C_local move 12 bytes an element of it. The bf16 kernel's tile
-// phases run the 64 x 64 tile at 128 registers (PlainTiles of wide_qr.cuh):
-// with the float kernel's register trade for the 128 x 128 tile, ptxas
-// failed to allocate it ("register count of 232"), whether its products
-// took bf16 operands or these float copies. The tile changes no bit. At
-// float every step is the float code it was.
+//   * leaf apply and each combine: the products of K2 and K4 on the bf16
+//     tensors themselves, on wgmma (wgmma_bf16.cuh, wide_common.cuh's
+//     wg_gemm_tile): Z (inner) and W f32, C_local, Ct - W and Cb - Y2 W
+//     rounded, W rounded into Ws, Cb - Y2 W reading W in f32.
+// The products' order contract leaves the tile, the wgmma N and the thread
+// out of every sum, so they equal the stepped route's (csrc/wide_bf16.cu).
+// The bf16 kernel's tile phases run the 64 x 64 tile (two m64n32 warpgroup
+// products) at 128 registers (PlainTiles of wide_qr.cuh): with the float
+// kernel's register trade for the 128 x 128 tile, ptxas failed to allocate
+// the FFMA tile ("register count of 232"). At float every step is the
+// float code it was.
 #pragma once
 #include <type_traits>
 
@@ -48,17 +44,16 @@ inline constexpr bool kWideFloat = std::is_same_v<E, float>;
 template <class E>
 using WideTiles = std::conditional_t<kWideFloat<E>, TradeTiles, PlainTiles>;
 
-// The float copies of the bf16 launch (none at float).
+// The float copies of the bf16 launch's blocked QRs (none at float).
 template <class E>
 struct WideF32 {};
 template <>
 struct WideF32<bf16> {
-  float* Aw;  // (P, m, w): the window widened; after the apply, C_local
-  float* Yf;  // (P, m, b): the leaf's Y, then its rounded Y widened
-  float* Tl;  // (P, b, b): the leaf's T, then its rounded T widened
+  float* Aw;  // (P, m, b): the leaf's panel widened
+  float* Yf;  // (P, m, b): the leaf's Y
+  float* Tl;  // (P, b, b): the leaf's T
   float* Tb;  // (P, b, b): a blocked QR's T (level or leaf R's scratch),
-  float* Rb;  // (P, b, b): its R; in a combine, the level's Y2 and T widened
-  float* Cw;  // (P, b, w): a combine's C' halves widened, then its outputs
+  float* Rb;  // (P, b, b): its R
 };
 
 template <class E>
@@ -83,17 +78,16 @@ inline size_t fw_copies_floats(int P, int m, int w, int b, float* base,
     return 0;
   } else {
     const size_t bb = (size_t)b * b;
-    const size_t sizes[6] = {(size_t)m * w, (size_t)m * b, bb, bb, bb,
-                             (size_t)b * w};
-    float* at[6];
+    const size_t sizes[5] = {(size_t)m * b, (size_t)m * b, bb, bb, bb};
+    float* at[5];
     size_t off = 0;
-    for (int i = 0; i < 6; ++i) {
+    for (int i = 0; i < 5; ++i) {
       at[i] = base ? base + off : nullptr;
       off += ((size_t)P * sizes[i] + 31) / 32 * 32;
     }
     if (wa) {
       wa->Aw = at[0], wa->Yf = at[1], wa->Tl = at[2], wa->Tb = at[3];
-      wa->Rb = at[4], wa->Cw = at[5];
+      wa->Rb = at[4];
     }
     return off;
   }
@@ -105,22 +99,22 @@ __device__ inline bool wide_dead(int p, int group, int t) {
   return (p & ~(group - 1)) + group <= t;
 }
 
-// bf16: every lane's window widened into Aw (row stride w).
+// bf16: every lane's panel (the window's first b columns) widened into Aw
+// (row stride b).
 template <class E>
-__device__ __noinline__ void wide_widen_window(const WideArgs<E>& wa) {
+__device__ __noinline__ void wide_widen_panel(const WideArgs<E>& wa) {
   const FusedArgs<E>& a = wa.a;
-  const int m = a.m, w = a.w;
+  const int m = a.m, b = a.b;
   grid_rows(a.P * m, [&](int row, int lane) {
     const int p = row / m, i = row % m;
     const E* src = a.win + p * a.w_bs + i * a.w_ld;
-    float* dst = wa.Aw + (size_t)row * w;
-    for (int c = lane; c < w; c += 32) dst[c] = widen(src[c]);
+    float* dst = wa.Aw + (size_t)row * b;
+    for (int c = lane; c < b; c += 32) dst[c] = widen(src[c]);
   });
 }
 
 // bf16: the leaf's Y, T and R rounded from their float copies (zero on
-// the inactive lanes, which the blocked QR zeroed), and Y and T widened
-// back into them for the apply.
+// the inactive lanes, which the blocked QR zeroed).
 template <class E>
 __device__ __noinline__ void wide_round_leaf(const WideArgs<E>& wa) {
   const FusedArgs<E>& a = wa.a;
@@ -139,11 +133,7 @@ __device__ __noinline__ void wide_round_leaf(const WideArgs<E>& wa) {
       src = wa.Tb + p * bb + (size_t)(r - m - b) * b;
       dst = a.R_leaf + p * bb + (size_t)(r - m - b) * b;
     }
-    for (int c = lane; c < b; c += 32) {
-      const E v = narrow<E>(__ldcg(src + c));
-      dst[c] = v;
-      src[c] = widen(v);
-    }
+    for (int c = lane; c < b; c += 32) dst[c] = narrow<E>(__ldcg(src + c));
   });
 }
 
@@ -203,23 +193,13 @@ __device__ __noinline__ void wide_y2(const WideArgs<E>& wa, int lvl) {
 }
 
 // The C' rows entering level 0 (or K5's C'): rows [r0, r0 + b) of
-// C_local (at bf16 of its float copy, Aw) at the clamped row start, zero on
-// inactive lanes; at bf16 C_local itself rounded from Aw too.
+// C_local at the clamped row start, zero on inactive lanes.
 template <class E>
 __device__ __noinline__ void wide_cprime(const WideArgs<E>& wa) {
   const FusedArgs<E>& a = wa.a;
   const int m = a.m, b = a.b, w = a.w;
   const size_t mw = (size_t)m * w;
-  const float* C;
-  if constexpr (kWideFloat<E>) {
-    C = a.C_local;
-  } else {
-    C = wa.Aw;
-    grid_rows(a.P * m, [&](int row, int lane) {
-      for (int col = lane; col < w; col += 32)
-        a.C_local[(size_t)row * w + col] = narrow<E>(__ldcg(C + (size_t)row * w + col));
-    });
-  }
+  const E* C = a.C_local;
   E* cp_out = a.L > 0 ? a.Cs_self : a.C_prime;
   grid_rows(a.P * b, [&](int row, int lane) {
     const int p = row / b, r = row % b;
@@ -254,37 +234,52 @@ __device__ __noinline__ void wide_combine_copies(const WideArgs<E>& wa, int lvl)
   });
 }
 
-// bf16, combine lvl: the live lanes' Y2 and T widened into Rb and Tb, and
-// every lane's C' half into Cw; or, with `done`, the live lanes' outputs
-// rounded from their float copies: the C' each keeps (Cw) and W (Wm).
+// bf16, combine lvl: the live lanes' W (f32, Wm) rounded into Ws, as K4
+// returns it.
 template <class E>
-__device__ __noinline__ void wide_combine_floats(const WideArgs<E>& wa, int lvl,
-                                                 bool done) {
+__device__ __noinline__ void wide_round_w(const WideArgs<E>& wa, int lvl) {
   const FusedArgs<E>& a = wa.a;
   const int b = a.b, w = a.w, t = a.t_lane;
-  const size_t bb = (size_t)b * b, bw = (size_t)b * w;
-  const size_t lvl_bw = (size_t)lvl * a.P * bw, lvl_bb = (size_t)lvl * a.P * bb;
-  const E* Cin = a.Cs_self + lvl_bw;
-  E* Cout = lvl == a.L - 1 ? a.C_prime : a.Cs_self + lvl_bw + a.P * bw;
+  const size_t lvl_bw = (size_t)lvl * a.P * b * w;
   grid_rows(a.P * b, [&](int row, int lane) {
     const int p = row / b, buddy = p ^ (1 << lvl);
-    const bool live = p >= t && buddy >= t;
-    const size_t e0 = (size_t)row * w, f0 = (size_t)row * b;
-    if (done) {
-      if (!live) return;
-      for (int col = lane; col < w; col += 32) {
-        Cout[e0 + col] = narrow<E>(__ldcg(wa.Cw + e0 + col));
-        a.Ws[lvl_bw + e0 + col] = narrow<E>(__ldcg(wa.q.s.Wm + e0 + col));
-      }
-      return;
-    }
-    for (int col = lane; col < w; col += 32) wa.Cw[e0 + col] = ldcg1(Cin + e0 + col);
-    if (!live) return;
-    for (int c = lane; c < b; c += 32) {
-      wa.Rb[f0 + c] = ldcg1(a.level_Y2 + lvl_bb + f0 + c);
-      wa.Tb[f0 + c] = ldcg1(a.level_T + lvl_bb + f0 + c);
-    }
+    if (!(p >= t && buddy >= t)) return;
+    const size_t e0 = (size_t)row * w;
+    for (int col = lane; col < w; col += 32)
+      a.Ws[lvl_bw + e0 + col] = narrow<E>(__ldcg(wa.q.s.Wm + e0 + col));
   });
+}
+
+// A batched bf16 product of a phase (lane p runs when f(p, v) fills its
+// view v of type V and returns true), and its grid-wide tile phase: the
+// (lane, tile) items go round the blocks, each on warpgroups 0-1 as the
+// wgmma tile of PlainTiles' shape (wide_common.cuh's wg_gemm_tile); the
+// whole sum in one item (no split of k), so no second pass.
+template <class V, class F>
+struct ProdV {
+  F f;
+  int P, M, N, K;
+};
+
+template <class V, class F>
+__device__ ProdV<V, F> prod_v(F f, int P, int M, int N, int K) {
+  return ProdV<V, F>{f, P, M, N, K};
+}
+
+template <class V, class F>
+__device__ void tile_phase_wg(const ProdV<V, F>& q, float* smem) {
+  using Cfg = PlainTiles::Cfg;
+  const int tn = cdiv(q.N, Cfg::BN), tl = cdiv(q.M, Cfg::BM) * tn;
+  if (threadIdx.x < WG_THREADS) {
+    for (int it = blockIdx.x; it < q.P * tl; it += gridDim.x) {
+      const int t = it % tl, p = it / tl;
+      V v;
+      if (!q.f(p, v)) continue;
+      gemm_tile_any<Cfg>(GEMM_ANY, v, (t / tn) * Cfg::BM, (t % tn) * Cfg::BN,
+                         0, gemm_kblocks(v.K), nullptr, 0, smem, threadIdx.x, 1);
+    }
+  }
+  bar_sync(3, QR_THREADS);
 }
 
 // Phase 2 above 128, one level: the FT butterfly on the blocked QR of the
@@ -319,9 +314,8 @@ __device__ void wide_butterfly(const WideArgs<E>& wa, int lvl,
 }
 
 // Phase 3 above 128: C_local = W - Y (T^T (Y^T W)) on every lane, then the
-// C' rows. At bf16 on the float copies: the rounded Y and T widened, the
-// window widened, C_local into the window's copy in place (each element's
-// epilogue reads it and then stores it).
+// C' rows. At bf16 the products of K2's wide route on the bf16 tensors
+// (wgmma), Z and W f32.
 template <class E>
 __device__ void wide_apply(const WideArgs<E>& wa, float* smem) {
   const FusedArgs<E>& a = wa.a;
@@ -329,42 +323,57 @@ __device__ void wide_apply(const WideArgs<E>& wa, float* smem) {
   const int m = a.m, b = a.b, w = a.w;
   const size_t mb = (size_t)m * b, bb = (size_t)b * b, mw = (size_t)m * w,
                bw = (size_t)b * w;
-  const float *Y, *T, *win;
-  float* C;
-  long long w_bs, w_ld;
   if constexpr (kWideFloat<E>) {
-    Y = a.leaf_Y, T = a.leaf_T, win = a.win, w_bs = a.w_bs, w_ld = a.w_ld;
-    C = a.C_local;
+    const float *Y = a.leaf_Y, *T = a.leaf_T, *win = a.win;
+    float* C = a.C_local;
+    const long long w_bs = a.w_bs, w_ld = a.w_ld;
+    tile_phase<WideTiles<E>>(prod([&](int p, GemmView& v) {
+      v = gemm_view(b, w, m, Y + p * mb, 1, b, win + p * w_bs, w_ld,
+                    nullptr, 0, s.Z + p * bw, w, 0);
+      return true;
+    }, a.P, b, w, m), smem, wa.q.bar);
+    grid_barrier(wa.q.bar);
+    tile_phase<WideTiles<E>>(prod([&](int p, GemmView& v) {
+      v = gemm_view(b, w, b, T + p * bb, 1, b, s.Z + p * bw, w, nullptr, 0,
+                    s.Wm + p * bw, w, 0);
+      return true;
+    }, a.P, b, w, b), smem, wa.q.bar);
+    grid_barrier(wa.q.bar);
+    tile_phase<WideTiles<E>>(prod([&](int p, GemmView& v) {
+      v = gemm_view(m, w, b, Y + p * mb, b, 1, s.Wm + p * bw, w,
+                    win + p * w_bs, w_ld, C + p * mw, w, 1);
+      return true;
+    }, a.P, m, w, b), smem, wa.q.bar);
   } else {
-    Y = wa.Yf, T = wa.Tl, win = wa.Aw, w_bs = (long long)mw, w_ld = w;
-    C = wa.Aw;
+    tile_phase_wg(prod_v<GemmBBF>([&](int p, GemmBBF& v) {
+      v = GemmBBF{b, w, m, a.leaf_Y + p * mb, 1, b, a.win + p * a.w_bs, a.w_ld,
+                  1, nullptr, 0, 0, s.Z + p * bw, w, 1, 0,
+                  nullptr, 0, 0, nullptr, 0, 0};
+      return true;
+    }, a.P, b, w, m), smem);
+    grid_barrier(wa.q.bar);
+    tile_phase_wg(prod_v<GemmBFF>([&](int p, GemmBFF& v) {
+      v = GemmBFF{b, w, b, a.leaf_T + p * bb, 1, b, s.Z + p * bw, w, 1,
+                  nullptr, 0, 0, s.Wm + p * bw, w, 1, 0,
+                  nullptr, 0, 0, nullptr, 0, 0};
+      return true;
+    }, a.P, b, w, b), smem);
+    grid_barrier(wa.q.bar);
+    tile_phase_wg(prod_v<GemmBFB>([&](int p, GemmBFB& v) {
+      v = GemmBFB{m, w, b, a.leaf_Y + p * mb, b, 1, s.Wm + p * bw, w, 1,
+                  a.win + p * a.w_bs, a.w_ld, 1, a.C_local + p * mw, w, 1, 1,
+                  nullptr, 0, 0, nullptr, 0, 0};
+      return true;
+    }, a.P, m, w, b), smem);
   }
-  tile_phase<WideTiles<E>>(prod([&](int p, GemmView& v) {
-    v = gemm_view(b, w, m, Y + p * mb, 1, b, win + p * w_bs, w_ld,
-                  nullptr, 0, s.Z + p * bw, w, 0);
-    return true;
-  }, a.P, b, w, m), smem, wa.q.bar);
-  grid_barrier(wa.q.bar);
-  tile_phase<WideTiles<E>>(prod([&](int p, GemmView& v) {
-    v = gemm_view(b, w, b, T + p * bb, 1, b, s.Z + p * bw, w, nullptr, 0,
-                  s.Wm + p * bw, w, 0);
-    return true;
-  }, a.P, b, w, b), smem, wa.q.bar);
-  grid_barrier(wa.q.bar);
-  tile_phase<WideTiles<E>>(prod([&](int p, GemmView& v) {
-    v = gemm_view(m, w, b, Y + p * mb, b, 1, s.Wm + p * bw, w,
-                  win + p * w_bs, w_ld, C + p * mw, w, 1);
-    return true;
-  }, a.P, m, w, b), smem, wa.q.bar);
   grid_barrier(wa.q.bar);
   wide_cprime(wa);
 }
 
 // Phase 4 above 128, one level: the trailing combine
 // (core/trailing.py::trailing_combine_level with dead_threshold = t_lane).
-// At bf16 on the float copies: Y2 and T in Rb and Tb, the C' halves in Cw,
-// W into Wm, and the C' each live lane keeps into Cw in place (a top lane's
-// second store, a bottom lane's Cb - Y2 W), then rounded.
+// At bf16 the products of K4's wide route on the bf16 tensors (wgmma),
+// inner and W f32, then W rounded into Ws.
 template <class E>
 __device__ void wide_combine(const WideArgs<E>& wa, int lvl, float* smem) {
   const FusedArgs<E>& a = wa.a;
@@ -372,51 +381,68 @@ __device__ void wide_combine(const WideArgs<E>& wa, int lvl, float* smem) {
   const int b = a.b, w = a.w, t = a.t_lane;
   const size_t bb = (size_t)b * b, bw = (size_t)b * w;
   const size_t lvl_bw = (size_t)lvl * a.P * bw, lvl_bb = (size_t)lvl * a.P * bb;
-  const float *Y2, *T, *Cin;
-  float *W, *Cout;
-  if constexpr (kWideFloat<E>) {
-    Y2 = a.level_Y2 + lvl_bb, T = a.level_T + lvl_bb, Cin = a.Cs_self + lvl_bw;
-    W = a.Ws + lvl_bw;
-    Cout = lvl == a.L - 1 ? a.C_prime : a.Cs_self + lvl_bw + a.P * bw;
-  } else {
-    wide_combine_floats(wa, lvl, false);
-    grid_barrier(wa.q.bar);
-    Y2 = wa.Rb, T = wa.Tb, Cin = wa.Cw, W = s.Wm, Cout = wa.Cw;
-  }
+  const E *Y2 = a.level_Y2 + lvl_bb, *T = a.level_T + lvl_bb,
+          *Cin = a.Cs_self + lvl_bw;
+  E* Cout = lvl == a.L - 1 ? a.C_prime : a.Cs_self + lvl_bw + a.P * bw;
   auto buddy = [&](int p) { return p ^ (1 << lvl); };
   auto is_top = [&](int p) { return ((p >> lvl) & 1) == ((t >> lvl) & 1); };
   auto live = [&](int p) { return p >= t && buddy(p) >= t; };
   auto top = [&](int p) { return Cin + (is_top(p) ? p : buddy(p)) * bw; };
   auto bot = [&](int p) { return Cin + (is_top(p) ? buddy(p) : p) * bw; };
-  // inner = Ct + Y2^T Cb
-  tile_phase<WideTiles<E>>(prod([&](int p, GemmView& v) {
-    v = gemm_view(b, w, b, Y2 + p * bb, 1, b, bot(p), w, top(p), w,
-                  s.Z + p * bw, w, 0);
-    return live(p);
-  }, a.P, b, w, b), smem, wa.q.bar);
-  grid_barrier(wa.q.bar);
-  // W = T^T inner, and on the top lane Ct - W; the buddy's C' and the
-  // pass-through of the lanes whose pair is not live
-  tile_phase<WideTiles<E>>(prod([&](int p, GemmView& v) {
-    v = gemm_view(b, w, b, T + p * bb, 1, b, s.Z + p * bw, w, nullptr, 0,
-                  W + p * bw, w, 0);
-    if (is_top(p)) {
-      v.E = top(p), v.e_rs = w, v.e_cs = 1;
-      v.O2 = Cout + p * bw, v.o2_rs = w, v.o2_cs = 1;
-    }
-    return live(p);
-  }, a.P, b, w, b), smem, wa.q.bar);
-  wide_combine_copies(wa, lvl);
-  grid_barrier(wa.q.bar);
-  // the bottom lane: Cb - Y2 W
-  tile_phase<WideTiles<E>>(prod([&](int p, GemmView& v) {
-    v = gemm_view(b, w, b, Y2 + p * bb, b, 1, W + p * bw, w, bot(p), w,
-                  Cout + p * bw, w, 1);
-    return live(p) && !is_top(p);
-  }, a.P, b, w, b), smem, wa.q.bar);
-  if constexpr (!kWideFloat<E>) {
+  if constexpr (kWideFloat<E>) {
+    float* W = a.Ws + lvl_bw;
+    // inner = Ct + Y2^T Cb
+    tile_phase<WideTiles<E>>(prod([&](int p, GemmView& v) {
+      v = gemm_view(b, w, b, Y2 + p * bb, 1, b, bot(p), w, top(p), w,
+                    s.Z + p * bw, w, 0);
+      return live(p);
+    }, a.P, b, w, b), smem, wa.q.bar);
     grid_barrier(wa.q.bar);
-    wide_combine_floats(wa, lvl, true);
+    // W = T^T inner, and on the top lane Ct - W; the buddy's C' and the
+    // pass-through of the lanes whose pair is not live
+    tile_phase<WideTiles<E>>(prod([&](int p, GemmView& v) {
+      v = gemm_view(b, w, b, T + p * bb, 1, b, s.Z + p * bw, w, nullptr, 0,
+                    W + p * bw, w, 0);
+      if (is_top(p)) {
+        v.E = top(p), v.e_rs = w, v.e_cs = 1;
+        v.O2 = Cout + p * bw, v.o2_rs = w, v.o2_cs = 1;
+      }
+      return live(p);
+    }, a.P, b, w, b), smem, wa.q.bar);
+    wide_combine_copies(wa, lvl);
+    grid_barrier(wa.q.bar);
+    // the bottom lane: Cb - Y2 W
+    tile_phase<WideTiles<E>>(prod([&](int p, GemmView& v) {
+      v = gemm_view(b, w, b, Y2 + p * bb, b, 1, W + p * bw, w, bot(p), w,
+                    Cout + p * bw, w, 1);
+      return live(p) && !is_top(p);
+    }, a.P, b, w, b), smem, wa.q.bar);
+  } else {
+    float* W = s.Wm;
+    tile_phase_wg(prod_v<GemmBBF>([&](int p, GemmBBF& v) {
+      v = GemmBBF{b, w, b, Y2 + p * bb, 1, b, bot(p), w, 1, top(p), w, 1,
+                  s.Z + p * bw, w, 1, 0, nullptr, 0, 0, nullptr, 0, 0};
+      return live(p);
+    }, a.P, b, w, b), smem);
+    grid_barrier(wa.q.bar);
+    tile_phase_wg(prod_v<GemmBFF>([&](int p, GemmBFF& v) {
+      v = GemmBFF{b, w, b, T + p * bb, 1, b, s.Z + p * bw, w, 1, nullptr, 0, 0,
+                  W + p * bw, w, 1, 0, nullptr, 0, 0, nullptr, 0, 0};
+      if (is_top(p)) {
+        v.E = top(p), v.e_rs = w, v.e_cs = 1;
+        v.O2 = Cout + p * bw, v.o2_rs = w, v.o2_cs = 1;
+      }
+      return live(p);
+    }, a.P, b, w, b), smem);
+    wide_combine_copies(wa, lvl);
+    grid_barrier(wa.q.bar);
+    tile_phase_wg(prod_v<GemmBFB>([&](int p, GemmBFB& v) {
+      v = GemmBFB{b, w, b, Y2 + p * bb, b, 1, W + p * bw, w, 1, bot(p), w, 1,
+                  Cout + p * bw, w, 1, 1, nullptr, 0, 0, nullptr, 0, 0};
+      return live(p) && !is_top(p);
+    }, a.P, b, w, b), smem);
+    grid_barrier(wa.q.bar);
+    wide_round_w(wa, lvl);
   }
 }
 
@@ -433,12 +459,11 @@ __device__ void fused_wide_body(const WideArgs<E>& wa, float* smem) {
         [&](int p) { return a.rs[p]; }, a.leaf_Y, mb, a.leaf_T, a.R_leaf,
         wa.q.s.cur, true, smem);
   } else {
-    const size_t mw = (size_t)a.m * a.w;
-    wide_widen_window(wa);
+    wide_widen_panel(wa);
     grid_barrier(wa.q.bar);
     blocked_qr<WideTiles<E>>(
         wa.q, teams, a.m, a.b, [&](int p) { return lane_active(a, p); },
-        [&](int p) -> const float* { return wa.Aw + p * mw; }, a.w,
+        [&](int p) -> const float* { return wa.Aw + p * mb; }, a.b,
         [&](int p) { return a.rs[p]; }, wa.Yf, mb, wa.Tl, wa.Tb, wa.q.s.cur,
         true, smem);
     wide_round_leaf(wa);

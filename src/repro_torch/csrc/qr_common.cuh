@@ -24,12 +24,14 @@
 // any launch, which the FT butterfly and recovery rely on.
 //
 // Element types: the bodies are templates on the type E of the tensors
-// they read and write in global memory, float or bf16. Only global loads
-// and stores see E: a bf16 load widens to float exactly, a bf16 store
-// rounds to nearest even; shared memory, registers, the team's exchange
-// slots and every sum stay float, in the same order. So a bf16 instance
-// is the float instance run on the widened inputs with each output rounded
-// once: K(x) at bf16 == K(float(x)) rounded, bit for bit. The T factor's
+// they read and write in global memory, float or bf16. In the QR bodies
+// (K1, K3) only global loads and stores see E: a bf16 load widens to float
+// exactly, a bf16 store rounds to nearest even; shared memory, registers,
+// the team's exchange slots and every sum stay float, in the same order.
+// So their bf16 instance is the float instance run on the widened inputs
+// with each output rounded once: K(x) at bf16 == K(float(x)) rounded, bit
+// for bit. K2's and K4's tiles at bf16 run their products on the tensor
+// cores instead (wg_apply_engine, wgmma_bf16.cuh's contract). The T factor's
 // strict lower triangle holds G^T during a QR (team_t's input): at bf16
 // that goes to a float scratch G beside T; at float G is T itself.
 #pragma once
@@ -40,6 +42,7 @@
 
 #include "async_copy.cuh"
 #include "elem.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace repro {
 
@@ -887,11 +890,8 @@ __device__ __forceinline__ float lane4(const float4& v, int j) {
 // CopyPlan copies them in units of four elements when every stride,
 // width and pointer allows: unit u of a thread covers row first + u * step
 // of the slice and four columns from its fixed column, all worked out once
-// per tile. A float unit is one 16-byte cp.async; a bf16 unit is one 8-byte
-// load through registers, widened, then one 16-byte shared store (the
-// slice is float in shared memory, so a raw copy cannot fill it); the
-// barrier before a slice is read orders both. load_scalar copies any of
-// them element by element through L2.
+// per tile. A unit is one 16-byte cp.async. load_scalar copies any of them
+// element by element through L2.
 struct CopyPlan {
   int first, step, col;
   __device__ CopyPlan(int per_row, int tid)
@@ -900,30 +900,17 @@ struct CopyPlan {
 
   // UNITS copies of four elements into dst (row stride dld) from src: row
   // k of the slice is row row0 + k of src, column c is column col0 + c.
-  template <int UNITS, class E>
-  __device__ __forceinline__ void copy(float* dst, int dld, const E* src,
+  template <int UNITS>
+  __device__ __forceinline__ void copy(float* dst, int dld, const float* src,
                                        long long ld, int row0, int nrows,
                                        int col0, int ncols) const {
     const bool col_ok = col0 + col < ncols;
-    if constexpr (std::is_same_v<E, float>) {
 #pragma unroll
-      for (int u = 0; u < UNITS; ++u) {
-        const int k = first + u * step, r = row0 + k;
-        const bool ok = col_ok && r < nrows;
-        cp_async16(dst + k * dld + col,
-                   ok ? src + (size_t)r * ld + col0 + col : src, ok ? 16 : 0);
-      }
-    } else {
-      float4 v[UNITS];
-#pragma unroll
-      for (int u = 0; u < UNITS; ++u) {
-        const int r = row0 + first + u * step;
-        v[u] = col_ok && r < nrows ? ldcg4(src + (size_t)r * ld + col0 + col)
-                                   : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-#pragma unroll
-      for (int u = 0; u < UNITS; ++u)
-        stv4(dst + (first + u * step) * dld + col, v[u]);
+    for (int u = 0; u < UNITS; ++u) {
+      const int k = first + u * step, r = row0 + k;
+      const bool ok = col_ok && r < nrows;
+      cp_async16(dst + k * dld + col,
+                 ok ? src + (size_t)r * ld + col0 + col : src, ok ? 16 : 0);
     }
   }
 };
@@ -1063,8 +1050,8 @@ __device__ __forceinline__ void st4(E* p, long long ld, int r, int nrows,
 // synchronise on barrier bar_id only; needs tile_smem_floats(BN) floats at
 // smem (16-byte aligned). VEC: every row stride, n, b and pointer allow
 // accesses of four elements (a compile-time choice: the scalar path's
-// registers would otherwise spill the vector path's). E: the element type
-// of the global operands (see the top). Ends with a barrier, after which
+// registers would otherwise spill the vector path's). E: float (at bf16
+// the tiles run wg_apply_engine below). Ends with a barrier, after which
 // smem may be reused and the tile's global writes are visible to its
 // threads.
 template <int BN, bool K4, bool VEC, class E>
@@ -1193,6 +1180,244 @@ __device__ void apply_engine(const E* Yf, int R, const E* T, int b,
   bar_sync(bar_id, TILE_THREADS);
 }
 
+// -- K2's and K4's tile at bf16: the wgmma engine ---------------------------
+//
+// The same chain of three products as apply_engine, on Hopper's tensor
+// cores (wgmma_bf16.cuh: the layout, the split, the order contract). The
+// tile's 256 threads are two warpgroups, each owning 64 of the 128 rows
+// of the b side and every one of the BN columns: one m64nBNk16 step a
+// warpgroup.
+//   A: Z = Y^T C (K4: Y2^T Cb) over the R rows, in slices of 32 rows of Y
+//      (MN-major A) and C (MN-major B) that cp.async copies raw into a
+//      ring of three 16 KB stages; a block sum every 256 rows, added in
+//      order into a total kept in shared memory (the thread's own entries);
+//   B: W = T^T Z' with Z' = Z (K4: Ct + Z) split into hi and lo bf16 tiles
+//      (MN-major B, 128 x BN each, where the total was), T in slices of 32
+//      rows (MN-major A); K4 stores W rounded and Ct - W;
+//   C: out = C - Y W' with W split the same way, Y in blocks of 128 rows
+//      and 64 columns (K-major A); the epilogue reads C again.
+// So C is read twice and written once, and neither Z nor W leaves shared
+// memory. A row block's epilogue goes through shared memory (the stage its
+// last slice was read from, 2 KB a warp): each warp writes its 16 rows of
+// C - Y W' in 32-column pieces and reads them back as runs of 16 columns,
+// so C is read and out written 32 bytes a row and thread, whole sectors,
+// where the accumulators' own layout touches 8 rows in 4-byte pieces. A warpgroup whose 64 rows lie past b (or past R in phase C)
+// skips its steps. Shared memory: the ring and the 512 BN bytes of the
+// total / split tiles (112 KB at BN = 128, so K5/K6's two tiles a block
+// fit). VEC: 16-byte copies (every row stride, b and n multiples of 8,
+// every pointer 16-byte aligned); else element by element into the same
+// layout.
+constexpr int WE_BK = 32;      // rows of a phase-A or phase-B slice
+constexpr int WE_QK = 64;      // columns of Y in a phase-C slice
+constexpr int WE_STAGES = 3;
+constexpr int WE_STAGE = TILE_M * WE_QK * 2;  // bytes of a ring stage
+
+__host__ __device__ constexpr int wg_tile_bytes(int bn) {
+  return WE_STAGES * WE_STAGE + TILE_M * bn * 4;
+}
+
+// Bytes of shared memory one K2/K4 tile needs at element type E.
+template <class E>
+__host__ __device__ constexpr int tile_smem_bytes(int bn) {
+  return std::is_same_v<E, float> ? tile_smem_floats(bn) * (int)sizeof(float)
+                                  : wg_tile_bytes(bn);
+}
+
+// Elements of one 16-byte access at element type E (the VEC paths' unit).
+template <class E>
+inline constexpr int vec_elems = 16 / (int)sizeof(E);
+
+template <int BN, bool K4, bool VEC>
+__device__ void wg_apply_engine(const bf16* Yf, int R, const bf16* T, int b,
+                                const bf16* Cin, long long c_ld, bf16* out,
+                                long long o_ld, const bf16* Ct, bf16* ot,
+                                bf16* Wout, int n, int col0, int tid,
+                                int bar_id, float* smem) {
+  constexpr int NA = BN / 2;  // accumulators a thread
+  char* ring = reinterpret_cast<char*>(smem);
+  float* tot = reinterpret_cast<float*>(ring + WE_STAGES * WE_STAGE);
+  char* xhi = reinterpret_cast<char*>(tot);   // the split tiles, where the
+  char* xlo = xhi + TILE_M * BN * 2;          // total was
+  const int wg = tid >> 7, t = tid & 127;
+  const int nA = (R + WE_BK - 1) / WE_BK, nB = (b + WE_BK - 1) / WE_BK;
+  const int nC = (b + WE_QK - 1) / WE_QK;
+  const int total = nA + nB + ((R + TILE_M - 1) / TILE_M) * nC;
+  const bool b_rows = wg * 64 < b;  // this warpgroup's rows hold any of b
+
+  int issue_blk = 0, issue_qs = 0;
+  auto issue = [&](int s) {
+    char* st = ring + (s % WE_STAGES) * WE_STAGE;
+    if (s < nA) {
+      wg_stage<WE_BK, TILE_M / 8, true, TILE_THREADS>(st, Yf, b, 1, s * WE_BK, R,
+                                                      0, b, tid, VEC);
+      wg_stage<WE_BK, BN / 8, true, TILE_THREADS>(st + TILE_M * WE_BK * 2, Cin,
+                                                  c_ld, 1, s * WE_BK, R, col0, n,
+                                                  tid, VEC);
+    } else if (s < nA + nB) {
+      wg_stage<WE_BK, TILE_M / 8, true, TILE_THREADS>(st, T, b, 1,
+                                                      (s - nA) * WE_BK, b, 0, b,
+                                                      tid, VEC);
+    } else {
+      wg_stage<TILE_M, WE_QK / 8, false, TILE_THREADS>(
+          st, Yf, b, 1, issue_blk * TILE_M, R, issue_qs * WE_QK, b, tid, VEC);
+      if (++issue_qs == nC) issue_qs = 0, ++issue_blk;
+    }
+  };
+  // acc (rows of this warpgroup, columns of the tile) split into the tiles
+  auto put_split = [&](float (&a)[NA]) {
+#pragma unroll
+    for (int j = 0; j < NA; j += 2)
+      wg_put_split2(xhi, xlo, BN, wg * 64 + wg_row(j, t), wg_col(j, t), a[j],
+                    a[j + 1]);
+  };
+
+  float acc[NA];
+#pragma unroll
+  for (int j = 0; j < NA; ++j) {
+    acc[j] = 0.f;
+    tot[j * TILE_THREADS + tid] = 0.f;
+  }
+
+  int blk = 0, qs = 0;  // the phase-C slice being multiplied
+  for (int s = 0; s < WE_STAGES - 1; ++s) {
+    if (s < total) issue(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait<WE_STAGES - 2>();
+    fence_proxy_async();
+    bar_sync(bar_id, TILE_THREADS);  // slice s landed; slice s - 1 is done
+    if (s + WE_STAGES - 1 < total) issue(s + WE_STAGES - 1);
+    cp_async_commit();
+    const char* st = ring + (s % WE_STAGES) * WE_STAGE;
+    if (s < nA) {  // Z (K4: Y2^T Cb) += slice^T C-slice
+      if (b_rows) {
+        wg_fence();
+#pragma unroll
+        for (int h = 0; h < WE_BK / WG_STEP; ++h) {
+          const int k0 = s * WE_BK + h * WG_STEP;
+          if (k0 < R)
+            wg_mma<1, 1>(acc, wg_desc(st, TILE_M, wg * 64, h * WG_STEP),
+                         wg_desc(st + TILE_M * WE_BK * 2, BN, 0, h * WG_STEP),
+                         k0 % WG_CHAIN != 0);
+        }
+        wg_commit();
+        wg_wait_all();
+        wg_fence_acc(acc);
+        if (((s + 1) * WE_BK) % WG_CHAIN == 0 || s == nA - 1) {
+#pragma unroll
+          for (int j = 0; j < NA; ++j) tot[j * TILE_THREADS + tid] += acc[j];
+        }
+      }
+      continue;
+    }
+    if (s < nA + nB) {  // W += T-slice^T Z'
+      if (s == nA) {  // Z' = Z (K4: Ct + Z), split
+#pragma unroll
+        for (int j = 0; j < NA; j += 2) {
+          float v0 = tot[j * TILE_THREADS + tid], v1 = tot[(j + 1) * TILE_THREADS + tid];
+          if (K4) {
+            const float2 ct = ld2(Ct, c_ld, wg * 64 + wg_row(j, t), b,
+                                  col0 + wg_col(j, t), n, VEC);
+            v0 = ct.x + v0, v1 = ct.y + v1;
+          }
+          acc[j] = v0, acc[j + 1] = v1;
+        }
+        bar_sync(bar_id, TILE_THREADS);  // every total read
+        put_split(acc);
+        fence_proxy_async();
+        bar_sync(bar_id, TILE_THREADS);
+#pragma unroll
+        for (int j = 0; j < NA; ++j) acc[j] = 0.f;
+      }
+      if (b_rows) {
+        wg_fence();
+#pragma unroll
+        for (int h = 0; h < WE_BK / WG_STEP; ++h) {
+          const int k0 = (s - nA) * WE_BK + h * WG_STEP;
+          if (k0 < b) {
+            const uint64_t da = wg_desc(st, TILE_M, wg * 64, h * WG_STEP);
+            wg_mma<1, 1>(acc, da, wg_desc(xhi, BN, 0, k0), k0 != 0);
+            wg_mma<1, 1>(acc, da, wg_desc(xlo, BN, 0, k0), 1);
+          }
+        }
+        wg_commit();
+        wg_wait_all();
+        wg_fence_acc(acc);
+      }
+      continue;
+    }
+    if (s == nA + nB) {  // W = 0 + the block sum; K4's W and ot; W split
+#pragma unroll
+      for (int j = 0; j < NA; ++j) acc[j] = 0.f + acc[j];
+      if (K4) {
+#pragma unroll
+        for (int j = 0; j < NA; j += 2) {
+          const int r = wg * 64 + wg_row(j, t), c = col0 + wg_col(j, t);
+          const float2 ct = ld2(Ct, c_ld, r, b, c, n, VEC);
+          st2(Wout, c_ld, r, b, c, n, VEC, make_float2(acc[j], acc[j + 1]));
+          st2(ot, c_ld, r, b, c, n, VEC,
+              make_float2(ct.x - acc[j], ct.y - acc[j + 1]));
+        }
+      }
+      put_split(acc);
+      fence_proxy_async();
+      bar_sync(bar_id, TILE_THREADS);
+    }
+    // a slice of a row block of Y W', then out = C - Y W'
+    const bool c_rows = blk * TILE_M + wg * 64 < R;
+    if (c_rows) {
+      wg_fence();
+#pragma unroll
+      for (int h = 0; h < WE_QK / WG_STEP; ++h) {
+        const int k0 = qs * WE_QK + h * WG_STEP;
+        if (k0 < b) {
+          const uint64_t da = wg_desc(st, TILE_M, wg * 64, h * WG_STEP);
+          wg_mma<0, 1>(acc, da, wg_desc(xhi, BN, 0, k0), k0 != 0);
+          wg_mma<0, 1>(acc, da, wg_desc(xlo, BN, 0, k0), 1);
+        }
+      }
+      wg_commit();
+      wg_wait_all();
+      wg_fence_acc(acc);
+    }
+    if (++qs == nC) {
+      bar_sync(bar_id, TILE_THREADS);  // both warpgroups done with the stage
+      float* scr = reinterpret_cast<float*>(const_cast<char*>(st)) + (tid >> 5) * 512;
+      const int lane = tid & 31;
+      const int r = lane >> 1, cb = (lane & 1) << 4;  // this lane's row, columns
+      const int gr = blk * TILE_M + wg * 64 + ((tid >> 5) & 3) * 16 + r;
+#pragma unroll
+      for (int h = 0; h < BN / 32; ++h) {
+        if (c_rows) {
+#pragma unroll
+          for (int j = 16 * h; j < 16 * h + 16; j += 2) {
+            const int rr = wg_row(j, t) & 15, cc = wg_col(j, t) & 31;
+            *reinterpret_cast<float2*>(scr + rr * 32 + (cc ^ ((rr & 7) << 2))) =
+                make_float2(0.f + acc[j], 0.f + acc[j + 1]);
+          }
+        }
+        __syncwarp();
+        if (c_rows) {
+          float v[16];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float4 x = *reinterpret_cast<const float4*>(
+                scr + r * 32 + ((cb + 4 * q) ^ ((r & 7) << 2)));
+            v[4 * q] = x.x, v[4 * q + 1] = x.y, v[4 * q + 2] = x.z, v[4 * q + 3] = x.w;
+          }
+          wg_sub_store16(out, o_ld, Cin, c_ld, gr, R, col0 + h * 32 + cb, n, VEC, v);
+        }
+        __syncwarp();
+      }
+      qs = 0;
+      ++blk;
+    }
+  }
+  cp_async_wait<0>();
+  bar_sync(bar_id, TILE_THREADS);
+}
+
 // K2's tile: out = C - Y (T^T (Y^T C)) for columns [col0, col0 + BN) of one
 // lane: Y (m x b) and T (b x b) contiguous, C (m x n) with row stride c_ld,
 // out with row stride o_ld.
@@ -1201,8 +1426,12 @@ __device__ inline void wy_apply_tile(const E* Y, const E* T, const E* C,
                                      long long c_ld, E* out, long long o_ld,
                                      int m, int b, int n, int col0, int tid,
                                      int bar_id, float* smem) {
-  apply_engine<BN, false, VEC, E>(Y, m, T, b, C, c_ld, out, o_ld, nullptr,
-                                  nullptr, nullptr, n, col0, tid, bar_id, smem);
+  if constexpr (std::is_same_v<E, bf16>)
+    wg_apply_engine<BN, false, VEC>(Y, m, T, b, C, c_ld, out, o_ld, nullptr,
+                                    nullptr, nullptr, n, col0, tid, bar_id, smem);
+  else
+    apply_engine<BN, false, VEC, E>(Y, m, T, b, C, c_ld, out, o_ld, nullptr,
+                                    nullptr, nullptr, n, col0, tid, bar_id, smem);
 }
 
 // K4's tile: W = T^T (Ct + Y2^T Cb); ot = Ct - W; ob = Cb - Y2 W for columns
@@ -1215,8 +1444,12 @@ __device__ inline void stacked_apply_tile(const E* Y2, const E* T, const E* Ct,
                                           const E* Cb, long long ld, E* ot,
                                           E* ob, E* W, int b, int n, int col0,
                                           int tid, int bar_id, float* smem) {
-  apply_engine<BN, true, VEC, E>(Y2, b, T, b, Cb, ld, ob, ld, Ct, ot, W, n,
-                                 col0, tid, bar_id, smem);
+  if constexpr (std::is_same_v<E, bf16>)
+    wg_apply_engine<BN, true, VEC>(Y2, b, T, b, Cb, ld, ob, ld, Ct, ot, W, n,
+                                   col0, tid, bar_id, smem);
+  else
+    apply_engine<BN, true, VEC, E>(Y2, b, T, b, Cb, ld, ob, ld, Ct, ot, W, n,
+                                   col0, tid, bar_id, smem);
 }
 
 }  // namespace repro

@@ -36,11 +36,14 @@
 // The per-lane and per-tile bodies (stacked_qr_lane, stacked_apply_tile)
 // live in qr_common.cuh, shared with the fused K6.
 //
-// bf16 (stacked_qr_bf16, stacked_apply_bf16, b <= 128): the same kernels
-// on bf16 tensors. Each widens its inputs as it loads them and rounds each
-// output once; K3 keeps G^T in a float scratch beside T (the `gram`
-// argument), since the float kernel keeps it in T's own lower triangle. So
-// each gives the float kernel's bits on the widened inputs, rounded.
+// bf16 (stacked_qr_bf16, stacked_apply_bf16, b <= 128): K3 is the same
+// kernel on bf16 tensors, widening its inputs as it loads them and rounding
+// each output once, with G^T in a float scratch beside T (the `gram`
+// argument), since the float kernel keeps it in T's own lower triangle: the
+// float kernel's bits on the widened inputs, rounded. K4 runs K2's bf16
+// engine with Y = Y2 (qr_common.cuh, wg_apply_engine: every product on
+// wgmma, the order contract of wgmma_bf16.cuh); it reads all of Y2 and T
+// (their zero triangles add exact zeros).
 #include <cstdint>
 
 #include "qr_common.cuh"
@@ -107,7 +110,7 @@ template <int BN, bool VEC, class E>
 static int launch_apply(const E* Y2, const E* T, const E* Ct, const E* Cb,
                         E* ot, E* ob, E* W, int P, int b, int n,
                         cudaStream_t stream) {
-  const int smem = tile_smem_floats(BN) * sizeof(float);
+  const int smem = tile_smem_bytes<E>(BN);
   cudaError_t err = cudaFuncSetAttribute(
       stacked_apply_kernel<BN, VEC, E>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -132,8 +135,8 @@ static int stacked_apply_entry(const void* Y2, const void* T, const void* Ct,
                                int P, int b, int n, int bn, void* stream) {
   const bool vec = ((uintptr_t)Y2 | (uintptr_t)T | (uintptr_t)Ct |
                     (uintptr_t)Cb | (uintptr_t)ot | (uintptr_t)ob |
-                    (uintptr_t)W) % (4 * sizeof(E)) == 0 &&
-                   b % 4 == 0 && n % 4 == 0;
+                    (uintptr_t)W) % 16 == 0 &&
+                   b % vec_elems<E> == 0 && n % vec_elems<E> == 0;
   const auto y = (const E*)Y2, t = (const E*)T;
   const auto ct = (const E*)Ct, cb = (const E*)Cb;
   const auto o1 = (E*)ot, o2 = (E*)ob, w = (E*)W;

@@ -38,12 +38,10 @@
 // same additions in the same order; no atomics).
 //
 // Element types: each operand (A, B, D and E, out, out2) has its own, float
-// or bf16 (GemmViewT). A bf16 operand widens exactly as it is loaded and a
-// bf16 output is rounded once as it is stored; shared memory, registers and
-// every sum stay float in the order above. So a product at any types equals
-// wide_gemm_order_f32 on the widened operands, rounded where it stores bf16.
-// A bf16 A or B slice is staged through registers (GEMM_ANY): cp.async
-// copies raw bytes, and the slices in shared memory are float.
+// or bf16 (GemmViewT); a bf16 output is rounded once as it is stored. A
+// product whose A is bf16 (the mixes GemmBBF, GemmBFF, GemmBFB) runs on
+// the tensor cores (wg_gemm_tile below) under wgmma_bf16.cuh's order
+// contract; the order above is the f32 products'.
 #pragma once
 #include <cstdint>
 
@@ -53,6 +51,7 @@
 
 #include "async_copy.cuh"
 #include "elem.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace repro {
 
@@ -429,14 +428,274 @@ __device__ __forceinline__ void gemm_tile(const V& g, int i0, int j0,
   bar_sync(bar_id, WG_THREADS);
 }
 
-// The tile routine at a runtime copy mode (a bf16 A or B: GEMM_ANY).
+// -- the bf16 products on the tensor cores -----------------------------------
+//
+// A product whose A is bf16 (the mixes GemmBBF, GemmBFF, GemmBFB) runs on
+// wgmma (wgmma_bf16.cuh: the layout, the split of an f32 B, the order
+// contract, which replaces this file's FFMA order for them). The tile's
+// 256 threads are two warpgroups: at BM = 128 each owns 64 rows and the
+// BN columns (m64nBNk16), at BM = 64 all 64 rows and half the columns
+// (m64n(BN/2)k16). Slices of 32 terms (two steps) of A and B go through a
+// ring of three stages: bf16 operands by 16-byte cp.async straight into
+// the layout (A MN-major when its rows are the unit stride, as Y^T and T^T
+// are, else K-major; B MN-major) where the strides allow, element by
+// element otherwise; an f32 B is loaded into registers before the current
+// slice's products and split into a hi and a lo tile after them. Each block sum is a chain of wgmma steps into a
+// zeroed accumulator, added in order into the total (in registers, or for
+// the 128 x 128 tile in shared memory, each thread its own entries).
+template <int BM_, int BN_, bool TOT_SMEM_>
+struct WgTile {
+  static constexpr int BM = BM_, BN = BN_;
+  static constexpr int BK = 32;  // terms of a staged slice
+  static constexpr int STAGES = 3;
+  static constexpr int NW = BM == 128 ? BN : BN / 2;  // a warpgroup's N
+  static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BK * BN * 2;
+  static constexpr int STAGE = A_BYTES + 2 * B_BYTES;  // room for a split B
+  static constexpr bool TOT_SMEM = TOT_SMEM_;
+  // bytes of shared memory a tile needs (16-byte aligned)
+  static constexpr int SMEM = STAGES * STAGE + (TOT_SMEM ? BM * BN * 4 : 0);
+  static_assert(BM == 128 || BM == 64, "one or two warpgroups of rows");
+};
+
+// The wgmma tile of an FFMA tile's shape.
+template <class Cfg>
+using WgTileOf = WgTile<Cfg::BM, Cfg::BN, Cfg::TOT_SMEM>;
+
+// Bytes of shared memory the tile of Cfg's shape needs for view V.
+template <class Cfg, class V>
+__host__ __device__ constexpr int gemm_smem_bytes() {
+  if constexpr (gemm_float_slices<V>) return Cfg::SMEM * (int)sizeof(float);
+  else return WgTileOf<Cfg>::SMEM;
+}
+
+// Accesses of eight elements in the bf16 epilogue: every output-shaped
+// operand has unit column stride and rows aligned to eight elements.
+template <class V>
+__host__ __device__ inline bool gemm_vec8_out(const V& g) {
+  auto ok = [](const void* p, long long rs, long long cs) {
+    return p == nullptr || (cs == 1 && rs % 8 == 0 && (uintptr_t)p % 32 == 0);
+  };
+  return ok(g.O, g.o_rs, g.o_cs) && ok(g.D, g.d_rs, g.d_cs) &&
+         ok(g.O2, g.o2_rs, g.o2_cs) && (g.O2 == nullptr || ok(g.E, g.e_rs, g.e_cs));
+}
+
+// Eight consecutive elements through L2 (one 16-byte bf16 access), widened,
+// and their stores (one 16-byte bf16 or two 16-byte float accesses).
+__device__ __forceinline__ void ld8(const bf16* p, float* v) {
+  const uint4 u = __ldcg(reinterpret_cast<const uint4*>(p));
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    v[2 * q] = __uint_as_float(w[q] << 16);
+    v[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void st8(bf16* p, const float* v) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                 pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+}
+__device__ __forceinline__ void st8(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// The epilogue of eight consecutive elements (i, j..j+7) of a view whose D
+// and E are bf16: gemm_store's arithmetic, by 16-byte accesses where vec
+// (gemm_vec8_out, j a multiple of 8) and all eight are inside.
+template <class V>
+__device__ __forceinline__ void gemm_store8(const V& g, int i, int j,
+                                            const float* tot, bool vec) {
+  if (!(vec && j + 8 <= g.N)) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (j + q < g.N) gemm_store(g, i, j + q, tot[q]);
+    return;
+  }
+  float v[8];
+  if (g.D) {
+    ld8(g.D + i * g.d_rs + j, v);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = g.sub ? v[q] - tot[q] : v[q] + tot[q];
+  } else {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = g.sub ? -tot[q] : tot[q];
+  }
+  st8(g.O + i * g.o_rs + j, v);
+  if (g.O2) {
+    ld8(g.E + i * g.e_rs + j, v);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = v[q] - tot[q];
+    st8(g.O2 + i * g.o2_rs + j, v);
+  }
+}
+
+// gemm_tile's contract (tile, block sums kb0 <= kb < kb1, part, barrier
+// bar_id, WG_THREADS threads, a barrier at the end) for a view whose A is
+// bf16, on wgmma; A_MN: A's rows are its unit stride (an MN-major A).
+template <class W, bool A_MN, class V>
+__device__ __forceinline__ void wg_gemm_tile(const V& g, int i0, int j0,
+                                             int kb0, int kb1, float* part,
+                                             long long part_bs, float* smem,
+                                             int tid, int bar_id) {
+  constexpr bool SPLIT = std::is_same_v<typename V::TB, float>;
+  constexpr int BM = W::BM, BN = W::BN, BK = W::BK, NA = W::NW / 2;
+  constexpr int SPB = WG_CHAIN / BK;  // slices of a block sum
+  char* base = reinterpret_cast<char*>(smem);
+  float* tot_s = reinterpret_cast<float*>(base + W::STAGES * W::STAGE);
+  const int wg = tid >> 7, t = tid & 127;
+  const int mrow = BM == 128 ? wg * 64 : 0, ncol = BM == 128 ? 0 : wg * W::NW;
+  const int s0 = kb0 * SPB;
+  const int s_all = (g.K + BK - 1) / BK;  // slices of the whole sum
+  const int s1 = min(kb1 * SPB, s_all);
+  const int ns = s1 > s0 ? s1 - s0 : 0;
+  const bool a_vec = gemm_al16(g.A) && (A_MN ? g.a_cs % 8 == 0
+                                             : g.a_cs == 1 && g.a_rs % 8 == 0);
+  const bool b_vec = gemm_al16(g.B) && g.b_cs == 1 &&
+                     g.b_rs % (SPLIT ? 4 : 8) == 0;
+
+  // an f32 B's next slice, loaded into registers before the products of
+  // the current one and split into its stage after them
+  SplitStage<BK, BN / 8, WG_THREADS> next_b;
+  auto issue = [&](int slice) {
+    char* sa = base + (slice % W::STAGES) * W::STAGE;
+    char* sb = sa + W::A_BYTES;
+    const int k0 = (s0 + slice) * BK;
+    if constexpr (A_MN)
+      wg_stage<BK, BM / 8, true, WG_THREADS>(sa, g.A, g.a_cs, g.a_rs, k0, g.K,
+                                             i0, g.M, tid, a_vec);
+    else
+      wg_stage<BM, BK / 8, false, WG_THREADS>(sa, g.A, g.a_rs, g.a_cs, i0, g.M,
+                                              k0, g.K, tid, a_vec);
+    if constexpr (SPLIT)
+      next_b.load(g.B, g.b_rs, g.b_cs, k0, g.K, j0, g.N, tid, b_vec);
+    else
+      wg_stage<BK, BN / 8, true, WG_THREADS>(sb, g.B, g.b_rs, g.b_cs, k0, g.K,
+                                             j0, g.N, tid, b_vec);
+  };
+  auto store_b = [&](int slice) {
+    if constexpr (SPLIT) {
+      char* sb = base + (slice % W::STAGES) * W::STAGE + W::A_BYTES;
+      next_b.store(sb, sb + W::B_BYTES, tid);
+    }
+  };
+
+  float acc[NA], tot[W::TOT_SMEM ? 1 : NA];
+#pragma unroll
+  for (int j = 0; j < NA; ++j) {
+    acc[j] = 0.f;
+    if constexpr (W::TOT_SMEM) tot_s[j * WG_THREADS + tid] = 0.f;
+    else tot[j] = 0.f;
+  }
+
+  for (int s = 0; s < W::STAGES - 1; ++s) {
+    if (s < ns) {
+      issue(s);
+      store_b(s);
+    }
+    cp_async_commit();
+  }
+  for (int s = 0; s < ns; ++s) {
+    cp_async_wait<W::STAGES - 2>();
+    fence_proxy_async();
+    bar_sync(bar_id, WG_THREADS);  // slice s landed; slice s - 1 is done
+    const bool more = s + W::STAGES - 1 < ns;
+    if (more) issue(s + W::STAGES - 1);
+    cp_async_commit();
+    const char* sa = base + (s % W::STAGES) * W::STAGE;
+    const char* sb = sa + W::A_BYTES;
+    const int gs = s0 + s;  // the slice's index in the whole sum
+    wg_fence();
+#pragma unroll
+    for (int h = 0; h < BK / WG_STEP; ++h) {
+      const int k0 = gs * BK + h * WG_STEP;
+      if (k0 < g.K) {
+        const uint64_t da = wg_desc(sa, BM, mrow, h * WG_STEP);
+        wg_mma<A_MN, 1>(acc, da, wg_desc(sb, BN, ncol, h * WG_STEP),
+                        k0 % WG_CHAIN != 0);
+        if constexpr (SPLIT)
+          wg_mma<A_MN, 1>(acc, da, wg_desc(sb + W::B_BYTES, BN, ncol, h * WG_STEP), 1);
+      }
+    }
+    wg_commit();
+    if (more) store_b(s + W::STAGES - 1);
+    wg_wait_all();
+    wg_fence_acc(acc);
+    if ((gs + 1) % SPB == 0 || gs == s_all - 1) {
+      const int kb = gs / SPB;
+#pragma unroll
+      for (int j = 0; j < NA; ++j) {
+        if (part) {
+          const int i = i0 + mrow + wg_row(j, t), jj = j0 + ncol + wg_col(j, t);
+          if (i < g.M && jj < g.N)
+            part[kb * part_bs + (long long)i * g.N + jj] = acc[j];
+        } else if constexpr (W::TOT_SMEM) {
+          tot_s[j * WG_THREADS + tid] += acc[j];
+        } else {
+          tot[j] += acc[j];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (!part) {
+    // the epilogue through shared memory (the ring, free now): each warp
+    // writes its 16 rows in pieces of PW columns and reads them back as
+    // runs of PW / 2 columns a lane, so D, E, out and out2 move in 16-byte
+    // accesses, whole sectors, where the accumulators' layout would touch
+    // 8 rows in 4- or 8-byte pieces
+    constexpr int PW = W::NW < 32 ? W::NW : 32, RUN = PW / 2;
+    bar_sync(bar_id, WG_THREADS);  // both warpgroups done with the ring
+    float* scr = reinterpret_cast<float*>(base) + (tid >> 5) * 16 * PW;
+    const int lane = tid & 31, r = lane >> 1, cb = (lane & 1) * RUN;
+    const int i = i0 + mrow + ((tid >> 5) & 3) * 16 + r;
+    const bool vec = gemm_vec8_out(g);
+#pragma unroll
+    for (int h = 0; h < W::NW / PW; ++h) {
+#pragma unroll
+      for (int j = h * PW / 2; j < (h + 1) * PW / 2; j += 2) {
+        const int rr = wg_row(j, t) & 15, cc = wg_col(j, t) % PW;
+        float t0, t1;
+        if constexpr (W::TOT_SMEM)
+          t0 = tot_s[j * WG_THREADS + tid], t1 = tot_s[(j + 1) * WG_THREADS + tid];
+        else
+          t0 = tot[j], t1 = tot[j + 1];
+        *reinterpret_cast<float2*>(scr + rr * PW + (cc ^ ((rr & 7) << 2) % PW)) =
+            make_float2(t0, t1);
+      }
+      __syncwarp();
+      float v[RUN];
+#pragma unroll
+      for (int q = 0; q < RUN; q += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            scr + r * PW + ((cb + q) ^ ((r & 7) << 2) % PW));
+        v[q] = x.x, v[q + 1] = x.y, v[q + 2] = x.z, v[q + 3] = x.w;
+      }
+      const int jj = j0 + ncol + h * PW + cb;
+      if (i < g.M) {
+#pragma unroll
+        for (int q = 0; q < RUN; q += 8) gemm_store8(g, i, jj + q, v + q, vec);
+      }
+      __syncwarp();
+    }
+  }
+  bar_sync(bar_id, WG_THREADS);
+}
+
+// The tile routine at a runtime copy mode; a bf16 A: the wgmma tile of
+// Cfg's shape, A MN-major when its rows are the unit stride.
 template <class Cfg, class V>
 __device__ __forceinline__ void gemm_tile_any(int mode, const V& g,
                                               int i0, int j0, int kb0, int kb1,
                                               float* part, long long part_bs,
                                               float* smem, int tid, int bar_id) {
   if constexpr (!gemm_float_slices<V>) {
-    gemm_tile<Cfg, GEMM_ANY>(g, i0, j0, kb0, kb1, part, part_bs, smem, tid, bar_id);
+    if (g.a_rs == 1)
+      wg_gemm_tile<WgTileOf<Cfg>, true>(g, i0, j0, kb0, kb1, part, part_bs,
+                                        smem, tid, bar_id);
+    else
+      wg_gemm_tile<WgTileOf<Cfg>, false>(g, i0, j0, kb0, kb1, part, part_bs,
+                                         smem, tid, bar_id);
   } else {
     switch (mode) {
       case GEMM_AK:

@@ -42,9 +42,15 @@ wide_gemm_kernel(GemmArgsT<V> g, int nsplit, int kbs, float* part) {
   const int p = blockIdx.z / nsplit, s = blockIdx.z % nsplit;
   const long long mn = (long long)g.v.M * g.v.N;
   const int kb0 = s * kbs, kb1 = min(gemm_kblocks(g.v.K), kb0 + kbs);
-  gemm_tile<Cfg, MODE>(g.lane(p), blockIdx.y * Cfg::BM, blockIdx.x * Cfg::BN,
-                       kb0, kb1, part ? part + p * mn : nullptr, g.P * mn,
-                       smem, threadIdx.x, 0);
+  if constexpr (gemm_float_slices<V>)
+    gemm_tile<Cfg, MODE>(g.lane(p), blockIdx.y * Cfg::BM, blockIdx.x * Cfg::BN,
+                         kb0, kb1, part ? part + p * mn : nullptr, g.P * mn,
+                         smem, threadIdx.x, 0);
+  else
+    gemm_tile_any<Cfg>(MODE, g.lane(p), blockIdx.y * Cfg::BM,
+                       blockIdx.x * Cfg::BN, kb0, kb1,
+                       part ? part + p * mn : nullptr, g.P * mn, smem,
+                       threadIdx.x, 0);
 }
 
 // The second pass of a split sum: element e = (p, i, j) adds its nblk
@@ -66,7 +72,7 @@ template <int BN, int MODE, class V>
 static int launch_tiles(const GemmArgsT<V>& g, int nsplit, int kbs, float* part,
                         cudaStream_t stream) {
   using Cfg = typename WideCfg<BN>::T;
-  const size_t smem = Cfg::SMEM * sizeof(float);
+  const size_t smem = gemm_smem_bytes<Cfg, V>();
   static bool sized = false;  // the attribute, once per instance
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -32,11 +32,12 @@
 // copy; 16-byte copies are used when every stride and pointer allows them,
 // scalar loads otherwise (two instances of the kernel, chosen per launch).
 //
-// bf16 (wy_apply_bf16, b <= 128): the same kernel on bf16 Y, T, C and out;
-// the tiles widen each operand as they stage it and round each output
-// once, so its bits are those of the float kernel on the widened operands,
-// rounded. Its staging goes through registers (8-byte loads) instead of
-// cp.async, which copies raw bytes.
+// bf16 (wy_apply_bf16, b <= 128): the same grid on bf16 Y, T, C and out,
+// each tile running K2's bf16 engine (qr_common.cuh, wg_apply_engine): the
+// three products on wgmma with bf16 operands copied raw by cp.async, f32
+// sums, Z and W split into bf16 halves (wgmma_bf16.cuh, whose order
+// contract replaces the one above at bf16). With the products on the
+// tensor cores it is bound by the bytes of C (read twice, written once).
 #include <cstdint>
 
 #include "qr_common.cuh"
@@ -59,7 +60,7 @@ template <int BN, bool VEC, class E>
 static int launch(const E* Y, const E* T, const E* C, long long c_bs,
                   long long c_ld, E* out, int P, int m, int b, int n,
                   cudaStream_t stream) {
-  const int smem = tile_smem_floats(BN) * sizeof(float);
+  const int smem = tile_smem_bytes<E>(BN);
   cudaError_t err = cudaFuncSetAttribute(
       wy_apply_kernel<BN, VEC, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -82,9 +83,10 @@ template <class E>
 static int wy_apply_entry(const void* Y, const void* T, const void* C,
                           long long c_bs, long long c_ld, void* out, int P,
                           int m, int b, int n, int bn, void* stream) {
+  constexpr int V = vec_elems<E>;
   const bool vec = ((uintptr_t)Y | (uintptr_t)T | (uintptr_t)C |
-                    (uintptr_t)out) % (4 * sizeof(E)) == 0 &&
-                   b % 4 == 0 && n % 4 == 0 && c_bs % 4 == 0 && c_ld % 4 == 0;
+                    (uintptr_t)out) % 16 == 0 &&
+                   b % V == 0 && n % V == 0 && c_bs % V == 0 && c_ld % V == 0;
   const auto y = (const E*)Y, t = (const E*)T, c = (const E*)C;
   const auto o = (E*)out;
   const auto s = (cudaStream_t)stream;

@@ -38,6 +38,14 @@ SUB_KERNELS = ("panel_qr_kernel", "wide_gemm_kernel", "wide_gemm_reduce",
 SUB_LAUNCHES: Dict[str, int] = {k: 0 for k in SUB_KERNELS}
 # The engine that ran each op's most recent call ("cuda" or "plain").
 _LAST_ENGINE: Dict[str, str] = {}
+# Where the matrix products of each op's CUDA kernels run: the bf16
+# kernels of K2 and K4, and of K5/K6 which contain their products, on the
+# tensor cores ("wgmma", csrc/wgmma_bf16.cuh); every other kernel on FP32
+# FFMA ("ffma").
+WGMMA_OPS = ("wy_apply", "stacked_apply", "panel_qr_apply", "fused_panel")
+ENGINE_WGMMA, ENGINE_FFMA = "wgmma", "ffma"
+# The product engine of each op's most recent CUDA launch.
+_LAST_PRODUCTS: Dict[str, str] = {}
 
 
 def reset_launches() -> None:
@@ -55,6 +63,14 @@ def count_launch(op: str, dtype: torch.dtype = torch.float32) -> None:
     if dtype == torch.bfloat16:
         BF16_LAUNCHES[op] += 1
     _LAST_ENGINE[op] = ENGINE_CUDA
+    _LAST_PRODUCTS[op] = product_engine(op, dtype)
+
+
+def product_engine(op: str, dtype: torch.dtype) -> str:
+    """Where the products of ``op``'s CUDA kernel at ``dtype`` run:
+    ``ENGINE_WGMMA`` or ``ENGINE_FFMA`` (see ``WGMMA_OPS``)."""
+    return (ENGINE_WGMMA if dtype == torch.bfloat16 and op in WGMMA_OPS
+            else ENGINE_FFMA)
 
 
 def count_sub(kernel: str) -> None:
@@ -64,6 +80,12 @@ def count_sub(kernel: str) -> None:
 
 def note_plain(op: str) -> None:
     _LAST_ENGINE[op] = ENGINE_PLAIN
+
+
+def products_report() -> Dict[str, Optional[str]]:
+    """{op: the product engine of its most recent CUDA launch} (None if
+    it has not launched)."""
+    return {op: _LAST_PRODUCTS.get(op) for op in OPS}
 
 
 def probe_report() -> Dict[str, Dict[str, object]]:

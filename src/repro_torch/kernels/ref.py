@@ -87,3 +87,78 @@ def fused_panel(window: torch.Tensor, k: int, *, b: int, m_loc_pad: int,
 
     return fused_panel_math(SimComm(window.shape[0]), window, k, b=b,
                             m_loc_pad=m_loc_pad, levels=levels)
+
+
+# -- the bf16 products' split (csrc/wgmma_bf16.cuh) ---------------------------
+#
+# At bf16 the CUDA kernels of K2 and K4 multiply a bf16 A by an f32 X (T^T Z,
+# Y W) as two bf16 products on the tensor cores, A X_hi + A X_lo into one
+# f32 sum. The functions below are that rule and an emulation of the two
+# kernels with it, in f32 torch.matmul on the widened operands: the tests
+# and chip_smoke.py hold the kernels to them within one bf16 ulp. No path
+# calls them.
+
+
+def split_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of an f32 tensor as bf16: hi = bf16(x), lo = bf16(x - hi),
+    both rounded to nearest even; hi + lo carries x to about 16 significant
+    bits (x - hi is exact in f32)."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def split_matmul(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """A X for a bf16 A and an f32 X as the kernels compute it: A X_hi +
+    A X_lo, in f32."""
+    hi, lo = split_bf16(X)
+    Af = A.float()
+    return Af @ hi.float() + Af @ lo.float()
+
+
+def wy_apply_split(Y, T, C, *, scale: bool = False):
+    """K2 at bf16 as the kernels compute it: Z = Y^T C and W = T^T Z (Z
+    split) in f32, out = C - Y W (W split) rounded once to C's dtype. With
+    ``scale`` also the magnitude of each output's terms, the same chain on
+    absolute values (|C| + |Y| |T|^T |Y|^T |C|), the scale of
+    ``bf16_ulp_ok``."""
+    Z = Y.float().mT @ C.float()
+    W = split_matmul(T.mT, Z)
+    out = (C.float() - split_matmul(Y, W)).to(C.dtype)
+    if not scale:
+        return out
+    aY, aC = Y.float().abs(), C.float().abs()
+    return out, aC + aY @ (T.float().abs().mT @ (aY.mT @ aC))
+
+
+def stacked_apply_split(Y2, T, C_top, C_bot, *, scale: bool = False):
+    """K4 at bf16 as the kernels compute it: inner = C_top + Y2^T C_bot and
+    W = T^T inner (inner split) in f32; (C_top - W, C_bot - Y2 W (W split),
+    W), each rounded once to C_top's dtype. With ``scale`` also the
+    magnitudes of each output's terms (as ``wy_apply_split``)."""
+    inner = C_top.float() + Y2.float().mT @ C_bot.float()
+    W = split_matmul(T.mT, inner)
+    dt = C_top.dtype
+    outs = ((C_top.float() - W).to(dt),
+            (C_bot.float() - split_matmul(Y2, W)).to(dt), W.to(dt))
+    if not scale:
+        return outs
+    aY2, at, ab = Y2.float().abs(), C_top.float().abs(), C_bot.float().abs()
+    sW = T.float().abs().mT @ (at + aY2.mT @ ab)
+    return outs, (at + sW, ab + aY2 @ sW, sW)
+
+
+def bf16_ulp_ok(got: torch.Tensor, want: torch.Tensor, scale=None) -> bool:
+    """Whether each element of ``got`` is within one bf16 ulp of ``want``'s,
+    the ulp taken at the larger of the two magnitudes and, when given, the
+    element's ``scale``: the magnitude of the terms it sums (the
+    ``scale=True`` outputs of the split emulations). Where a sum cancels
+    far below its terms, two f32 orders (and the split, which carries an
+    f32 operand to 2^-17 of each element) round to bf16 values further
+    apart than the result's own ulp, but within one ulp of the terms'."""
+    g, w = got.double(), want.double()
+    m = torch.maximum(g.abs(), w.abs())
+    if scale is not None:
+        m = torch.maximum(m, scale.double())
+    _, e = torch.frexp(m)
+    return bool(((g - w).abs() <= torch.ldexp(torch.ones_like(g), e - 8)).all())

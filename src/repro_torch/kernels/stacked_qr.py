@@ -10,8 +10,10 @@ wider b K3 is K1's one wide launch on the stacked triangles
 ``stacked_qr_composed`` is K3's wide route as separate launches, the bit
 oracle of the one launch (f32). Both take float32 and bfloat16 at any b
 (``*_f32``, ``*_bf16``; above MAX_B K1's bf16 wide launch and the bf16
-products of ``csrc/wide_bf16.cu``): the bf16 kernels' bits are the f32
-kernels' on the widened inputs, rounded once.
+products of ``csrc/wide_bf16.cu``): K3's bf16 bits are the f32 kernel's on
+the widened inputs, rounded once; K4's bf16 products run on the tensor
+cores (``csrc/wgmma_bf16.cuh``), which ``ref.stacked_apply_split``
+emulates in f32.
 """
 from __future__ import annotations
 
@@ -113,9 +115,10 @@ def stacked_apply(Y2: torch.Tensor, T: torch.Tensor, C_top: torch.Tensor,
     contiguous CUDA tensors of one dtype, f32 or bf16, the outputs in it
     (above MAX_B the inner sum and W in float, W rounded last): Y2, T
     (P, b, b), upper triangular as
-    ``stacked_qr`` makes them (up to MAX_B the kernel skips their zero
-    triangles; above it ``wide.stacked_apply_wide`` reads all of them, as
-    the plain version does); C_top, C_bot (P, b, n); or the same without
+    ``stacked_qr`` makes them (up to MAX_B the f32 kernel skips their zero
+    triangles; the bf16 kernel and, above MAX_B, ``wide.stacked_apply_wide``
+    read all of them, as the plain version does); C_top, C_bot (P, b, n);
+    or the same without
     the lane axis. ``bn`` is
     the kernel's column tile (32, 64 or 128; by default
     ``backend.tile_bn``, above MAX_B the tile of ``wide.gemm_plan``);

@@ -28,14 +28,16 @@ hand-written kernels, never of ``torch.matmul`` or ``torch.geqrf``:
   ``W = T^T inner`` and ``C_top - W`` from one product (its epilogue
   stores both), ``C_bot - Y2 W``.
 
-At bf16 the routes run the same sub-kernels at bf16, each equal to the
-f32 kernel on the widened inputs rounded once: K1 and K3 in one launch of
-``csrc/panel_qr_wide_bf16.cu`` (the f32 blocked QR on a widened copy, its
-outputs rounded at the end, since it reads its own Y and T back), and the
-products of K2 and K4 take each operand at its own type
-(``csrc/wide_bf16.cu``): the intermediates Z, W and inner stay float, as
-the reference's tile programs accumulate in f32, and only the outputs are
-rounded (K4's W after ``C_bot - Y2 W`` has read it in float).
+At bf16 K1 and K3 run one launch of ``csrc/panel_qr_wide_bf16.cu`` (the
+f32 blocked QR on a widened copy, its outputs rounded at the end, since it
+reads its own Y and T back: the f32 kernel on the widened inputs rounded
+once), and the products of K2 and K4 take each operand at its own type
+(``csrc/wide_bf16.cu``) and run on the tensor cores (``wgmma``, the order
+contract of ``csrc/wgmma_bf16.cuh``): the intermediates Z, W and inner stay
+f32, as the reference's tile programs accumulate in f32, an f32 operand is
+split into two bf16 halves (``ref.split_bf16``), and only the outputs are
+rounded (K4's W after ``C_bot - Y2 W`` has read it in f32).
+``gemm_split`` emulates those products in f32 for the tests.
 
 Each route is a function of its sub-kernels (``qr``, ``apply``, ``gemm``),
 so the CPU tests run the composition with the plain bodies (``PLAIN``)
@@ -204,11 +206,11 @@ def gemm(A: torch.Tensor, B: torch.Tensor, D: Optional[torch.Tensor] = None,
     ``(out, E - A B)``, the second from the same sum by a second store of
     the kernel's epilogue, in E's dtype. Each operand is float32 or
     bfloat16 (``out_dtype``, by default A's, for a new ``out``): at f32
-    throughout ``wide_gemm_f32``; else ``wide_gemm_bf16``, which takes the
-    bf16 routes' three mixes (a bf16 A and B into a float out; a bf16 A
-    times a float B into a float out, with a bf16 second store; a bf16 A
-    times a float B from a bf16 D into a bf16 out) and equals the f32
-    product on the widened operands, rounded where it stores bf16."""
+    throughout ``wide_gemm_f32`` (FFMA); else ``wide_gemm_bf16``, which
+    takes the bf16 routes' three mixes (a bf16 A and B into a float out; a
+    bf16 A times a float B into a float out, with a bf16 second store; a
+    bf16 A times a float B from a bf16 D into a bf16 out) on the tensor
+    cores, an f32 B split in two bf16 halves (``gemm_split`` emulates it)."""
     args, (P, M, N, K), out, diff, types = _operands(A, B, D, out, minuend,
                                                      out_dtype)
     if types:
@@ -259,10 +261,10 @@ def narrow(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def gemm_order(A, B, D=None, *, sub=False, out=None, minuend=None):
     """``gemm`` through the oracle of its summation order
     (``wide_gemm_order_f32``: one thread an element, the order as loops),
-    float32 operands only: a bf16 product is held to it on the widened
-    operands, rounded where the product stores bf16. For the tests, which
-    hold every instantiation of the tile routine to it bit for bit; no path
-    calls it."""
+    float32 operands only (the bf16 products sum inside the tensor cores'
+    steps, which no oracle reproduces: ``gemm_split`` is theirs). For the
+    tests, which hold every f32 instantiation of the tile routine to it bit
+    for bit; no path calls it."""
     args, (P, M, N, K), out, diff, types = _operands(A, B, D, out, minuend)
     if types:
         raise ValueError("wide_gemm_order: float32 operands only")
@@ -270,6 +272,34 @@ def gemm_order(A, B, D=None, *, sub=False, out=None, minuend=None):
         build.check(_order_kernel()(*args, P, M, N, K, int(sub),
                                     backend.stream_ptr(A)), "wide_gemm_order")
     return out if diff is None else (out, diff)
+
+
+def gemm_split(A, B, D=None, *, sub=False, minuend=None, out_dtype=None,
+               scale=False):
+    """The bf16 mixes of ``gemm`` as the wgmma kernels compute them,
+    emulated in f32 torch.matmul on the widened operands: a bf16 A times a
+    bf16 B, or times an f32 B split in two bf16 halves
+    (``ref.split_matmul``); each output rounded once to its dtype (out:
+    ``out_dtype``, by default A's; the second store: E's). With ``scale``
+    also each output's term magnitudes (|D| + |A| |B|, |E| + |A| |B|), the
+    scale of ``ref.bf16_ulp_ok``. For the tests, which hold the kernels to
+    it within one bf16 ulp (f32 outputs within f32 round-off); no path
+    calls it."""
+    AB = (ref.split_matmul(A, B) if B.dtype == torch.float32
+          else A.float() @ B.float())
+    if D is not None:
+        res = D.float() - AB if sub else D.float() + AB
+    else:
+        res = -AB if sub else AB
+    outs = (res.to(A.dtype if out_dtype is None else out_dtype),)
+    if minuend is not None:
+        outs += ((minuend.float() - AB).to(minuend.dtype),)
+    if scale:
+        aAB = A.float().abs() @ B.float().abs()
+        scales = tuple(aAB if X is None else X.float().abs() + aAB
+                       for X in (D, minuend)[:len(outs)])
+        return outs, scales
+    return outs if minuend is not None else outs[0]
 
 
 def gemm_plain(A, B, D=None, *, sub=False, out=None, bn=None, minuend=None,

@@ -6,8 +6,10 @@ axis for b up to ``MAX_B``, and the three products of ``csrc/wide.cu``
 (``wide.wy_apply_wide``) for a wider b; ``wy_apply_plain`` is its plain
 PyTorch version. It takes float32 and bfloat16 at any b (``wy_apply_f32``,
 ``wy_apply_bf16``; above MAX_B the products of ``csrc/wide.cu`` and, at
-bf16, ``csrc/wide_bf16.cu``, Y^T C and W in float): the bf16 bits are the
-f32 kernel's on the widened operands, rounded once.
+bf16, ``csrc/wide_bf16.cu``, Y^T C and W in f32). At bf16 every product
+runs on the tensor cores (``csrc/wgmma_bf16.cuh``: bf16 operands, f32
+sums, an f32 operand split in two bf16 halves); ``ref.wy_apply_split``
+emulates it in f32.
 """
 from __future__ import annotations
 

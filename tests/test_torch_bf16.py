@@ -29,6 +29,8 @@ import repro_torch.core as T
 from repro_torch.ft import FailureSchedule, ft_caqr_sweep, sweep_point
 from repro_torch.ft.online import state as tstate
 from repro_torch.kernels import backend, ops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import wide as twide
 
 RTOL, ATOL = jref.tolerances(jnp.bfloat16)
 BF16 = torch.bfloat16
@@ -160,6 +162,98 @@ def test_k1_k5_bf16_match_pallas_interpret(op, m, b, n):
     assert all(g.dtype == BF16 for g in got)
     assert all(w.dtype == jnp.bfloat16 for w in want)
     close(got, want)
+
+
+# -- the split of the bf16 products (csrc/wgmma_bf16.cuh) --------------------
+
+# The JAX package's K2 and K4 tile programs, jitted once.
+_JAX_MATH = {"wy_apply": jax.jit(jwy.wy_apply_math),
+             "stacked_apply": jax.jit(jstacked.stacked_apply_math)}
+_SPLIT = {"wy_apply": tref.wy_apply_split, "stacked_apply": tref.stacked_apply_split}
+
+
+def test_split_bf16_is_the_kernels_rule():
+    """ref.split_bf16: hi is x rounded to nearest even bf16 and hi + lo
+    reproduces x to 2^-16 relative (exactly where x has at most 16
+    significant bits), across a wide range of magnitudes."""
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal((64, 48)) * np.exp2(rng.integers(-20, 20, (64, 48))))
+    x = torch.from_numpy(x.astype(np.float32))
+    hi, lo = tref.split_bf16(x)
+    assert hi.dtype == lo.dtype == BF16
+    assert torch.equal(hi, x.to(BF16))
+    rel = (hi.double() + lo.double() - x.double()).abs() / x.double().abs()
+    assert float(rel.max()) <= 2.0 ** -16
+    ints = torch.arange(-65535, 65536, 251, dtype=torch.float32)
+    h, l = tref.split_bf16(ints)
+    assert torch.equal(h.float() + l.float(), ints)
+
+
+def test_split_matmul_carries_f32_operand():
+    """ref.split_matmul (a bf16 A times an f32 X as two bf16 products) is
+    within 2^-15 of the f32 product, scaled by |A| |X|, where the bf16
+    product of the rounded X is off by about 2^-9."""
+    rng = np.random.default_rng(12)
+    A = torch.from_numpy(rng.standard_normal((40, 70)).astype(np.float32)).to(BF16)
+    X = torch.from_numpy(rng.standard_normal((70, 30)).astype(np.float32))
+    exact = A.double() @ X.double()
+    scale = float((A.double().abs() @ X.double().abs()).max())
+    err = float((tref.split_matmul(A, X).double() - exact).abs().max()) / scale
+    rounded = float((A.double() @ X.to(BF16).double() - exact).abs().max()) / scale
+    assert err <= 2.0 ** -15 and rounded > 8 * err
+
+
+def test_bf16_ulp_ok_counts_one_ulp_at_the_terms_scale():
+    """ref.bf16_ulp_ok, the card's check of the wgmma kernels against the
+    split emulation: adjacent bf16 values pass, two ulps apart fail, and a
+    cancelled element passes within one ulp of its terms' magnitude."""
+    x = torch.tensor([1.0, 3.0, -0.75, 256.0], dtype=BF16)
+    bits = x.view(torch.int16)
+    up1 = (bits + 1).view(BF16)
+    up2 = (bits + 2).view(BF16)
+    assert tref.bf16_ulp_ok(up1, x) and not tref.bf16_ulp_ok(up2, x)
+    tiny = torch.tensor([2.0 ** -10], dtype=BF16)
+    off = torch.tensor([2.0 ** -10 + 2.0 ** -12], dtype=BF16)
+    assert not tref.bf16_ulp_ok(off, tiny)
+    assert tref.bf16_ulp_ok(off, tiny, torch.tensor([1.0]))
+
+
+@pytest.mark.parametrize("m,b,n", SHAPES)
+@pytest.mark.parametrize("op", ["wy_apply", "stacked_apply"])
+def test_split_emulation_matches_jax_tile_programs(op, m, b, n):
+    """The bf16 K2 and K4 of the card (split operands, f32 sums), emulated
+    in f32 (ref.wy_apply_split, ref.stacked_apply_split), within the bf16
+    tolerance of the JAX package's tile programs (wy_apply_math,
+    stacked_apply_math) on the reference's bf16 parity shapes, every
+    output bf16."""
+    pairs = [both(x) for x in _inputs(op, m, b, n, seed=m * 100 + b)]
+    got = _SPLIT[op](*[p[0] for p in pairs])
+    want = _JAX_MATH[op](*[p[1] for p in pairs])
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    assert all(g.dtype == BF16 for g in got)
+    close(got, want)
+
+
+@pytest.mark.parametrize("kind", ["BBF", "BFF", "BFB"])
+def test_gemm_split_emulates_the_wide_bf16_mixes(kind):
+    """wide.gemm_split, the emulation the card holds the bf16 wide products
+    to, within the bf16 tolerance of the plain product (wide.gemm_plain on
+    the widened operands) at each of the routes' three mixes, in the
+    output dtype each mix stores."""
+    rng = np.random.default_rng(13)
+    A = torch.from_numpy(rng.standard_normal((2, 37, 150)).astype(np.float32)).to(BF16)
+    B = torch.from_numpy(rng.standard_normal((2, 150, 29)).astype(np.float32))
+    D = torch.from_numpy(rng.standard_normal((2, 37, 29)).astype(np.float32)).to(BF16)
+    B = B.to(BF16) if kind == "BBF" else B
+    out_dtype = BF16 if kind == "BFB" else torch.float32
+    sub = kind == "BFB"
+    Dk = D if kind != "BFF" else None
+    got = twide.gemm_split(A, B, Dk, sub=sub, out_dtype=out_dtype)
+    want = twide.gemm_plain(A.double(), B.double(),
+                            None if Dk is None else Dk.double(), sub=sub)
+    assert got.dtype == out_dtype
+    close(got, want.numpy())
 
 
 # -- K6: the whole panel ------------------------------------------------------

@@ -1502,6 +1502,34 @@ def same(got, want):
         g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
 
 
+def err64(got, want64):
+    """max |got - want64| / max(1, max |want64|), in float64."""
+    g, w = got.double(), want64.double()
+    return float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+
+
+def wgmma_contract(got, split, witness, want64):
+    """The bf16 products of K2 and K4 on wgmma (csrc/wgmma_bf16.cuh): each
+    output within one bf16 ulp of the split emulation (``split``: its
+    outputs and their term magnitudes, ``ref.bf16_ulp_ok``), and its
+    float64 scaled error at most 1.25 x that of the witness (the f32 kernel
+    on the widened inputs rounded once, the FFMA body's bits) plus 1e-3."""
+    outs, scales = split
+    for i, (g, sp, sc, w, w64) in enumerate(zip(got, as_tuple(outs),
+                                                as_tuple(scales), witness,
+                                                want64)):
+        assert g.dtype == BF16
+        assert tref.bf16_ulp_ok(g, sp, sc), f"output {i} off the split emulation"
+        assert err64(g, w64) <= 1.25 * err64(w, w64) + 1e-3, i
+
+
+def ints(rng, *shape, triu=False, p=0.5):
+    """Entries in {-1, 0, 1} (nonzero with probability p) as bf16: products
+    whose every sum is an integer below 2^24 (exact in f32 in any order)."""
+    x = rng.choice([-1.0, 1.0], size=shape) * (rng.random(shape) < p)
+    return t((np.triu(x) if triu else x).astype(np.float32)).to("cuda", BF16)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,b,row_start", [(37, 5, 2), (512, 128, 0),
                                            (1000, 96, 37), (4096, 128, 3968)])
@@ -1518,26 +1546,34 @@ def test_cuda_bf16_panel_qr_is_f32_rounded(rng, cuda, m, b, row_start):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,b,n", [(37, 5, 13), (256, 128, 300), (130, 33, 67)])
-def test_cuda_bf16_wy_apply_is_f32_rounded(rng, cuda, m, b, n):
-    """K2 at bf16 on a strided window: the f32 kernel rounded once, the
-    plain version's tolerance, a lane alone == its lane."""
+@pytest.mark.parametrize("m,b,n,off", [(37, 5, 13, 4), (256, 128, 300, 4),
+                                       (130, 33, 67, 4), (600, 128, 520, 8)])
+def test_cuda_bf16_wy_apply_holds_the_wgmma_contract(rng, cuda, m, b, n, off):
+    """K2 at bf16 on a strided window (off 4: element-wise staging; off 8:
+    16-byte copies), its products on wgmma: the split emulation within one
+    bf16 ulp, the witness's float64 error, the plain version's tolerance, a
+    lane alone == its lane, every column tile the same bits."""
     Y = bf16(rng, 3, m, b, scale=0.1)
     T = bf16(rng, 3, b, b, scale=0.1, triu=True)
-    C = bf16(rng, 3, m, n + 4)[..., 4:]
+    C = bf16(rng, 3, m, n + off)[..., off:]
     got = ops.wy_apply(Y, T, C)
-    assert got.dtype == BF16
-    assert same(got, f32_rounded(ops.wy_apply, Y, T, C))
+    assert backend.products_report()["wy_apply"] == backend.ENGINE_WGMMA
+    wgmma_contract((got,), tref.wy_apply_split(Y, T, C, scale=True),
+                   f32_rounded(ops.wy_apply, Y, T, C), (tref.wy_apply(*f64(Y, T, C)),))
     held_bf16((got,), (tref.wy_apply(Y, T, C),), (tref.wy_apply(*f64(Y, T, C)),))
     assert torch.equal(got[2], ops.wy_apply(Y[2], T[2], C[2]))
+    for bn in backend.TILE_BNS:
+        assert torch.equal(got, twy.wy_apply(Y, T, C, bn=bn)), bn
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n", [(5, 11), (100, 259), (128, 600)])
-def test_cuda_bf16_stacked_kernels_are_f32_rounded(rng, cuda, b, n):
-    """K3 and K4 at bf16: the f32 kernels rounded once; the plain
-    versions' tolerance; a lane alone == its lane; K3 gives both lanes of
-    a butterfly pair, which stack the same triangles, the same bits."""
+def test_cuda_bf16_stacked_qr_is_f32_rounded_and_stacked_apply_on_wgmma(rng, cuda, b, n):
+    """K3 at bf16: the f32 kernel rounded once; K4 at bf16 holds the wgmma
+    contract (split emulation within one bf16 ulp, the witness's float64
+    error), every column tile the same bits; the plain versions'
+    tolerance; a lane alone == its lane; K3 gives both lanes of a butterfly
+    pair, which stack the same triangles, the same bits."""
     P = 4
     Rt = t(np.stack([qr_factor(rng, b) for _ in range(P)])).to(cuda, BF16)
     Rb = t(np.stack([qr_factor(rng, b) for _ in range(P)])).to(cuda, BF16)
@@ -1550,10 +1586,15 @@ def test_cuda_bf16_stacked_kernels_are_f32_rounded(rng, cuda, b, n):
     Y2, T = got[0], got[1]
     Ct, Cb = bf16(rng, P, b, n), bf16(rng, P, b, n)
     out = ops.stacked_apply(Y2, T, Ct, Cb)
-    assert same(out, f32_rounded(ops.stacked_apply, Y2, T, Ct, Cb))
+    assert backend.products_report()["stacked_apply"] == backend.ENGINE_WGMMA
+    wgmma_contract(out, tref.stacked_apply_split(Y2, T, Ct, Cb, scale=True),
+                   f32_rounded(ops.stacked_apply, Y2, T, Ct, Cb),
+                   tref.stacked_apply(*f64(Y2, T, Ct, Cb)))
     held_bf16(out, tref.stacked_apply(Y2, T, Ct, Cb),
               tref.stacked_apply(*f64(Y2, T, Ct, Cb)))
     assert same(tuple(x[1] for x in out), ops.stacked_apply(Y2[1], T[1], Ct[1], Cb[1]))
+    for bn in backend.TILE_BNS:
+        assert same(out, tstacked.stacked_apply(Y2, T, Ct, Cb, bn=bn)), bn
 
 
 @pytest.mark.cuda
@@ -1659,12 +1700,13 @@ def test_cuda_bf16_full_width_equals_windowed(rng, cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ["panel_qr", "wy_apply", "stacked_qr",
                                 "stacked_apply", "panel_qr_apply", "fused_panel"])
-def test_cuda_bf16_above_128_columns_raises(rng, cuda, op):
+def test_cuda_bf16_above_128_columns_runs_the_bf16_kernels(rng, cuda, op):
     """bf16 above 128 columns runs each op's hand-written bf16 kernel: one
-    bf16 launch of the op, its engine the CUDA kernel, the outputs bf16,
-    and K1-K4 the f32 kernel's on the widened inputs rounded once, K5 K1
-    then K2, K6's leaf factors and applied window K1's and K2's, bit for
-    bit (it raised while only b <= 128 had bf16 kernels)."""
+    bf16 launch of the op, its engine the CUDA kernel, the outputs bf16;
+    K1 and K3 the f32 kernel's on the widened inputs rounded once, K2 and
+    K4 the wgmma contract (their products on the tensor cores), K5 K1 then
+    K2, K6's leaf factors and applied window K1's and K2's, bit for bit
+    (it raised while only b <= 128 had bf16 kernels)."""
     b, m, n = 160, 512, 320
     W = bf16(rng, 2, m, n)
     sq = bf16(rng, 2, b, b, scale=0.1, triu=True)
@@ -1686,8 +1728,17 @@ def test_cuda_bf16_above_128_columns_raises(rng, cuda, op):
     outs = tuple(got[f] for f in tfused.FUSED_FIELDS) if op == "fused_panel" \
         else (got if isinstance(got, tuple) else (got,))
     assert all(x.dtype == BF16 for x in outs)
-    if op in ("panel_qr", "wy_apply", "stacked_qr", "stacked_apply"):
+    if op in ("panel_qr", "stacked_qr"):
         assert same(got, f32_rounded(lambda x, s: calls[op](x, s), W, sq))
+    elif op in ("wy_apply", "stacked_apply"):
+        assert backend.products_report()[op] == backend.ENGINE_WGMMA
+        args = ((W[..., :b].contiguous(), sq, W) if op == "wy_apply"
+                else (sq, sq, Ct, Cb))
+        split = (tref.wy_apply_split if op == "wy_apply" else tref.stacked_apply_split)
+        plain = tref.wy_apply if op == "wy_apply" else tref.stacked_apply
+        wgmma_contract(as_tuple(got), split(*args, scale=True),
+                       f32_rounded(lambda x, s: calls[op](x, s), W, sq),
+                       as_tuple(plain(*f64(*args))))
     else:
         Y, T, R = ops.panel_qr(W[..., :b], 0)
         C = ops.wy_apply(Y, T, W)
@@ -1718,18 +1769,21 @@ def test_cuda_bf16_wide_panel_qr_is_f32_rounded(rng, cuda, m, b, row_start):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,b,n", [(512, 256, 300), (600, 200, 130)])
-def test_cuda_bf16_wide_wy_apply_is_f32_rounded(rng, cuda, m, b, n):
-    """K2 above 128 columns at bf16 on a strided window: the f32 route on
-    the widened operands rounded once (Y^T C and W stay float), the plain
-    version's tolerance, a lane alone == its lane, every column tile the
-    same bits."""
+@pytest.mark.parametrize("m,b,n,off", [(512, 256, 300, 4), (600, 200, 130, 4),
+                                       (1024, 256, 512, 8)])
+def test_cuda_bf16_wide_wy_apply_holds_the_wgmma_contract(rng, cuda, m, b, n, off):
+    """K2 above 128 columns at bf16 on a strided window (off 4:
+    element-wise staging; off 8: 16-byte copies), its three products on
+    wgmma (Y^T C and W stay f32): the split emulation within one bf16 ulp,
+    the witness's float64 error, the plain version's tolerance, a lane
+    alone == its lane, every column tile and split of k the same bits."""
     Y = bf16(rng, 3, m, b, scale=0.1)
     T = bf16(rng, 3, b, b, scale=0.1, triu=True)
-    C = bf16(rng, 3, m, n + 4)[..., 4:]
+    C = bf16(rng, 3, m, n + off)[..., off:]
     got = ops.wy_apply(Y, T, C)
-    assert got.dtype == BF16
-    assert same(got, f32_rounded(ops.wy_apply, Y, T, C))
+    assert backend.products_report()["wy_apply"] == backend.ENGINE_WGMMA
+    wgmma_contract((got,), tref.wy_apply_split(Y, T, C, scale=True),
+                   f32_rounded(ops.wy_apply, Y, T, C), (tref.wy_apply(*f64(Y, T, C)),))
     held_bf16((got,), (tref.wy_apply(Y, T, C),), (tref.wy_apply(*f64(Y, T, C)),))
     assert torch.equal(got[2], ops.wy_apply(Y[2], T[2], C[2]))
     for bn in backend.TILE_BNS:
@@ -1738,11 +1792,12 @@ def test_cuda_bf16_wide_wy_apply_is_f32_rounded(rng, cuda, m, b, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n", [(200, 259), (256, 600)])
-def test_cuda_bf16_wide_stacked_kernels_are_f32_rounded(rng, cuda, b, n):
-    """K3 and K4 above 128 columns at bf16: the f32 routes on the widened
-    inputs rounded once (K4's W rounded after C_bot - Y2 W read it in
-    float); the plain versions' tolerance; a lane alone == its lane; both
-    lanes of a butterfly pair the same bits."""
+def test_cuda_bf16_wide_stacked_qr_is_f32_rounded_and_stacked_apply_on_wgmma(rng, cuda, b, n):
+    """K3 above 128 columns at bf16: the f32 route on the widened inputs
+    rounded once; K4 the wgmma contract (its W rounded after C_bot - Y2 W
+    read it in f32), every column tile the same bits; the plain versions'
+    tolerance; a lane alone == its lane; both lanes of a butterfly pair the
+    same bits."""
     P = 4
     Rt = t(np.stack([qr_factor(rng, b) for _ in range(P)])).to(cuda, BF16)
     Rb = t(np.stack([qr_factor(rng, b) for _ in range(P)])).to(cuda, BF16)
@@ -1756,10 +1811,15 @@ def test_cuda_bf16_wide_stacked_kernels_are_f32_rounded(rng, cuda, b, n):
     Y2, T = got[0], got[1]
     Ct, Cb = bf16(rng, P, b, n), bf16(rng, P, b, n)
     out = ops.stacked_apply(Y2, T, Ct, Cb)
-    assert same(out, f32_rounded(ops.stacked_apply, Y2, T, Ct, Cb))
+    assert backend.products_report()["stacked_apply"] == backend.ENGINE_WGMMA
+    wgmma_contract(out, tref.stacked_apply_split(Y2, T, Ct, Cb, scale=True),
+                   f32_rounded(ops.stacked_apply, Y2, T, Ct, Cb),
+                   tref.stacked_apply(*f64(Y2, T, Ct, Cb)))
     held_bf16(out, tref.stacked_apply(Y2, T, Ct, Cb),
               tref.stacked_apply(*f64(Y2, T, Ct, Cb)))
     assert same(tuple(x[1] for x in out), ops.stacked_apply(Y2[1], T[1], Ct[1], Cb[1]))
+    for bn in backend.TILE_BNS:
+        assert same(out, tstacked.stacked_apply(Y2, T, Ct, Cb, bn=bn, kbs=1)), bn
 
 
 # The bf16 products of the wide routes (P, M, N, K, kind): "BBF" a bf16 A
@@ -1771,33 +1831,101 @@ BF16_GEMM_CASES = [(8, 256, 300, 5632, "BBF At"), (2, 97, 65, 600, "BBF D"),
                    (2, 1000, 257, 256, "BFB"), (1, 130, 70, 17, "BFB sub")]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", BF16_GEMM_CASES, ids=lambda c: "-".join(map(str, c)))
-def test_cuda_bf16_wide_gemm_equals_its_order_oracle(cuda, case):
-    """wide_gemm at the bf16 mixes, at every tile (bn 32/64/128) and split
-    of k, equals wide_gemm_order_f32 on the widened operands, rounded where
-    the product stores bf16, bit for bit."""
+def _bf16_gemm_operands(case, cuda, integers=False):
+    """A bf16 product's operands from a BF16_GEMM_CASES entry: (A, B, D, E,
+    sub, out_dtype); ``integers``: entries in {-1, 0, 1}."""
     P, M, N, K, how = case
     g = torch.Generator().manual_seed(sum(case[:4]))
     kind = how.split()[0]
     A, B, D, E = _gemm_case(g, P, M, N, K, ("" if "D" in how or kind == "BFB"
                                             else "noD ") + how, cuda)
+    if integers:
+        A, B, D, E = (None if x is None else x.sign() * (x.abs() > 0.7)
+                      for x in (A, B, D, E))
     A = A.to(BF16)
     B = B.to(BF16) if kind == "BBF" else B
     D = None if D is None else D.to(BF16)
     E = E.to(BF16) if "E" in how else None
     sub = "sub" in how or kind == "BFB"
-    out_dtype = BF16 if kind == "BFB" else torch.float32
-    want = as_tuple(twide.gemm_order(A.float(), B.float(),
-                                     None if D is None else D.float(), sub=sub,
-                                     minuend=None if E is None else E.float()))
-    want = (want[0].to(out_dtype),) + tuple(w.to(BF16) for w in want[1:])
-    nblk = twide.kblocks(K)
+    return A, B, D, E, sub, BF16 if kind == "BFB" else torch.float32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_GEMM_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cuda_bf16_wide_gemm_is_its_split_emulation_at_every_tile(cuda, case):
+    """wide_gemm at the bf16 mixes, on wgmma: within one bf16 ulp of the
+    split emulation (``wide.gemm_split``) where it stores bf16 and within
+    f32 round-off where it stores f32; every tile (bn 32/64/128, a wgmma N
+    of 16 to 128) and split of k gives the same bits."""
+    A, B, D, E, sub, out_dtype = _bf16_gemm_operands(case, cuda)
+    want, scales = twide.gemm_split(A, B, D, sub=sub, minuend=E,
+                                    out_dtype=out_dtype, scale=True)
+    ref_bits = as_tuple(twide.gemm(A, B, D, sub=sub, minuend=E,
+                                   out_dtype=out_dtype))
+    for g, w, sc in zip(ref_bits, want, scales):
+        assert g.dtype == w.dtype
+        if g.dtype == BF16:
+            assert tref.bf16_ulp_ok(g, w, sc)
+        else:
+            scale = max(1.0, float(w.abs().max()))
+            assert float((g - w).abs().max()) <= 2.0 ** -16 * scale
+    nblk = twide.kblocks(case[3])
     for bn in twide.TILES:
         for kbs in sorted({None, nblk, 1, 2}, key=str):
             got = as_tuple(twide.gemm(A, B, D, sub=sub, minuend=E, bn=bn,
                                       kbs=kbs, out_dtype=out_dtype))
-            assert same(got, want), (bn, kbs)
+            assert same(got, ref_bits), (bn, kbs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_GEMM_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cuda_bf16_wgmma_routine_exact_on_integers_and_lane_alone(cuda, case):
+    """The wgmma routine alone on operands in {-1, 0, 1}, whose every sum
+    is exact in f32 (and every f32 B splits exactly): the split emulation
+    bit for bit at every tile and split of k, so each layout, major order,
+    wgmma N and copy path puts every term in its place; and, on random
+    operands, each lane alone == that lane of the P-lane launch."""
+    A, B, D, E, sub, out_dtype = _bf16_gemm_operands(case, cuda, integers=True)
+    want = as_tuple(twide.gemm_split(A, B, D, sub=sub, minuend=E,
+                                     out_dtype=out_dtype))
+    nblk = twide.kblocks(case[3])
+    for bn in twide.TILES:
+        for kbs in sorted({None, 1}, key=str):
+            got = as_tuple(twide.gemm(A, B, D, sub=sub, minuend=E, bn=bn,
+                                      kbs=kbs, out_dtype=out_dtype))
+            assert same(got, want), (bn, kbs, nblk)
+    A, B, D, E, sub, out_dtype = _bf16_gemm_operands(case, cuda)
+    full = as_tuple(twide.gemm(A, B, D, sub=sub, minuend=E, out_dtype=out_dtype))
+    p = case[0] - 1
+    one = as_tuple(twide.gemm(A[p:p + 1], B[p:p + 1],
+                              None if D is None else D[p:p + 1], sub=sub,
+                              minuend=None if E is None else E[p:p + 1],
+                              out_dtype=out_dtype))
+    assert same(tuple(x[p:p + 1] for x in full), one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,b,n,off", [(256, 128, 200, 8), (130, 33, 67, 4),
+                                       (300, 160, 200, 8)])
+def test_cuda_bf16_wgmma_k2_k4_exact_on_integers(cuda, m, b, n, off):
+    """K2 and K4 at bf16 (b <= 128: the engine, every column tile; above:
+    the wide route) on entries in {-1, 0, 1}, where every sum of the chain
+    is an integer below 2^24 and every split exact: equal to the split
+    emulation bit for bit, so the engine's three phases put every term in
+    its place."""
+    rng = np.random.default_rng(m + b + n)
+    Y = ints(rng, 2, m, b, p=0.5)
+    T = ints(rng, 2, b, b, triu=True, p=0.5)
+    C = ints(rng, 2, m, n + off, p=0.5)[..., off:]
+    Ct, Cb = ints(rng, 2, b, n), ints(rng, 2, b, n)
+    Y2 = ints(rng, 2, b, b, triu=True, p=0.5)
+    W = tref.stacked_apply_split(Y2, T, Ct, Cb)[2]
+    assert float(W.float().abs().max()) < 2 ** 16  # the split is exact
+    bns = backend.TILE_BNS if b <= twy.MAX_B else (None,)
+    for bn in bns:
+        assert torch.equal(twy.wy_apply(Y, T, C, bn=bn), tref.wy_apply_split(Y, T, C)), bn
+        assert same(tstacked.stacked_apply(Y2, T, Ct, Cb, bn=bn),
+                    tref.stacked_apply_split(Y2, T, Ct, Cb)), bn
 
 
 @pytest.mark.cuda
